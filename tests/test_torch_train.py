@@ -1,0 +1,189 @@
+"""The PyTorch port end to end on the CPU: the training trajectory against
+the JAX package's own loop, the data tier, the CLI's output contract, and
+the guards (no JAX import, no silent CPU fallback)."""
+
+import ast
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import jax
+
+from dca_tpu.data import io as jio
+from dca_tpu.data.adata import AnnData as JAnnData
+from dca_tpu.models import NBAutoencoder as JNBAutoencoder
+from dca_tpu.train.loop import train as jtrain
+
+import dca_tpu_torch
+from dca_tpu_torch.__main__ import main, parse_args
+from dca_tpu_torch.bridge import params_from_jax
+from dca_tpu_torch.data import io
+from dca_tpu_torch.data.adata import AnnData
+from dca_tpu_torch.models.network import NBAutoencoder
+from dca_tpu_torch.train.loop import train
+
+from conftest import make_counts
+
+torch.set_num_threads(1)  # tier-1 runs several pytest workers at once
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_trajectory_matches_jax_training_loop(monkeypatch):
+    """Both packages train nb-conddisp (16, 8, 16) from the same weights on
+    the same data for 3 epochs: dropout 0 and one seed give both the same
+    np.random.RandomState permutation stream, so the per-epoch losses must
+    agree.  The JAX side runs its fused Pallas kernels in interpret mode
+    (DCA_TPU_FUSED_LOSS=1), the same log1p/Stirling math as the port's
+    plain version; what remains is float rounding in another order, which
+    grows through the RMSprop steps: rtol 1e-4."""
+    monkeypatch.setenv("DCA_TPU_FUSED_LOSS", "1")
+    counts = make_counts(200, 50)
+    jad = jio.normalize(jio.read_dataset(JAnnData(counts.copy())))
+    ad = io.normalize(io.read_dataset(AnnData(counts.copy())))
+    np.testing.assert_array_equal(ad.X, jad.X)
+
+    jnet = JNBAutoencoder(input_size=50, hidden_size=(16, 8, 16),
+                          hidden_dropout=0.0, seed=7).build()
+    net = NBAutoencoder(input_size=50, hidden_size=(16, 8, 16), hidden_dropout=0.0,
+                        device="cpu").build()
+    net.model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jnet.params),
+        jax.tree_util.tree_map(np.asarray, jnet.state)))
+
+    jhist = jtrain(jad, jnet, epochs=3, verbose=False, seed=11, compiled=False)
+    hist = train(ad, net, epochs=3, verbose=False, seed=11)
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose(hist.history[key], jhist.history[key], rtol=1e-4,
+                                   err_msg=key)
+    assert hist.history["lr"] == jhist.history["lr"]
+
+
+def test_normalize_and_test_fold_match_jax():
+    counts = make_counts(60, 20, seed=4)
+    counts[5] = 0.0  # an all-zero cell is dropped by filter_cells
+    jad = jio.normalize(jio.read_dataset(JAnnData(counts.copy()), test_split=True))
+    ad = io.normalize(io.read_dataset(AnnData(counts.copy()), test_split=True))
+    np.testing.assert_array_equal(ad.X, jad.X)
+    np.testing.assert_array_equal(ad.raw.X, jad.raw.X)
+    np.testing.assert_array_equal(np.asarray(ad.obs["size_factors"]),
+                                  np.asarray(jad.obs["size_factors"]))
+    # numpy's draw of sklearn's train_test_split(test_size=0.1, random_state=42)
+    np.testing.assert_array_equal(np.asarray(ad.obs["dca_split"]),
+                                  np.asarray(jad.obs["dca_split"]))
+
+
+@pytest.fixture()
+def input_tsv(tmp_path):
+    counts = make_counts(60, 20, seed=11)  # cells x genes; the file is gene x cell
+    df = pd.DataFrame(counts.T.astype(int), index=[f"gene{i}" for i in range(20)],
+                      columns=[f"cell{i}" for i in range(60)])
+    path = str(tmp_path / "counts.tsv")
+    df.to_csv(path, sep="\t")
+    return path
+
+
+def test_cli_end_to_end_on_cpu(input_tsv, tmp_path):
+    outdir = str(tmp_path / "out")
+    main([input_tsv, outdir, "-e", "2", "-s", "16,8,16", "--device", "cpu"])
+    for fname in ("mean.tsv", "mean_norm.tsv", "latent.tsv", "reduced.tsv",
+                  "dispersion.tsv", "model.pickle"):
+        assert os.path.exists(os.path.join(outdir, fname)), fname
+
+    mean = pd.read_csv(os.path.join(outdir, "mean.tsv"), sep="\t", index_col=0)
+    assert mean.shape == (20, 60) and mean.index[0] == "gene0"
+    assert np.isfinite(mean.to_numpy()).all()
+    latent = pd.read_csv(os.path.join(outdir, "latent.tsv"), sep="\t", index_col=0,
+                         header=None)
+    assert latent.shape == (60, 8) and np.isfinite(latent.to_numpy()).all()
+    disp = pd.read_csv(os.path.join(outdir, "dispersion.tsv"), sep="\t", index_col=0,
+                       header=None)
+    assert disp.shape == (20, 60) and np.isfinite(disp.to_numpy()).all()
+    # mean_norm is the unscaled mean of the model input: mean / mean_norm is
+    # each cell's size factor
+    mean_norm = pd.read_csv(os.path.join(outdir, "mean_norm.tsv"), sep="\t",
+                            index_col=0)
+    counts = pd.read_csv(input_tsv, sep="\t", index_col=0).to_numpy()
+    sf = counts.sum(axis=0) / np.median(counts.sum(axis=0))
+    np.testing.assert_allclose(mean.to_numpy() / mean_norm.to_numpy(),
+                               np.broadcast_to(sf[None, :], mean.shape), rtol=1e-3)
+
+    with open(os.path.join(outdir, "model.pickle"), "rb") as f:
+        payload = pickle.load(f)
+    assert payload["ae_type"] == "nb-conddisp"
+    assert payload["params"] is None  # saved before build, as the JAX CLI does
+
+
+@pytest.mark.parametrize("flags", [["--type", "zinb-conddisp"], ["--hyper"],
+                                   ["--outputformat", "h5ad"], ["--tensorboard"]])
+def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
+    with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
+        main([input_tsv, str(tmp_path / "out"), "-e", "1", "--device", "cpu", *flags])
+
+
+def test_cli_flag_surface_matches_jax():
+    from dca_tpu.__main__ import parse_args as jparse_args
+
+    ours = vars(parse_args(["in.tsv", "out"]))
+    theirs = vars(jparse_args(["in.tsv", "out"]))
+    assert ours.pop("device") is None
+    assert ours == theirs
+
+
+def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, input_tsv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    adata = AnnData(make_counts(40, 10, seed=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dca_tpu_torch.dca(adata, epochs=1)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main([input_tsv, str(tmp_path / "out"), "-e", "1"])
+    # train() fits on the network's device, which defaults to the card too
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(adata, NBAutoencoder(input_size=10).build(), epochs=1)
+
+
+def _port_files():
+    pkg = os.path.join(REPO, "dca_tpu_torch")
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_profile.py")]
+    for root, _, names in os.walk(pkg):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _is_forbidden(module):
+    return any(module == m or module.startswith(m + ".") for m in ("jax", "dca_tpu", "bench"))
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    # every import statement in the package and in chip_smoke.py, lazy ones too
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            assert not any(_is_forbidden(n) for n in names), (path, names)
+    # and, in a fresh interpreter, importing every module loads neither
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import dca_tpu_torch\n"
+        "for m in pkgutil.walk_packages(dca_tpu_torch.__path__, 'dca_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'dca_tpu') "
+        "or m.startswith(('jax.', 'dca_tpu.'))]\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
