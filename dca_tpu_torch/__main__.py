@@ -4,8 +4,9 @@ The flag surface of the JAX package's CLI (``dca_tpu/__main__.py``: names,
 defaults, paired --x/--no-x booleans), plus ``--device``: the run goes to
 the CUDA device unless ``--device cpu`` is given.  Flags whose paths are not
 ported yet (--hyper, --tensorboard, --saveweights, --devices,
---modelparallel, --outputformat h5ad, and any --type but nb-conddisp) are
-parsed and then refused with an error that names ROADMAP.md.
+--modelparallel, --outputformat h5ad, --activation PReLU and the
+optimizers other than RMSprop) are parsed and then refused with an error
+that names ROADMAP.md.  Every ``--type`` of the JAX package runs.
 """
 
 from __future__ import annotations
@@ -50,8 +51,9 @@ def parse_args(argv=None):
     # training options
     parser.add_argument(
         "--type", type=str, default="nb-conddisp",
-        help="Noise-model / architecture variant. This port runs nb-conddisp "
-        "(default); the other variants are listed in ROADMAP.md",
+        help="Noise-model / architecture variant: normal, poisson, nb, "
+        "nb-conddisp (default), nb-shared, nb-fork, zinb, zinb-conddisp, "
+        "zinb-shared, zinb-fork or zinb-elempi",
     )
     parser.add_argument(
         "--threads", type=int, default=None,

@@ -3,10 +3,13 @@
 A port of the JAX package's ``dca()`` (``dca_tpu/api.py``): the same
 signature and defaults (``ae_type='nb-conddisp'``, 64-32-64, epochs=300,
 batch 32, RMSprop, reduce_lr=10, early_stop=15), the same side effects
-(``adata.X`` overwritten in denoise mode, ``obsm['X_dca']`` in latent mode,
-``obsm['X_dca_dispersion']`` with ``return_info``, the loss history in
+(``adata.X`` overwritten in denoise mode, ``obsm['X_dca']`` in latent mode;
+with ``return_info`` the dispersion in ``obsm['X_dca_dispersion']``, or
+``var['X_dca_dispersion']`` for the constant-dispersion ``nb``/``zinb``,
+and the ZINB dropout in ``obsm['X_dca_dropout']``; the loss history in
 ``uns['dca_loss_history']``) and the same return values (copy x
-return_model), plus ``device``: the CUDA device unless ``device="cpu"``.
+return_model), for every ``ae_type`` of the JAX package, plus ``device``:
+the CUDA device unless ``device="cpu"``.
 
 The JAX package's ``devices``/``model_parallel`` mesh arguments wait for a
 later slice (ROADMAP.md).

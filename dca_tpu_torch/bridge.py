@@ -2,12 +2,16 @@
 
 ``params_from_jax(params, state)`` takes the ``dca_tpu`` params/state pytree
 as nested dicts of numpy arrays (``{'trunk': {layer: {'kernel', 'bias',
-'bn_beta'}}, 'heads': {head: {'kernel', 'bias'}}}`` and ``{'trunk': {layer:
-{'moving_mean', 'moving_var'}}}``) and returns the state dict of a
-``models.core.DCANetwork`` of the same definition, for
+'bn_beta'}}, 'branches': {branch: {layer: {...}}}, 'heads': {head:
+{'kernel', 'bias'} or {'theta'}}}`` and the same ``trunk``/``branches``
+layout of ``moving_mean``/``moving_var`` for the state) and returns the
+state dict of a ``models.core.DCANetwork`` of the same definition, for
 ``net.load_state_dict(..., strict=True)``, which checks every name and
-shape.  Kernels are (in, out) on both sides, so nothing is transposed.
-The tests use it to run both packages on the same weights.
+shape.  The names are the pytree paths joined by dots
+(``branches.mean.dec1_last_mean.kernel``, ``heads.dispersion.theta``).
+Kernels are (in, out) on both sides, and the elementwise pi kernel a
+vector on both, so nothing is transposed.  The tests use it to run both
+packages on the same weights.
 """
 
 from __future__ import annotations
@@ -16,14 +20,17 @@ import numpy as np
 import torch
 
 
+def _flatten(tree, prefix, out):
+    for key, value in tree.items():
+        name = f"{prefix}.{key}" if prefix else key
+        if isinstance(value, dict):
+            _flatten(value, name, out)
+        else:
+            out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+
+
 def params_from_jax(params, state):
-    if params.get("branches") or state.get("branches"):
-        raise NotImplementedError("fork branches are not ported yet (ROADMAP.md)")
     out = {}
-    for group, tree in (("trunk", params["trunk"]), ("heads", params["heads"]),
-                        ("trunk", state.get("trunk", {}))):
-        for layer, leaves in tree.items():
-            for key, value in leaves.items():
-                out[f"{group}.{layer}.{key}"] = torch.from_numpy(
-                    np.array(value, dtype=np.float32))
+    _flatten(params, "", out)
+    _flatten(state, "", out)
     return out

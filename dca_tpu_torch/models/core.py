@@ -4,28 +4,34 @@
 A port of the JAX package's ``dca_tpu/models/core.py``.  ``build_definition``
 is the same pure-Python description of all 11 reference architectures; the
 parameters and batch-norm statistics live in ``DCANetwork``, named like the
-JAX pytree (``trunk.<layer>.kernel``, ``heads.<head>.bias``, ...), with
-each ``kernel`` kept (in, out) as JAX stores it.  ``apply`` returns the
+JAX pytree (``trunk.<layer>.kernel``, ``branches.<branch>.<layer>.bias``,
+``heads.<head>.bias``, the constant head's ``heads.dispersion.theta``, ...),
+with each dense ``kernel`` kept (in, out) as JAX stores it and the
+elementwise pi head's kernel a vector (units,).  ``apply`` returns the
 same outputs dict and the new batch-norm state:
 
     outputs = {
       'output':    MeanAct(mean_logits) * size_factors
       'mean':      MeanAct(mean_logits)          (alias 'mean_norm')
-      'disp':      dispersion
-      'pi':        None in this slice
+      'disp':      dispersion: (B, G), (B, 1) for *-shared, or the constant
+                   head's (1, G) clip(exp(theta), 1e-3, 1e4); None for
+                   normal and poisson
+      'pi':        dropout probability of the ZINB heads: (B, G), (B, 1)
+                   for zinb-shared; None otherwise
       'latent':    center Dense output before BN/activation
-      'decoded':   last trunk hidden
+      'decoded':   last trunk hidden (None for the fork architectures)
     }
 
 Trunk layer = Dense -> BatchNorm(center only) -> activation -> dropout, with
 Keras BatchNorm semantics: no gamma, eps 1e-3, the biased batch variance
 both for normalising and for the moving update, and
 ``moving = 0.99 * moving + 0.01 * batch``.  ``nn.BatchNorm1d`` is not used:
-it updates its running variance with the unbiased variance.
+it updates its running variance with the unbiased variance.  The fork
+architectures' decoder branches (``branches.<mean|disp|pi>.<layer>``) are
+such layers too, each with its own batch-norm state.
 
-This slice runs the architectures with a shared trunk and dense heads
-and no pi head (``nb-conddisp``); fork branches, the constant dispersion
-head, the pi heads and PReLU wait for later slices (ROADMAP.md, Queue 1).
+All 11 architectures of the JAX package run here; the PReLU activation
+(its trainable alpha) waits for a later slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..ops.initializers import get_initializer
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
+THETA_EXP_CLIP = (1e-3, 1e4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,11 +302,12 @@ def build_definition(
 
 class Dense(nn.Module):
     """One Dense layer's parameters, and its batch-norm parameter and state
-    when it has one.  ``kernel`` is (in, out), the JAX layout."""
+    when it has one.  ``kernel`` is (in, out), the JAX layout, or (units,)
+    for the elementwise pi head."""
 
     def __init__(self, kernel: torch.Tensor, batchnorm: bool):
         super().__init__()
-        units = kernel.shape[1]
+        units = kernel.shape[-1]
         zeros = torch.zeros(units, device=kernel.device, dtype=torch.float32)
         self.kernel = nn.Parameter(kernel)
         self.bias = nn.Parameter(zeros.clone())
@@ -310,50 +318,75 @@ class Dense(nn.Module):
             self.register_buffer("moving_var", torch.ones_like(zeros))
 
 
+class ConstantDispersion(nn.Module):
+    """The constant dispersion head: one free theta per gene, (1, G),
+    initialised to zeros (Keras ConstantDispersionLayer)."""
+
+    def __init__(self, units: int, device):
+        super().__init__()
+        self.theta = nn.Parameter(torch.zeros((1, units), device=device, dtype=torch.float32))
+
+
 def _check_supported(definition: NetworkDef):
-    if (definition.branches or definition.activation == "PReLU"
-            or "pi" in definition.heads
-            or any(h.kind != "dense" for h in definition.heads.values())):
+    if definition.activation == "PReLU":
         raise NotImplementedError(
-            f"ae_type {definition.ae_type!r} with activation "
-            f"{definition.activation!r} is not ported yet: this slice runs a "
-            "shared trunk with dense heads (see ROADMAP.md, Queue 1)"
-        )
+            "the PReLU activation (a trainable alpha per unit) is not ported "
+            "yet (see ROADMAP.md, Queue 1)")
+
+
+def _stack(layers, init_fn, generator, device):
+    return nn.ModuleDict({
+        layer.name: Dense(init_fn(generator, (layer.in_dim, layer.units), device),
+                          layer.batchnorm)
+        for layer in layers
+    })
+
+
+def _head(head: HeadDef, init_fn, generator, device):
+    if head.kind == "constant":
+        return ConstantDispersion(head.units, device)
+    shape = (head.units,) if head.kind == "elementwise" else (head.in_dim, head.units)
+    return Dense(init_fn(generator, shape, device), batchnorm=False)
 
 
 class DCANetwork(nn.Module):
-    """Parameters (``trunk``, ``heads``) and batch-norm state of a network,
-    initialised from ``generator`` in the JAX package's layer order."""
+    """Parameters (``trunk``, ``branches``, ``heads``) and batch-norm state
+    of a network, initialised from ``generator`` in the JAX package's layer
+    order."""
 
     def __init__(self, definition: NetworkDef, generator: torch.Generator,
                  device="cpu"):
         super().__init__()
         _check_supported(definition)
         init_fn = get_initializer(definition.init)
-        self.trunk = nn.ModuleDict({
-            layer.name: Dense(
-                init_fn(generator, (layer.in_dim, layer.units), device),
-                layer.batchnorm)
-            for layer in definition.shared
+        self.trunk = _stack(definition.shared, init_fn, generator, device)
+        self.branches = nn.ModuleDict({
+            bname: _stack(layers, init_fn, generator, device)
+            for bname, layers in definition.branches.items()
         })
         self.heads = nn.ModuleDict({
-            hname: Dense(init_fn(generator, (head.in_dim, head.units), device),
-                         batchnorm=False)
+            hname: _head(head, init_fn, generator, device)
             for hname, head in definition.heads.items()
         })
 
     def bn_state(self):
-        """{'trunk': {layer: {'moving_mean', 'moving_var'}}} of the BN layers."""
-        return {"trunk": {name: {"moving_mean": d.moving_mean,
-                                 "moving_var": d.moving_var}
-                          for name, d in self.trunk.items() if d.batchnorm}}
+        """{'trunk': {layer: {'moving_mean', 'moving_var'}}, 'branches':
+        {branch: {layer: ...}}} of the BN layers."""
+        def of(stack):
+            return {name: {"moving_mean": d.moving_mean, "moving_var": d.moving_var}
+                    for name, d in stack.items() if d.batchnorm}
+        return {"trunk": of(self.trunk),
+                "branches": {b: of(stack) for b, stack in self.branches.items()}}
 
     @torch.no_grad()
     def load_bn_state(self, state):
-        for name, s in state["trunk"].items():
-            d = self.trunk[name]
-            d.moving_mean.copy_(s["moving_mean"])
-            d.moving_var.copy_(s["moving_var"])
+        stacks = [(self.trunk, state["trunk"])] + [
+            (self.branches[b], s) for b, s in state.get("branches", {}).items()]
+        for stack, layers in stacks:
+            for name, s in layers.items():
+                d = stack[name]
+                d.moving_mean.copy_(s["moving_mean"])
+                d.moving_var.copy_(s["moving_var"])
 
 
 # ---------------------------------------------------------------------------
@@ -387,9 +420,35 @@ _HEAD_ACTS = {"mean": MeanAct, "disp": DispAct, "sigmoid": torch.sigmoid}
 
 
 def _apply_head(head: HeadDef, d: Dense, x):
-    z = x @ d.kernel + d.bias
+    if head.kind == "elementwise":
+        z = x * d.kernel + d.bias
+    else:
+        z = x @ d.kernel + d.bias
     act = _HEAD_ACTS.get(head.activation)
     return z if act is None else act(z)
+
+
+def theta_exp(net: DCANetwork):
+    """The constant dispersion head's theta as the model exposes it:
+    clip(exp(theta), 1e-3, 1e4), (1, G)."""
+    return torch.clamp(torch.exp(net.heads["dispersion"].theta), *THETA_EXP_CLIP)
+
+
+def _apply_stack(layers, stack, x, act_fn, training, generator, new_state):
+    """Dense -> BN -> activation -> dropout per layer; returns (x, latent)
+    and puts each BN layer's new state into ``new_state``."""
+    latent = None
+    for layer in layers:
+        d = stack[layer.name]
+        x = x @ d.kernel + d.bias
+        if layer.name == "center":
+            latent = x  # encoder output = center Dense before BN/activation
+        if layer.batchnorm:
+            x, new_state[layer.name] = _batchnorm(d, x, training)
+        x = act_fn(x)
+        if layer.dropout > 0.0 and training:
+            x = _dropout(x, layer.dropout, generator)
+    return x, latent
 
 
 def apply(definition: NetworkDef, net: DCANetwork, count, size_factors, *,
@@ -404,29 +463,45 @@ def apply(definition: NetworkDef, net: DCANetwork, count, size_factors, *,
         x = _dropout(x, definition.input_dropout, generator)
 
     act_fn = get_activation(definition.activation)
-    latent = None
-    new_state = {"trunk": {}}
-    for layer in definition.shared:
-        d = net.trunk[layer.name]
-        x = x @ d.kernel + d.bias
-        if layer.name == "center":
-            latent = x  # encoder output = center Dense before BN/activation
-        if layer.batchnorm:
-            x, new_state["trunk"][layer.name] = _batchnorm(d, x, training)
-        x = act_fn(x)
-        if layer.dropout > 0.0 and training:
-            x = _dropout(x, layer.dropout, generator)
+    new_state = {"trunk": {}, "branches": {}}
+    x, latent = _apply_stack(definition.shared, net.trunk, x, act_fn, training,
+                             generator, new_state["trunk"])
+
+    # branch outputs of the fork architectures; '' is the shared trunk
+    branch_out = {"": x}
+    for bname, layers in definition.branches.items():
+        new_state["branches"][bname] = {}
+        branch_out[bname], _ = _apply_stack(layers, net.branches[bname], x, act_fn,
+                                            training, generator,
+                                            new_state["branches"][bname])
 
     heads = definition.heads
+    of = definition.branch_of_head
     out: Dict[str, Optional[torch.Tensor]] = {}
-    out["mean"] = _apply_head(heads["mean"], net.heads["mean"], x)
-    out["pi"] = None
-    out["disp"] = (_apply_head(heads["dispersion"], net.heads["dispersion"], x)
-                   if "dispersion" in heads else None)
+    if definition.ae_type == "zinb-elempi":
+        # pi from the negated mean logits z: mean = MeanAct(z), pi =
+        # sigmoid(z * kernel + bias)
+        d = net.heads["mean"]
+        z = -(branch_out[of["mean"]] @ d.kernel + d.bias)
+        out["mean"] = MeanAct(z)
+        out["pi"] = _apply_head(heads["pi"], net.heads["pi"], z)
+    else:
+        out["mean"] = _apply_head(heads["mean"], net.heads["mean"], branch_out[of["mean"]])
+        out["pi"] = (_apply_head(heads["pi"], net.heads["pi"], branch_out[of["pi"]])
+                     if "pi" in heads else None)
+
+    if "dispersion" not in heads:
+        out["disp"] = None
+    elif heads["dispersion"].kind == "constant":
+        out["disp"] = theta_exp(net)
+    else:
+        out["disp"] = _apply_head(heads["dispersion"], net.heads["dispersion"],
+                                  branch_out[of["dispersion"]])
+
     out["output"] = out["mean"] * sf
     out["mean_norm"] = out["mean"]
     out["latent"] = latent
-    out["decoded"] = x
+    out["decoded"] = x if not definition.branches else None
     return out, new_state
 
 
@@ -444,6 +519,10 @@ def regularization_loss(definition: NetworkDef, net: DCANetwork) -> torch.Tensor
 
     for layer in definition.shared:
         add(net.trunk[layer.name].kernel, layer.l1, layer.l2)
+    for bname, layers in definition.branches.items():
+        for layer in layers:
+            add(net.branches[bname][layer.name].kernel, layer.l1, layer.l2)
     for hname, head in definition.heads.items():
-        add(net.heads[hname].kernel, head.l1, head.l2)
+        if head.kind != "constant":  # the constant theta is not regularised
+            add(net.heads[hname].kernel, head.l1, head.l2)
     return total

@@ -1,14 +1,20 @@
 """The autoencoder's object surface: build / loss / forward / predict /
 write / save, on top of the functional core in ``core.py``.
 
-A port of the JAX package's ``dca_tpu/models/network.py`` for the default
-model, ``nb-conddisp``, including the reference's predict-order quirk for
-it: the dispersion is computed after denoising, from the denoised matrix.
-The other architectures wait for later slices (ROADMAP.md, Queue 1 item 10).
+A port of the JAX package's ``dca_tpu/models/network.py`` for all 11
+architectures of its ``AE_types``, with the reference's predict-order
+quirks: ``nb-conddisp`` (and ``nb-shared``, ``nb-fork``) compute the
+dispersion after denoising, from the denoised matrix; the ZINB classes take
+dispersion and dropout from the pre-denoise forward, the same forward that
+denoises; the constant-dispersion classes (``nb``, ``zinb``) expose their
+per-gene theta.  The NB and ZINB losses go through the fused CUDA kernels
+(``ops/fused_loss.py``) for every dispersion and dropout shape the
+architectures give; MSE and Poisson, which have no kernel in the JAX
+package either, are the plain losses of ``losses.py``.
 
 Outputs follow the reference's TSV contract (mean.tsv, latent.tsv,
-dispersion.tsv) with the README-era aliases ``mean_norm.tsv`` and
-``reduced.tsv``.
+dispersion.tsv, dropout.tsv) with the README-era aliases ``mean_norm.tsv``,
+``reduced.tsv`` and ``pi.tsv``.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 from .. import losses
 from ..data.io import densify, size_factors, write_text_matrix
 from ..device import resolve_device
-from ..ops.fused_loss import nb_nll_fused
+from ..ops.fused_loss import nb_nll_fused, zinb_nll_fused
 from . import core
 
 # rows per predict block: about this many bytes of input and outputs
@@ -121,20 +127,30 @@ class Autoencoder:
     def likelihood_loss(self, outputs, target):
         """Negative log-likelihood of the forward outputs (no weight penalty).
 
-        The NB loss goes through the fused kernels (``ops/fused_loss.py``),
-        which raise on a dispersion that is not (B, G); ``debug`` (the
-        finite-ness sanitizer) uses the plain ``losses.nb_nll``, as in the
-        JAX package.  Masking is on: identical to the reference's default on
-        finite targets, and NaN targets are masked by the reference's rules.
+        MSE and Poisson are the plain losses.  NB and ZINB go through the
+        fused kernels (``ops/fused_loss.py``), which take every dispersion
+        and dropout shape the architectures give ((B, G), (1, G), (B, 1))
+        and raise on any other; ``debug`` (the finite-ness sanitizer) uses
+        the plain ``losses.nb_nll``/``zinb_nll``, as in the JAX package.
+        Masking is on: identical to the reference's default on finite
+        targets, and NaN targets are masked by the reference's rules.
         Weighted batches wait for the weighted kernels (ROADMAP.md, Queue 2)."""
         lk = self.definition.likelihood
-        if lk != "nb":
-            raise NotImplementedError(
-                f"the {lk!r} likelihood is not ported yet (ROADMAP.md, Queue 1)")
-        out, disp = outputs["output"], outputs["disp"]
+        out = outputs["output"]
+        if lk == "mse":
+            return losses.mse_loss(target, out)
+        if lk == "poisson":
+            return losses.poisson_loss(target, out)
+        disp, pi = outputs["disp"], outputs["pi"]
         if self.definition.debug:
-            return losses.nb_nll(target, out, disp, masking=True, debug=True)
-        return nb_nll_fused(target.to(torch.float32).contiguous(), out, disp)
+            if lk == "nb":
+                return losses.nb_nll(target, out, disp, masking=True, debug=True)
+            return losses.zinb_nll(target, out, disp, pi, ridge_lambda=self.ridge,
+                                   masking=True, debug=True)
+        y = target.to(torch.float32).contiguous()
+        if lk == "nb":
+            return nb_nll_fused(y, out, disp)
+        return zinb_nll_fused(y, out, disp, pi, self.ridge)
 
     def loss_fn(self, count, size_factors, target, training, generator=None):
         """Total loss = NLL + l1/l2 weight penalties.  Returns (loss,
@@ -171,9 +187,12 @@ class Autoencoder:
                                if keys is None or k in keys})
         if len(pieces) == 1:
             return pieces[0]
-        return {k: None if pieces[0][k] is None
+        rows0 = min(chunk_rows, n)
+        # per-row outputs are concatenated; per-gene constants (the constant
+        # dispersion head's (1, G)) are the same in every block
+        return {k: v if v is None or v.shape[0] != rows0
                 else np.concatenate([p[k] for p in pieces], axis=0)
-                for k in pieces[0]}
+                for k, v in pieces[0].items()}
 
     def _set_denoised(self, adata, denoised):
         if denoised.shape[1] == adata.n_vars:
@@ -186,12 +205,18 @@ class Autoencoder:
                      "latent": ("latent",),
                      "full": ("output", "mean_norm", "latent")}
 
-    def predict(self, adata, mode="denoise", return_info=False, copy=False):
+    def predict(self, adata, mode="denoise", return_info=False, copy=False,
+                _forward_out=None):
+        """Denoise and/or embed ``adata``.  ``_forward_out``: a subclass's
+        forward over the same pre-denoise input, which the info quirks
+        share instead of running the whole matrix again."""
         assert mode in ("denoise", "latent", "full"), "Unknown mode"
         adata = adata.copy() if copy else adata
 
-        out = self.forward(adata.X, size_factors(adata),
-                           keys=self._PREDICT_KEYS[mode])
+        out = _forward_out
+        if out is None:
+            out = self.forward(adata.X, size_factors(adata),
+                               keys=self._PREDICT_KEYS[mode])
 
         if mode in ("latent", "full"):
             print("dca_tpu_torch: Calculating low dimensional representations...")
@@ -222,9 +247,12 @@ class Autoencoder:
             params, state = {"trunk": {}, "branches": {}, "heads": {}}, \
                 {"trunk": {}, "branches": {}}
             for key, value in sd.items():
-                group, layer, leaf = key.split(".")
-                tree = state if leaf in ("moving_mean", "moving_var") else params
-                tree[group].setdefault(layer, {})[leaf] = value
+                # group.layer.leaf, or branches.branch.layer.leaf
+                *path, leaf = key.split(".")
+                node = state if leaf in ("moving_mean", "moving_var") else params
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = value
         payload = dict(ae_type=self.ae_type, ctor=self._ctor_config(),
                        params=params, state=state)
         os.makedirs(self.file_path, exist_ok=True)
@@ -285,6 +313,65 @@ class Autoencoder:
                                   rownames=rownames, transpose=False)
 
 
+class PoissonAutoencoder(Autoencoder):
+    ae_type = "poisson"
+
+
+class _ConstantDispersion:
+    """The constant-dispersion classes' per-gene theta: kept in
+    ``var['X_dca_dispersion']`` when the output covers every gene, else in
+    ``uns['dca_subset_dispersion']``, and written as one value per gene (the
+    (1, G) row transposed, as the JAX package writes it)."""
+
+    def dispersion(self):
+        with torch.no_grad():
+            return core.theta_exp(self.model).cpu().numpy().squeeze()
+
+    def _store_dispersion(self, adata):
+        d = self.dispersion()
+        if d.size == adata.n_vars:
+            adata.var["X_dca_dispersion"] = d
+        else:
+            adata.uns["dca_subset_dispersion"] = d
+
+    @staticmethod
+    def _stored_dispersion(adata):
+        if "X_dca_dispersion" in adata.var_keys():
+            return np.asarray(adata.var["X_dca_dispersion"])
+        return adata.uns.get("dca_subset_dispersion")
+
+    def _write_dispersion(self, adata, file_path, colnames):
+        disp = self._stored_dispersion(adata)
+        if disp is not None:
+            write_text_matrix(disp.reshape(1, -1), os.path.join(file_path, "dispersion.tsv"),
+                              colnames=colnames, transpose=True)
+
+
+def _write_obsm(adata, key, file_path, fnames, colnames):
+    if key in adata.obsm_keys():
+        for fname in fnames:
+            write_text_matrix(adata.obsm[key], os.path.join(file_path, fname),
+                              colnames=colnames, transpose=True)
+
+
+class NBConstantDispAutoencoder(_ConstantDispersion, Autoencoder):
+    """One free dispersion per gene (``nb``)."""
+
+    ae_type = "nb"
+
+    def predict(self, adata, mode="denoise", return_info=False, copy=False):
+        res = super().predict(adata, mode, return_info, copy)
+        adata = res if copy else adata
+        if return_info:
+            self._store_dispersion(adata)
+        return adata if copy else None
+
+    def write(self, adata, file_path, mode="denoise", colnames=None):
+        colnames = adata.var_names.values if colnames is None else colnames
+        super().write(adata, file_path, mode, colnames=colnames)
+        self._write_dispersion(adata, file_path, colnames)
+
+
 class NBAutoencoder(Autoencoder):
     """Conditional dispersion, the API/CLI default (``nb-conddisp``)."""
 
@@ -303,19 +390,113 @@ class NBAutoencoder(Autoencoder):
     def write(self, adata, file_path, mode="denoise", colnames=None):
         colnames = adata.var_names.values if colnames is None else colnames
         super().write(adata, file_path, mode, colnames=colnames)
-        if "X_dca_dispersion" in adata.obsm_keys():
-            write_text_matrix(adata.obsm["X_dca_dispersion"],
-                              os.path.join(file_path, "dispersion.tsv"),
-                              colnames=colnames, transpose=True)
+        _write_obsm(adata, "X_dca_dispersion", file_path, ("dispersion.tsv",), colnames)
 
 
-AE_types = {"nb-conddisp": NBAutoencoder}
+class NBSharedAutoencoder(NBAutoencoder):
+    """One dispersion per cell."""
+
+    ae_type = "nb-shared"
+
+
+class NBForkAutoencoder(NBAutoencoder):
+    """The decoder forks into mean and dispersion branches."""
+
+    ae_type = "nb-fork"
+
+
+class ZINBAutoencoder(Autoencoder):
+    """Zero-inflated NB with conditional dispersion and dropout, the
+    flagship architecture (``zinb-conddisp``)."""
+
+    ae_type = "zinb-conddisp"
+
+    def predict(self, adata, mode="denoise", return_info=False, copy=False):
+        adata = adata.copy() if copy else adata
+        # one forward serves the info quirk (the pre-denoise input) and the
+        # base keys
+        keys = self._PREDICT_KEYS[mode] + (("disp", "pi") if return_info else ())
+        out = self.forward(adata.X, size_factors(adata), keys=keys)
+        if return_info:
+            adata.obsm["X_dca_dispersion"] = out["disp"]
+            adata.obsm["X_dca_dropout"] = out["pi"]
+        super().predict(adata, mode, return_info, copy=False, _forward_out=out)
+        return adata if copy else None
+
+    def write(self, adata, file_path, mode="denoise", colnames=None):
+        colnames = adata.var_names.values if colnames is None else colnames
+        super().write(adata, file_path, mode, colnames=colnames)
+        _write_obsm(adata, "X_dca_dispersion", file_path, ("dispersion.tsv",), colnames)
+        _write_obsm(adata, "X_dca_dropout", file_path, ("dropout.tsv", "pi.tsv"), colnames)
+
+
+class ZINBAutoencoderElemPi(ZINBAutoencoder):
+    """pi as an elementwise function of the negated mean logits; with
+    ``sharedpi`` one kernel and bias for every gene."""
+
+    ae_type = "zinb-elempi"
+
+    def __init__(self, sharedpi=False, **kwds):
+        super().__init__(**kwds)
+        self.sharedpi = sharedpi
+
+    def _definition_kwargs(self):
+        return {**super()._definition_kwargs(), "sharedpi": self.sharedpi}
+
+    def _ctor_config(self):
+        return {**super()._ctor_config(), "sharedpi": self.sharedpi}
+
+
+class ZINBSharedAutoencoder(ZINBAutoencoder):
+    """One dispersion and one dropout probability per cell."""
+
+    ae_type = "zinb-shared"
+
+
+class ZINBForkAutoencoder(ZINBAutoencoder):
+    """The decoder forks into mean, dispersion and dropout branches."""
+
+    ae_type = "zinb-fork"
+
+
+class ZINBConstantDispAutoencoder(_ConstantDispersion, Autoencoder):
+    """One free dispersion per gene, and a dropout head (``zinb``)."""
+
+    ae_type = "zinb"
+
+    def predict(self, adata, mode="denoise", return_info=False, copy=False):
+        adata = adata.copy() if copy else adata
+        keys = self._PREDICT_KEYS[mode] + (("pi",) if return_info else ())
+        out = self.forward(adata.X, size_factors(adata), keys=keys)
+        if return_info:
+            self._store_dispersion(adata)
+            adata.obsm["X_dca_dropout"] = out["pi"]
+        super().predict(adata, mode, return_info, copy=False, _forward_out=out)
+        return adata if copy else None
+
+    def write(self, adata, file_path, mode="denoise", colnames=None):
+        colnames = adata.var_names.values if colnames is None else colnames
+        super().write(adata, file_path, mode, colnames=colnames)
+        self._write_dispersion(adata, file_path, colnames)
+        _write_obsm(adata, "X_dca_dropout", file_path, ("dropout.tsv", "pi.tsv"), colnames)
+
+
+AE_types = {
+    "normal": Autoencoder,
+    "poisson": PoissonAutoencoder,
+    "nb": NBConstantDispAutoencoder,
+    "nb-conddisp": NBAutoencoder,
+    "nb-shared": NBSharedAutoencoder,
+    "nb-fork": NBForkAutoencoder,
+    "zinb": ZINBConstantDispAutoencoder,
+    "zinb-conddisp": ZINBAutoencoder,
+    "zinb-shared": ZINBSharedAutoencoder,
+    "zinb-fork": ZINBForkAutoencoder,
+    "zinb-elempi": ZINBAutoencoderElemPi,
+}
 
 
 def get_ae_type(name):
     if name not in AE_types:
-        raise ValueError(
-            f"ae_type {name!r} is not ported to dca_tpu_torch yet; it has "
-            f"{sorted(AE_types)} (the others wait for a later slice, see ROADMAP.md)"
-        )
+        raise ValueError(f"ae_type {name!r} is not one of {sorted(AE_types)}")
     return AE_types[name]

@@ -21,7 +21,7 @@ import tempfile
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("fused_nb_loss.cu",)
+SOURCES = ("fused_nll.cu",)
 HEADERS = ("special.cuh",)
 # no --use_fast_math: the kernels must agree with their plain versions
 NVCC_FLAGS = (
@@ -30,12 +30,17 @@ NVCC_FLAGS = (
 )
 
 _P = ctypes.c_void_p
+_LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dca_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "dca_nb_nll_fwd_grid": ([ctypes.c_longlong], ctypes.c_int),
-    "dca_nb_nll_fwd": ([_P, _P, _P, _P, ctypes.c_longlong, _P], ctypes.c_int),
-    "dca_nb_nll_bwd": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
-                       ctypes.c_int),
+    "dca_nll_fwd_grid": ([ctypes.c_longlong], ctypes.c_int),
+    # y, mu, theta, pi, partials, n, G, theta mode, pi mode, ridge, with_pi,
+    # stream
+    "dca_nll_fwd": ([_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _P], _I),
+    # y, mu, theta, pi, scale, d mu, d theta, d pi, n, G, theta mode,
+    # pi mode, ridge, with_pi, stream
+    "dca_nll_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
+                     _P], _I),
 }
 
 

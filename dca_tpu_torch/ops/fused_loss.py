@@ -1,21 +1,31 @@
-"""Fused negative binomial NLL: CUDA kernels K1 (forward) and K2 (backward).
+"""Fused NB and ZINB negative log-likelihood: CUDA kernels K1 (forward) and
+K2 (backward).
 
-``nb_nll_fused(y, mu, theta)`` is the mean NB NLL over (B, G) float32
-tensors with the semantics of ``losses.nb_nll(y, mu, theta, masking=True)``:
-NaN targets are evaluated at y = 0 for the terms and left out of the
-mean's denominator.  Its gradient is a ``torch.autograd.Function`` whose
-forward launches K1 and whose backward launches K2
-(``csrc/fused_nb_loss.cu``), with the Stirling ``lgamma``/``digamma`` of
-``csrc/special.cuh`` inlined in both.
+``nb_nll_fused(y, mu, theta)`` is the mean NB NLL with the semantics of
+``losses.nb_nll(y, mu, theta, masking=True)``: NaN targets are evaluated at
+y = 0 for the terms and left out of the mean's denominator.
+``zinb_nll_fused(y, mu, theta, pi, ridge)`` is the mean ZINB NLL of
+``losses.zinb_nll(..., ridge_lambda=ridge, masking=True)``: the zero branch
+tests the original y, so a NaN target takes the NB case at y = 0, and the
+denominator counts the non-NaN results.  y and mu are (B, G) float32;
+theta and pi may each be (B, G), (1, G) (constant dispersion), (B, 1) (the
+``*-shared`` heads) or (1, 1), the shapes the JAX package's ``_bcastable``
+accepts.  Each is a ``torch.autograd.Function`` whose forward launches K1
+and whose backward launches K2 (``csrc/fused_nll.cu``), with the Stirling
+``lgamma``/``digamma`` of ``csrc/special.cuh`` inlined in both; a broadcast
+operand is read in place by the kernels, and its gradient is K2's full
+(B, G) cotangent summed over the broadcast axes, as the JAX package's
+``_reduce_to`` does.  y gets no gradient.
 
-For a tensor on the CPU the same function runs its plain PyTorch version,
-which repeats the kernels' arithmetic (``log1p``, the Stirling functions of
-``ops/special.py``, the same masks): that is what the CPU tests hold against
-the JAX package.  For a CUDA tensor it launches the kernels or raises.
+For a tensor on the CPU the same functions run their plain PyTorch
+versions, which repeat the kernels' arithmetic (``log1p``, the Stirling
+functions of ``ops/special.py``, exp/log for the zero probability, the same
+masks): that is what the CPU tests hold against the JAX package.  For a
+CUDA tensor they launch the kernels or raise.
 
-This slice covers the unweighted NB loss with a full (B, G) theta, the
-loss of ``nb-conddisp``.  The ZINB, weighted and broadcast-theta variants of
-the JAX package's kernels wait for the next slice (ROADMAP.md, Queue 2).
+The weighted variants of the JAX package's kernels (its multi-process
+padding and streaming validation chunks) wait for the slices that port
+those paths (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -26,9 +36,13 @@ from .special import digamma, lgamma
 
 EPS = 1e-10
 THETA_CLIP = 1e6
+ZERO_THRESHOLD = 1e-8
 
 # Launches of each kernel, counted by its wrapper where it launches.
-launches = {"nb_nll_fwd": 0, "nb_nll_bwd": 0}
+launches = {"nb_nll_fwd": 0, "nb_nll_bwd": 0, "zinb_nll_fwd": 0, "zinb_nll_bwd": 0}
+
+# broadcast modes, as csrc/fused_nll.cu numbers them
+_FULL, _ROW, _COLUMN, _SCALAR = 0, 1, 2, 3
 
 
 def reset_launches():
@@ -36,26 +50,52 @@ def reset_launches():
         launches[k] = 0
 
 
-def _check(y, mu, theta):
-    for name, t in (("y", y), ("mu", mu), ("theta", theta)):
+def _check(y, mu, theta, pi=None):
+    """Raise on what the kernels do not take: anything but float32,
+    2-D, contiguous tensors on one CPU or CUDA device, y of mu's shape and
+    theta/pi of a shape ``_bcastable`` accepts."""
+    named = [("y", y), ("mu", mu), ("theta", theta)] + ([("pi", pi)] if pi is not None else [])
+    for name, t in named:
         if t.dtype != torch.float32:
-            raise TypeError(f"nb_nll_fused: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"fused NLL: {name} must be float32, got {t.dtype}")
         if t.dim() != 2:
-            raise ValueError(f"nb_nll_fused: {name} must be 2-D, got {tuple(t.shape)}")
+            raise ValueError(f"fused NLL: {name} must be 2-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"nb_nll_fused: {name} must be contiguous")
+            raise ValueError(f"fused NLL: {name} must be contiguous")
         if t.device != mu.device:
-            raise ValueError("nb_nll_fused: y, mu and theta must be on one device")
-    if y.shape != mu.shape or theta.shape != mu.shape:
-        raise ValueError(
-            "nb_nll_fused: y, mu and theta must all be (B, G); got "
-            f"{tuple(y.shape)}, {tuple(mu.shape)}, {tuple(theta.shape)} (a "
-            "broadcast theta waits for a later slice, see ROADMAP.md)"
-        )
+            raise ValueError("fused NLL: y, mu, theta and pi must be on one device")
+    B, G = mu.shape
+    if y.shape != mu.shape:
+        raise ValueError(f"fused NLL: y {tuple(y.shape)} and mu {tuple(mu.shape)} differ")
+    for name, t in named[2:]:
+        r, c = t.shape
+        if r not in (B, 1) or c not in (G, 1):
+            raise ValueError(
+                f"fused NLL: {name} must be (B, G), (1, G), (B, 1) or (1, 1) "
+                f"against mu {(B, G)}; got {tuple(t.shape)}")
     if mu.numel() == 0:
-        raise ValueError("nb_nll_fused: empty input")
+        raise ValueError("fused NLL: empty input")
     if mu.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"nb_nll_fused: unsupported device {mu.device}")
+        raise ValueError(f"fused NLL: unsupported device {mu.device}")
+
+
+def _mode(t, shape):
+    """The kernels' broadcast mode of operand ``t`` against (B, G)."""
+    B, G = shape
+    r, c = t.shape
+    if r == B and c == G:
+        return _FULL
+    if c == G:
+        return _ROW
+    if r == B:
+        return _COLUMN
+    return _SCALAR
+
+
+def _reduce_to(g, shape):
+    """Sum a full (B, G) cotangent down to a broadcast operand's shape."""
+    dims = tuple(a for a in range(2) if shape[a] == 1 and g.shape[a] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
 
 
 # ---------------------------------------------------------------------------
@@ -63,17 +103,32 @@ def _check(y, mu, theta):
 # ---------------------------------------------------------------------------
 
 
-def _elem_terms(y, mu, th_raw):
+def _zero_prob(th, mu):
+    """(theta / (theta + mu + eps))^theta through exp/log, 1 at theta = 0."""
+    safe = torch.clamp(th, min=EPS)
+    return torch.where(th > 0.0, torch.exp(th * (torch.log(safe) - torch.log(th + mu + EPS))),
+                       1.0)
+
+
+def _elem_terms(y, mu, th_raw, pi=None, ridge=0.0):
     y0 = torch.where(torch.isnan(y), 0.0, y)
     th = torch.clamp(th_raw, max=THETA_CLIP)
     t1 = lgamma(th + EPS) + lgamma(y0 + 1.0) - lgamma(y0 + th + EPS)
     t2 = (th + y0) * torch.log1p(mu / (th + EPS)) + y0 * (
         torch.log(th + EPS) - torch.log(mu + EPS)
     )
-    return t1 + t2
+    nb = t1 + t2
+    if pi is None:
+        return nb
+    nb_case = nb - torch.log(1.0 - pi + EPS)
+    zero_case = -torch.log(pi + (1.0 - pi) * _zero_prob(th, mu) + EPS)
+    # the original y: a NaN target takes the NB case
+    res = torch.where(y < ZERO_THRESHOLD, zero_case, nb_case)
+    return res + ridge * pi * pi
 
 
-def _elem_grads(y, mu, th_raw):
+def _elem_grads(y, mu, th_raw, pi=None, ridge=0.0):
+    """Full (B, G) d mu, d theta and d pi (None for NB), unscaled."""
     y0 = torch.where(torch.isnan(y), 0.0, y)
     th = torch.clamp(th_raw, max=THETA_CLIP)
     th_e = th + EPS
@@ -87,16 +142,30 @@ def _elem_grads(y, mu, th_raw):
         + (th + y0) * (1.0 / thmu - 1.0 / th_e)
         + y0 / th_e
     )
+    dpi = None
+    if pi is not None:
+        safe = torch.clamp(th, min=EPS)
+        tme = th + mu + EPS
+        z = _zero_prob(th, mu)
+        denom = pi + (1.0 - pi) * z + EPS
+        dz_dmu = -z * th / tme
+        dz_dth = z * (torch.log(safe) - torch.log(tme) + 1.0 - th / tme)
+        is_zero = y < ZERO_THRESHOLD
+        dmu = torch.where(is_zero, -(1.0 - pi) * dz_dmu / denom, dmu)
+        dth = torch.where(is_zero, -(1.0 - pi) * dz_dth / denom, dth)
+        dpi = torch.where(is_zero, -(1.0 - z) / denom, 1.0 / (1.0 - pi + EPS)) + 2.0 * ridge * pi
     dth = torch.where(th_raw > THETA_CLIP, 0.0, dth)
-    return dmu, dth
+    return dmu, dth, dpi
 
 
-def grad_term_magnitudes(y, mu, th_raw):
-    """Per element, the sum of the magnitudes of the terms that d mu and
-    d theta add up (unscaled).  A float32 evaluation of either formula
-    carries a rounding error of a few ulps of it: where y is large and theta
-    small, (theta + y) / theta and y / theta nearly cancel.  The checks of
-    K2 against its plain version state their tolerance with it."""
+def grad_term_magnitudes(y, mu, th_raw, pi=None, ridge=0.0):
+    """Per element, (B, G), the sum of the magnitudes of the terms that
+    d mu, d theta and d pi (None for NB) add up (unscaled).  A float32
+    evaluation of either formula carries a rounding error of a few ulps of
+    it: where y is large and theta small, (theta + y) / theta and y / theta
+    nearly cancel; in the zero case, dz/dtheta adds log terms that cancel
+    where theta is large, and d pi subtracts z from 1.  The checks of K2
+    against its plain version state their tolerance with it."""
     y0 = torch.where(torch.isnan(y), 0.0, y)
     th = torch.clamp(th_raw, max=THETA_CLIP)
     th_e = th + EPS
@@ -104,26 +173,73 @@ def grad_term_magnitudes(y, mu, th_raw):
     mag_mu = (th + y0) / thmu + y0 / (mu + EPS)
     mag_th = (digamma(th_e).abs() + digamma(y0 + th_e).abs() + torch.log1p(mu / th_e)
               + (th + y0) / thmu + (th + y0) / th_e + y0 / th_e)
-    return mag_mu, mag_th
+    if pi is None:
+        return mag_mu, mag_th, None
+    lsafe = torch.log(torch.clamp(th, min=EPS))
+    tme = th + mu + EPS
+    ltme = torch.log(tme)
+    z = _zero_prob(th, mu)
+    denom = pi + (1.0 - pi) * z + EPS
+    # z = exp(theta (log theta - log(theta + mu))): the rounding of the
+    # argument's two terms, times theta, is a relative error of z
+    z_mag = z * (1.0 + th * (lsafe.abs() + ltme.abs()))
+    # the terms of denom, relative to it, and of 1 - pi
+    d_rel = (pi + (1.0 + pi) * z_mag) / denom
+    f = (1.0 + pi) / denom * (1.0 + d_rel)
+    is_zero = y < ZERO_THRESHOLD
+    mag_mu = torch.where(is_zero, f * z_mag * th / tme, mag_mu)
+    mag_th = torch.where(is_zero, f * z_mag * (lsafe.abs() + ltme.abs() + 1.0 + th / tme),
+                         mag_th)
+    mag_pi = torch.where(is_zero, (1.0 + z_mag) / denom * (1.0 + d_rel),
+                         (1.0 + pi) / (1.0 - pi + EPS) ** 2) + 2.0 * ridge * pi
+    return mag_mu, mag_th, mag_pi
 
 
-def nb_nll_fwd_reference(y, mu, theta):
-    """Plain version of K1 and its wrapper: (loss, denom), on any device."""
-    total = torch.sum(_elem_terms(y, mu, theta))
-    denom = torch.clamp(torch.sum((~torch.isnan(y)).to(torch.float32)), min=1.0)
+def _fwd_reference(y, mu, theta, pi, ridge):
+    """Plain version of K1 and its wrapper (NB when ``pi`` is None):
+    (loss, denom)."""
+    res = _elem_terms(y, mu, theta, pi, ridge)
+    total = torch.sum(res)
+    counted = torch.isnan(res) if pi is not None else torch.isnan(y)
+    denom = torch.clamp(torch.sum((~counted).to(torch.float32)), min=1.0)
     return total / denom, denom
 
 
+def _bwd_reference(y, mu, theta, pi, ridge, scale):
+    """Plain version of K2 and its wrapper: the gradients times ``scale``,
+    each summed to its operand's shape."""
+    dmu, dth, dpi = _elem_grads(y, mu, theta, pi, ridge)
+    dth = _reduce_to(dth * scale, theta.shape)
+    if pi is None:
+        return dmu * scale, dth
+    return dmu * scale, dth, _reduce_to(dpi * scale, pi.shape)
+
+
+def nb_nll_fwd_reference(y, mu, theta):
+    """Plain version of the NB K1 and its wrapper: (loss, denom)."""
+    return _fwd_reference(y, mu, theta, None, 0.0)
+
+
 def nb_nll_bwd_reference(y, mu, theta, scale):
-    """Plain version of K2: (d mu, d theta), each times ``scale``."""
-    dmu, dth = _elem_grads(y, mu, theta)
-    return dmu * scale, dth * scale
+    """Plain version of the NB K2 and its wrapper: (d mu, d theta), each
+    times ``scale`` and of its operand's shape."""
+    return _bwd_reference(y, mu, theta, None, 0.0, scale)
+
+
+def zinb_nll_fwd_reference(y, mu, theta, pi, ridge=0.0):
+    """Plain version of the ZINB K1 and its wrapper: (loss, denom)."""
+    return _fwd_reference(y, mu, theta, pi, float(ridge))
 
 
 def nb_nll_fused_reference(y, mu, theta):
-    """The loss in plain PyTorch with the kernels' math; differentiable by
-    autograd, which gives a gradient independent of the analytic one."""
+    """The NB loss in plain PyTorch with the kernels' math; differentiable
+    by autograd, which gives a gradient independent of the analytic one."""
     return nb_nll_fwd_reference(y, mu, theta)[0]
+
+
+def zinb_nll_fused_reference(y, mu, theta, pi, ridge=0.0):
+    """The ZINB loss in plain PyTorch with the kernels' math, for autograd."""
+    return zinb_nll_fwd_reference(y, mu, theta, pi, ridge)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -137,93 +253,157 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def nb_nll_fwd_kernel(y, mu, theta):
-    """Launch K1; return (loss, denom) as device scalars.
-
-    Replaces the Pallas kernel ``dca_tpu/ops/fused_loss.py::_fwd_kernel``
-    (driven by ``_pallas_fwd``).  Bound on the H100 by memory: it reads y, mu
-    and theta once, 3 x 441,728 B = 1.33 MB at the training step's
-    (32, 3451), at least 0.40 us at 3.35 TB/s, and 11.3 MB (3.4 us) for the
-    (273, 3451) validation split; at these sizes the launch itself is
-    likely to dominate.  Design: one pass, a grid-stride loop over a block
-    count fixed by n, coalesced loads, the elementwise NLL summed in
-    registers, then across the warp by shuffles and across the block
-    through shared memory; each block writes one partial sum and one count
-    of non-NaN targets, and one torch reduction sums the (2, blocks)
-    buffer.  No atomics, so the loss is bit-identical from run to run.  The
-    ragged edge is masked by index (i < n); nothing is padded."""
+def _fwd_kernel(y, mu, theta, pi, ridge):
+    """Launch K1 (NB when ``pi`` is None); see ``nb_nll_fwd_kernel``."""
     from ._build import library
 
-    _check(y, mu, theta)
+    _check(y, mu, theta, pi)
     if not mu.is_cuda:
-        raise ValueError("nb_nll_fwd_kernel needs CUDA tensors")
+        raise ValueError("the K1 wrapper needs CUDA tensors")
     lib = library()
-    n = mu.numel()
+    n, G = mu.numel(), mu.shape[1]
     with torch.cuda.device(mu.device):
-        partials = torch.empty((2, lib.dca_nb_nll_fwd_grid(n)),
+        partials = torch.empty((2, lib.dca_nll_fwd_grid(n)),
                                device=mu.device, dtype=torch.float32)
-        err = lib.dca_nb_nll_fwd(
-            y.data_ptr(), mu.data_ptr(), theta.data_ptr(), partials.data_ptr(),
-            n, torch.cuda.current_stream(mu.device).cuda_stream,
+        err = lib.dca_nll_fwd(
+            y.data_ptr(), mu.data_ptr(), theta.data_ptr(),
+            None if pi is None else pi.data_ptr(), partials.data_ptr(), n, G,
+            _mode(theta, mu.shape), 0 if pi is None else _mode(pi, mu.shape),
+            float(ridge), pi is not None,
+            torch.cuda.current_stream(mu.device).cuda_stream,
         )
-    _raise_on(lib, err, "nb_nll_fwd_kernel (K1)")
-    launches["nb_nll_fwd"] += 1
+    name = "nb_nll_fwd" if pi is None else "zinb_nll_fwd"
+    _raise_on(lib, err, f"{name} (K1)")
+    launches[name] += 1
     sums = partials.sum(dim=1)
     denom = torch.clamp(sums[1], min=1.0)
     return sums[0] / denom, denom
 
 
+def _bwd_kernel(y, mu, theta, pi, ridge, scale):
+    """Launch K2 (NB when ``pi`` is None); see ``nb_nll_bwd_kernel``."""
+    from ._build import library
+
+    _check(y, mu, theta, pi)
+    if not mu.is_cuda:
+        raise ValueError("the K2 wrapper needs CUDA tensors")
+    if (scale.dtype != torch.float32 or scale.numel() != 1
+            or scale.device != mu.device):
+        raise ValueError("the K2 wrapper: scale must be one float32 on mu's device")
+    lib = library()
+    dmu = torch.empty_like(mu)
+    dth = torch.empty_like(mu)
+    dpi = None if pi is None else torch.empty_like(mu)
+    with torch.cuda.device(mu.device):
+        err = lib.dca_nll_bwd(
+            y.data_ptr(), mu.data_ptr(), theta.data_ptr(),
+            None if pi is None else pi.data_ptr(), scale.data_ptr(),
+            dmu.data_ptr(), dth.data_ptr(), None if dpi is None else dpi.data_ptr(),
+            mu.numel(), mu.shape[1],
+            _mode(theta, mu.shape), 0 if pi is None else _mode(pi, mu.shape),
+            float(ridge), pi is not None,
+            torch.cuda.current_stream(mu.device).cuda_stream,
+        )
+    name = "nb_nll_bwd" if pi is None else "zinb_nll_bwd"
+    _raise_on(lib, err, f"{name} (K2)")
+    launches[name] += 1
+    # the broadcast operands' cotangents, summed outside the kernel as the
+    # JAX package's _reduce_to sums them outside its Pallas kernel
+    dth = _reduce_to(dth, theta.shape)
+    if pi is None:
+        return dmu, dth
+    return dmu, dth, _reduce_to(dpi, pi.shape)
+
+
+def nb_nll_fwd_kernel(y, mu, theta):
+    """Launch the NB K1; return (loss, denom) as device scalars.
+
+    Replaces the Pallas kernel ``dca_tpu/ops/fused_loss.py::_fwd_kernel``
+    (driven by ``_pallas_fwd``) with ``with_pi=False``.  Bound on the H100
+    by memory: it reads y, mu and theta once, 3 x 441,728 B = 1.33 MB at
+    the training step's (32, 3451), at least 0.40 us at 3.35 TB/s (less
+    with a broadcast theta); at these sizes the launch and the accurate
+    ``logf`` of the Stirling recurrence take longer.  Design: one pass, a
+    grid-stride loop over a block count fixed by n, coalesced loads of y
+    and mu, theta read through its broadcast index (never expanded), the
+    elementwise NLL summed in registers, then across the warp by shuffles
+    and across the block through shared memory; each block writes one
+    partial sum and one count of non-NaN targets, and one torch reduction
+    sums the (2, blocks) buffer.  No atomics, so the loss is bit-identical
+    from run to run.  The ragged edge is masked by index (i < n); nothing
+    is padded."""
+    return _fwd_kernel(y, mu, theta, None, 0.0)
+
+
 def nb_nll_bwd_kernel(y, mu, theta, scale):
-    """Launch K2; return (d mu, d theta), each times ``scale``.
+    """Launch the NB K2; return (d mu, d theta), each times ``scale``.
 
     ``scale`` is a one-element float32 tensor on the device (g / denom),
     passed by pointer as the JAX package passes it in SMEM: nothing is read
     back to the host.  Replaces the Pallas kernel
-    ``dca_tpu/ops/fused_loss.py::_bwd_kernel`` (driven by ``_pallas_bwd``).
-    Bound on the H100 by memory: it reads y, mu, theta and writes two
-    outputs, 5 x 441,728 B = 2.21 MB at (32, 3451), at least 0.66 us at
-    3.35 TB/s.  Design: one thread per element, coalesced loads and stores,
-    the analytic gradients in registers; no intermediate touches memory."""
-    from ._build import library
-
-    _check(y, mu, theta)
-    if not mu.is_cuda:
-        raise ValueError("nb_nll_bwd_kernel needs CUDA tensors")
-    if (scale.dtype != torch.float32 or scale.numel() != 1
-            or scale.device != mu.device):
-        raise ValueError("nb_nll_bwd_kernel: scale must be one float32 on mu's device")
-    lib = library()
-    dmu = torch.empty_like(mu)
-    dth = torch.empty_like(mu)
-    with torch.cuda.device(mu.device):
-        err = lib.dca_nb_nll_bwd(
-            y.data_ptr(), mu.data_ptr(), theta.data_ptr(), scale.data_ptr(),
-            dmu.data_ptr(), dth.data_ptr(), mu.numel(),
-            torch.cuda.current_stream(mu.device).cuda_stream,
-        )
-    _raise_on(lib, err, "nb_nll_bwd_kernel (K2)")
-    launches["nb_nll_bwd"] += 1
-    return dmu, dth
+    ``dca_tpu/ops/fused_loss.py::_bwd_kernel`` (driven by ``_pallas_bwd``)
+    with ``with_pi=False``, which writes no d pi.  Bound on the H100 by
+    memory: it reads y, mu, theta and writes two (B, G) outputs, 5 x
+    441,728 B = 2.21 MB at (32, 3451), at least 0.66 us at 3.35 TB/s.
+    Design: one thread per element, coalesced loads and stores, the
+    analytic gradients in registers; a broadcast theta's (B, G) cotangent
+    is summed to its shape by one torch reduction."""
+    return _bwd_kernel(y, mu, theta, None, 0.0, scale)
 
 
-class _NBNLLFused(torch.autograd.Function):
+def zinb_nll_fwd_kernel(y, mu, theta, pi, ridge=0.0):
+    """Launch the ZINB K1; return (loss, denom) as device scalars.
+
+    Replaces ``dca_tpu/ops/fused_loss.py::_fwd_kernel`` with
+    ``with_pi=True``: the same one-pass design as the NB K1, templated on
+    WITH_PI, with pi read through its own broadcast index, and the count
+    of non-NaN results (not targets) for the denominator.  Bound on the
+    H100 by memory: 4 x 441,728 B = 1.77 MB at (32, 3451) with full theta
+    and pi, at least 0.53 us at 3.35 TB/s."""
+    return _fwd_kernel(y, mu, theta, pi, ridge)
+
+
+def zinb_nll_bwd_kernel(y, mu, theta, pi, ridge, scale):
+    """Launch the ZINB K2; return (d mu, d theta, d pi), each times
+    ``scale`` and summed to its operand's shape.
+
+    Replaces ``dca_tpu/ops/fused_loss.py::_bwd_kernel`` with
+    ``with_pi=True``: one thread per element, writing the full (B, G)
+    d mu, d theta and d pi.  Bound on the H100 by memory: it reads 4 and
+    writes 3 (B, G) arrays, 7 x 441,728 B = 3.09 MB at (32, 3451), at
+    least 0.92 us at 3.35 TB/s."""
+    return _bwd_kernel(y, mu, theta, pi, ridge, scale)
+
+
+class _FusedNLL(torch.autograd.Function):
+    """K1 forward, K2 backward; NB when ``pi`` is None, else ZINB."""
+
     @staticmethod
-    def forward(ctx, y, mu, theta):
-        _check(y, mu, theta)
-        fwd = nb_nll_fwd_kernel if mu.is_cuda else nb_nll_fwd_reference
-        loss, denom = fwd(y, mu, theta)
-        ctx.save_for_backward(y, mu, theta, denom)
+    def forward(ctx, y, mu, theta, pi, ridge):
+        _check(y, mu, theta, pi)
+        fwd = _fwd_kernel if mu.is_cuda else _fwd_reference
+        loss, denom = fwd(y, mu, theta, pi, ridge)
+        ctx.ridge = ridge
+        ctx.save_for_backward(y, mu, theta, pi, denom)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        y, mu, theta, denom = ctx.saved_tensors
+        y, mu, theta, pi, denom = ctx.saved_tensors
         scale = (g / denom).to(torch.float32).reshape(1)
-        bwd = nb_nll_bwd_kernel if mu.is_cuda else nb_nll_bwd_reference
-        dmu, dth = bwd(y, mu, theta, scale)
-        return None, dmu, dth
+        bwd = _bwd_kernel if mu.is_cuda else _bwd_reference
+        grads = bwd(y, mu, theta, pi, ctx.ridge, scale)
+        dpi = grads[2] if pi is not None else None
+        return None, grads[0], grads[1], dpi, None
 
 
 def nb_nll_fused(y, mu, theta):
-    """Mean NB NLL over (B, G) float32 tensors, kernels forward and back."""
-    return _NBNLLFused.apply(y, mu, theta)
+    """Mean NB NLL, kernels forward and back.  y, mu (B, G) float32; theta
+    (B, G), (1, G), (B, 1) or (1, 1)."""
+    return _FusedNLL.apply(y, mu, theta, None, 0.0)
+
+
+def zinb_nll_fused(y, mu, theta, pi, ridge=0.0):
+    """Mean ZINB NLL with ridge * pi^2, kernels forward and back.  y, mu
+    (B, G) float32; theta and pi each (B, G), (1, G), (B, 1) or (1, 1)."""
+    return _FusedNLL.apply(y, mu, theta, pi, float(ridge))

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: NB
+and ZINB, with full and broadcast theta/pi.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import COMPARE_SHAPES, _grad_check, _loss_inputs
 from dca_tpu_torch.ops import fused_loss
 
 
@@ -69,6 +71,46 @@ def test_kernels_match_plain_version_on_card(cuda, shape, nan_frac):
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     y, mu, th = (_t(a).to(cuda) for a in _data(8, 16, seed=12))
     with pytest.raises(ValueError):
-        fused_loss.nb_nll_fused(y, mu, th[:1].contiguous())
+        fused_loss.nb_nll_fused(y, mu, th[:2].contiguous())  # no broadcast rule
     with pytest.raises(TypeError):
         fused_loss.nb_nll_fused(y, mu.double(), th)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("th_kind,pi_kind,ridge", [
+    ("full", "full", 0.0), ("full", "full", 0.1), ("row", "full", 0.1),
+    ("col", "col", 0.1), ("row", "row", 0.1), ("col", "row", 0.1),
+    ("row", None, 0.0), ("col", None, 0.0)])
+@pytest.mark.parametrize("shape_index", [0, 3])
+def test_zinb_and_broadcast_kernels_match_plain_version_on_card(cuda, shape_index,
+                                                               th_kind, pi_kind, ridge):
+    """The checks of chip_smoke.py's phase 1, at (32, 3451) and the ragged
+    (7, 50) with NaN targets and clipped theta."""
+    (B, G), nan_frac, n_clipped = COMPARE_SHAPES[shape_index]
+    shapes = {"full": (B, G), "row": (1, G), "col": (B, 1), None: None}
+    y, mu, th, pi = (None if a is None else _t(a).to(cuda)
+                     for a in _loss_inputs(B, G, 5, nan_frac, n_clipped, shapes[th_kind],
+                                           shapes[pi_kind]))
+    ops = [t.requires_grad_(True) for t in (mu, th, pi) if t is not None]
+    fam = "nb" if pi is None else "zinb"
+    before = dict(fused_loss.launches)
+    if pi is None:
+        loss = fused_loss.nb_nll_fused(y, mu, th)
+    else:
+        loss = fused_loss.zinb_nll_fused(y, mu, th, pi, ridge)
+    grads = torch.autograd.grad(loss, ops)
+    assert fused_loss.launches[f"{fam}_nll_fwd"] == before[f"{fam}_nll_fwd"] + 1
+    assert fused_loss.launches[f"{fam}_nll_bwd"] == before[f"{fam}_nll_bwd"] + 1
+    with torch.no_grad():
+        ref, denom = fused_loss._fwd_reference(y, mu, th, pi, ridge)
+        scale = 1.0 / denom
+        refs = fused_loss._bwd_reference(y, mu, th, pi, ridge, scale.reshape(1))
+        fulls = fused_loss._elem_grads(y, mu, th, pi, ridge)
+        mags = fused_loss.grad_term_magnitudes(y, mu, th, pi, ridge)
+    assert abs(loss.item() - ref.item()) / abs(ref.item()) <= 1e-5
+    for name, got, want, full, mag in zip(("mu", "theta", "pi"), grads, refs, fulls, mags):
+        assert got.shape == want.shape, name
+        _grad_check(name, got, want, full.expand(B, G), mag.expand(B, G), scale)
+    again = (fused_loss.nb_nll_fused(y, mu, th) if pi is None
+             else fused_loss.zinb_nll_fused(y, mu, th, pi, ridge))
+    assert torch.equal(again, loss)  # no atomics: the same bits

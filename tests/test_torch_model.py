@@ -153,11 +153,12 @@ def test_rmsprop_matches_jax(steps):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-9)
 
 
-def test_only_nb_conddisp_and_rmsprop_are_ported():
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_ae_type("zinb-conddisp")
+def test_adam_and_prelu_are_not_ported_yet():
     with pytest.raises(ValueError, match="ROADMAP.md"):
         optim.get_optimizer("Adam")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_ae_type("zinb-conddisp")(input_size=20, hidden_size=HID, activation="PReLU",
+                                     device="cpu").build()
 
 
 def test_predict_matches_jax():

@@ -18,6 +18,7 @@ import jax
 from dca_tpu.data import io as jio
 from dca_tpu.data.adata import AnnData as JAnnData
 from dca_tpu.models import NBAutoencoder as JNBAutoencoder
+from dca_tpu.models import ZINBAutoencoder as JZINBAutoencoder
 from dca_tpu.train.loop import train as jtrain
 
 import dca_tpu_torch
@@ -25,7 +26,7 @@ from dca_tpu_torch.__main__ import main, parse_args
 from dca_tpu_torch.bridge import params_from_jax
 from dca_tpu_torch.data import io
 from dca_tpu_torch.data.adata import AnnData
-from dca_tpu_torch.models.network import NBAutoencoder
+from dca_tpu_torch.models.network import NBAutoencoder, ZINBAutoencoder
 from dca_tpu_torch.train.loop import train
 
 from conftest import make_counts
@@ -35,24 +36,23 @@ torch.set_num_threads(1)  # tier-1 runs several pytest workers at once
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_trajectory_matches_jax_training_loop(monkeypatch):
-    """Both packages train nb-conddisp (16, 8, 16) from the same weights on
-    the same data for 3 epochs: dropout 0 and one seed give both the same
+def _trajectories(jcls, cls, **kw):
+    """Both packages train (16, 8, 16) from the same weights on the same
+    data for 3 epochs: dropout 0 and one seed give both the same
     np.random.RandomState permutation stream, so the per-epoch losses must
     agree.  The JAX side runs its fused Pallas kernels in interpret mode
-    (DCA_TPU_FUSED_LOSS=1), the same log1p/Stirling math as the port's
-    plain version; what remains is float rounding in another order, which
-    grows through the RMSprop steps: rtol 1e-4."""
-    monkeypatch.setenv("DCA_TPU_FUSED_LOSS", "1")
+    (DCA_TPU_FUSED_LOSS=1 in the caller), the same log1p/Stirling math as
+    the port's plain version; what remains is float rounding in another
+    order, which grows through the RMSprop steps: rtol 1e-4."""
     counts = make_counts(200, 50)
     jad = jio.normalize(jio.read_dataset(JAnnData(counts.copy())))
     ad = io.normalize(io.read_dataset(AnnData(counts.copy())))
     np.testing.assert_array_equal(ad.X, jad.X)
 
-    jnet = JNBAutoencoder(input_size=50, hidden_size=(16, 8, 16),
-                          hidden_dropout=0.0, seed=7).build()
-    net = NBAutoencoder(input_size=50, hidden_size=(16, 8, 16), hidden_dropout=0.0,
-                        device="cpu").build()
+    jnet = jcls(input_size=50, hidden_size=(16, 8, 16), hidden_dropout=0.0, seed=7,
+                **kw).build()
+    net = cls(input_size=50, hidden_size=(16, 8, 16), hidden_dropout=0.0, device="cpu",
+              **kw).build()
     net.model.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, jnet.params),
         jax.tree_util.tree_map(np.asarray, jnet.state)))
@@ -63,6 +63,18 @@ def test_trajectory_matches_jax_training_loop(monkeypatch):
         np.testing.assert_allclose(hist.history[key], jhist.history[key], rtol=1e-4,
                                    err_msg=key)
     assert hist.history["lr"] == jhist.history["lr"]
+
+
+def test_trajectory_matches_jax_training_loop(monkeypatch):
+    """nb-conddisp: see _trajectories."""
+    monkeypatch.setenv("DCA_TPU_FUSED_LOSS", "1")
+    _trajectories(JNBAutoencoder, NBAutoencoder)
+
+
+def test_zinb_trajectory_matches_jax_training_loop(monkeypatch):
+    """zinb-conddisp, with a ridge on pi: see _trajectories."""
+    monkeypatch.setenv("DCA_TPU_FUSED_LOSS", "1")
+    _trajectories(JZINBAutoencoder, ZINBAutoencoder, ridge=0.05)
 
 
 def test_normalize_and_test_fold_match_jax():
@@ -120,7 +132,29 @@ def test_cli_end_to_end_on_cpu(input_tsv, tmp_path):
     assert payload["params"] is None  # saved before build, as the JAX CLI does
 
 
-@pytest.mark.parametrize("flags", [["--type", "zinb-conddisp"], ["--hyper"],
+@pytest.mark.parametrize("ae_type", ["zinb-conddisp", "zinb"])
+def test_cli_zinb_on_cpu(input_tsv, tmp_path, ae_type):
+    """The ZINB writers: dropout.tsv and its alias pi.tsv gene x cell; the
+    dispersion gene x cell for zinb-conddisp, one value per gene for the
+    constant dispersion of zinb."""
+    outdir = str(tmp_path / "out")
+    main([input_tsv, outdir, "-e", "2", "-s", "16,8,16", "--type", ae_type,
+          "--ridge", "0.01", "--device", "cpu"])
+    read = lambda f: pd.read_csv(os.path.join(outdir, f), sep="\t", index_col=0,  # noqa: E731
+                                 header=None)
+    for fname in ("dropout.tsv", "pi.tsv"):
+        pi = read(fname)
+        assert pi.shape == (20, 60) and pi.index[0] == "gene0", fname
+        assert np.isfinite(pi.to_numpy()).all() and (pi.to_numpy() > 0).all()
+    np.testing.assert_array_equal(read("dropout.tsv").to_numpy(), read("pi.tsv").to_numpy())
+    disp = read("dispersion.tsv")
+    assert disp.shape == ((20, 60) if ae_type == "zinb-conddisp" else (20, 1))
+    assert np.isfinite(disp.to_numpy()).all() and disp.index[0] == "gene0"
+    with open(os.path.join(outdir, "model.pickle"), "rb") as f:
+        assert pickle.load(f)["ae_type"] == ae_type
+
+
+@pytest.mark.parametrize("flags", [["--activation", "PReLU"], ["--hyper"],
                                    ["--outputformat", "h5ad"], ["--tensorboard"]])
 def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
     with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
