@@ -15,6 +15,12 @@ epoch of the main path, and the loss kernels' own device time.
    kernels' mean device time from torch.profiler's trace, and K1 without
    its wrapper's sum over the per-block partials, timed as
    ``chip_smoke.py`` times the wrappers.
+3. The denoise forward: ``forward`` of ``ae_type`` over the 2730 x 3451
+   matrix in one block, with the fused dense kernel K4 off and on
+   (DCA_TPU_FUSED_DENSE), after a warm-up, under torch.profiler: wall
+   time, device busy time and idle share, the host-device copies' share,
+   and the device items that take the most time; the tables go to
+   ``chiprun_out/profile_forward_0.txt`` (off) and ``_1.txt`` (on).
 
 Prints the card's name and power limit first.  Nothing here imports JAX
 or the JAX package.
@@ -117,6 +123,48 @@ def profile_kernels():
               f"K1 without its partial sum, graph-timed: {k1_alone} ms")
 
 
+def profile_forward(ae_type):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dca_tpu_torch.data import io
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.models.network import get_ae_type
+
+    adata = io.normalize(io.read_dataset(AnnData(make_paul15_like())))
+    x, sf = adata.X, io.size_factors(adata)
+    net = get_ae_type(ae_type)(input_size=adata.n_vars, device="cuda").build()
+    saved = os.environ.get("DCA_TPU_FUSED_DENSE")
+    try:
+        for mode in ("0", "1"):
+            os.environ["DCA_TPU_FUSED_DENSE"] = mode
+            net.forward(x, sf)  # warm-up
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                net.forward(x, sf)
+                wall = time.perf_counter() - t0
+            table = prof.key_averages()
+            items = [e for e in table if e.device_type == DeviceType.CUDA]
+            busy = sum(e.device_time_total for e in items) / 1e6
+            copies = sum(e.device_time_total for e in items if "Memcpy" in e.key) / 1e6
+            with open(os.path.join(OUT_DIR, f"profile_forward_{mode}.txt"), "w") as f:
+                f.write(table.table(sort_by="device_time_total", row_limit=30))
+            print(f"{ae_type} forward 2730 x 3451, K4 {'on' if mode == '1' else 'off'}: "
+                  f"profiled wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.2f} ms "
+                  f"(copies {copies * 1e3:.2f} ms), idle share {1 - busy / wall:.3f}")
+            for e in sorted(items, key=lambda e: -e.device_time_total)[:6]:
+                print(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d}x  {e.key[:90]}")
+            host = [e for e in table if e.device_type == DeviceType.CPU]
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:4]:
+                print(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms  {e.count:4d}x  {e.key[:80]}")
+    finally:
+        if saved is None:
+            os.environ.pop("DCA_TPU_FUSED_DENSE", None)
+        else:
+            os.environ["DCA_TPU_FUSED_DENSE"] = saved
+
+
 def main():
     import torch
 
@@ -127,8 +175,10 @@ def main():
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
     print(_card())
-    profile_epoch(sys.argv[1] if len(sys.argv) > 1 else "zinb-conddisp")
+    ae_type = sys.argv[1] if len(sys.argv) > 1 else "zinb-conddisp"
+    profile_epoch(ae_type)
     profile_kernels()
+    profile_forward(ae_type)
     return 0
 
 

@@ -9,7 +9,7 @@ Phases, each of which must pass:
    and hold each one against its plain PyTorch version, on the same CUDA
    tensors, at the shapes of the main paths: the full and trailing training
    batches (32, 3451) and (25, 3451), the validation split (273, 3451), and
-   a ragged (7, 50) with 10% NaN targets and clipped theta.  At each shape:
+   a ragged (7, 50) with 10% NaN targets and clipped theta.  K1/K2: at each shape:
    NB with theta (B, G), (1, G) and (B, 1); ZINB with theta/pi (B, G)/(B, G)
    at ridge 0 and 0.1, and the broadcast pairs (1, G)/(B, G), (B, 1)/(B, 1),
    (1, G)/(1, G), (B, 1)/(1, G) at ridge 0.1.  Tolerances: loss relative
@@ -23,11 +23,27 @@ Phases, each of which must pass:
    broadcast operand's gradient is a sum of n such elements: its tolerance
    is the sum of theirs plus 2 ceil(log2 n) ulps of the summed magnitudes
    for the two reductions' rounding.  K1 must give the same bits twice.
+   K4 (the fused dense block) at the shapes of the denoise path
+   (``DENSE_CASES``): the encoder (2730, 3451) -> 64 with BN and relu, the
+   heads (2730, 64) -> 3451 with the mean, disp and sigmoid epilogues, the
+   decoder layer 32 -> 64 at 2730 and 64 rows, a ragged (33, 200) -> 70
+   with BN, size factors and all 8 epilogues, (16, 1500) -> 96, and the
+   encoder, heads and ragged case again under DCA_TPU_MATMUL=bf16.
+   Tolerances: the ``linear`` output against the plain version within
+   2 K 2^-24 (|x| @ |W| + |b|) elementwise, times |s| with BN, plus 4
+   ulps (two float32 sums of K products in different orders); each
+   activated output within 4 ulps of the plain activation applied to the
+   kernel's own linear output (times sf); the pre-activation the same bits
+   for every epilogue (relu, elu and linear outputs equal to the linear
+   output where it is positive); a NaN in a row of x gives a NaN row
+   under every epilogue and leaves the other rows' bits as they were.
 2. Kernel timings at (32, 3451), NB and ZINB: median device time of 50
    launches after a warm-up, each launch a CUDA graph replay between CUDA
    events (see ``_device_ms``); beside them the plain version's time and
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s float32).  K1 also at the validation split (273, 3451).
+   K4 at the encoder and head shapes, with its bound, the plain version's
+   time and, for the ``linear`` epilogue, ``torch.addmm``'s.
 3. Zoo: every architecture of ``AE_types``, and zinb-elempi with
    sharedpi, trains 2 epochs at 200 cells x 60 genes, (16, 8, 16), on the
    CPU and on the card from the same weights; the losses must agree epoch
@@ -44,7 +60,19 @@ Phases, each of which must pass:
    with the default nb-conddisp, ``--type zinb-conddisp`` and ``--type
    zinb``, and the output contract (mean, mean_norm, latent, reduced,
    dispersion, and for ZINB dropout and pi TSVs, and model.pickle, all
-   values finite).
+   values finite); then zinb-conddisp again through the streaming write
+   (DCA_TPU_HOST_DENSE_BYTES=1) with K4 on (DCA_TPU_FUSED_DENSE=1).
+6. The denoise tier on phase 4's trained zinb-conddisp network at
+   2730 x 3451: ``forward`` with K4 off and on (outputs within the error
+   bound propagated through the layers, ``_forward_tolerance``; 4 K4
+   launches: encoder, mean, dispersion and pi heads; both times printed),
+   then ``write_streaming(mode="full", return_info=True,
+   chunk_rows=1024)`` with DCA_TPU_WRITE_ALIASES=0 in 3 blocks (12 K4
+   launches; file shapes; the first genes of mean.tsv equal to the
+   in-memory output of the same blocks printed to 6 decimals; its time);
+   and phase 4's nb-conddisp network's ``predict(return_info=True)``
+   (4 K4 launches: encoder and mean head for the denoise, encoder and
+   dispersion head for the dispersion after it).
 
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -167,16 +195,23 @@ def _bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k4_bound():
-    """The bound of K4 (``dca_tpu/ops/fused_dense.py::_kernel``, not ported:
-    opt-in in the JAX package and off at every width) at the main path's
-    predict: the 64 -> 3451 mean head over 2730 rows, act(x @ W + b) * sf.
-    Bytes: x, W, b, the folded BN's s and t, sf read once, the (2730, 3451)
-    output written once; operations: 2 per multiply-add of the product.
-    Returns (bound ms, bound by, bytes, operations)."""
-    rows, k, n = 2730, 64, 3451
-    n_bytes = 4 * (rows * k + k * n + 3 * n + rows + rows * n)
-    n_ops = 2.0 * rows * k * n
+# operations of K4's epilogue per output beyond the bias: the activation
+# (a transcendental counted as one), as csrc/fused_dense.cu computes it
+K4_ACT_OPS = {"mean": 3, "disp": 8, "sigmoid": 4, "relu": 1, "selu": 4, "elu": 2,
+              "tanh": 1, "linear": 0}
+
+
+def k4_bound(rows, k, n, bn=False, activation="linear", sf=False):
+    """The bound of K4 (``dca_tpu/ops/fused_dense.py::_kernel``) for
+    act((x @ W + b) s + t) sf on (rows, k) @ (k, n).  Bytes: x, W, b, the
+    folded BN's s and t, sf read once, the (rows, n) output written once;
+    operations: 2 per multiply-add of the product, 1 for the bias, 2 for
+    the BN affine, the activation's, 1 for sf, per output.  Returns (bound
+    ms, bound by, bytes, operations)."""
+    n_bytes = 4 * (rows * k + k * n + n + (2 * n if bn else 0) + (rows if sf else 0)
+                   + rows * n)
+    n_ops = 2.0 * rows * k * n + rows * n * (1 + (2 if bn else 0) + K4_ACT_OPS[activation]
+                                             + (1 if sf else 0))
     ms, by = _bound_ms(n_bytes, n_ops)
     return ms, by, n_bytes, n_ops
 
@@ -332,6 +367,174 @@ def phase_compare(dev):
     return worst
 
 
+ALL_ACTS = ("mean", "disp", "sigmoid", "relu", "selu", "elu", "tanh", "linear")
+# name, (rows, K, N), BN, epilogues, size factors, checked again in bf16 mode
+DENSE_CASES = [
+    ("encoder", (2730, 3451, 64), True, ("relu",), False, True),
+    ("heads", (2730, 64, 3451), False, ("mean", "disp", "sigmoid"), False, True),
+    ("decoder", (2730, 32, 64), True, ("relu",), False, False),
+    ("decoder rows 64", (64, 32, 64), True, ("relu",), False, False),
+    ("ragged", (33, 200, 70), True, ALL_ACTS, True, True),
+    ("long K", (16, 1500, 96), True, ("relu",), False, False),
+]
+
+
+def dense_inputs(B, K, N, seed, bn=True, sf=False, nonneg=False):
+    """x, W, b, (moving_mean, moving_var, beta) or None, sf or None as the
+    denoise path gives them: z-scaled inputs (or relu outputs with
+    ``nonneg``), Glorot-sized weights, moving statistics of O(1)."""
+    rs = np.random.RandomState(seed)
+    x = rs.normal(size=(B, K)).astype(np.float32)
+    if nonneg:
+        x = np.abs(x)
+    w = (rs.normal(size=(K, N)) * np.sqrt(2.0 / (K + N))).astype(np.float32)
+    b = (rs.normal(size=(N,)) * 0.1).astype(np.float32)
+    stats = None
+    if bn:
+        stats = ((rs.normal(size=(N,)) * 0.1).astype(np.float32),
+                 rs.uniform(0.5, 2.0, size=(N,)).astype(np.float32),
+                 (rs.normal(size=(N,)) * 0.1).astype(np.float32))
+    sfv = rs.uniform(0.5, 2.0, size=(B,)).astype(np.float32) if sf else None
+    return x, w, b, stats, sfv
+
+
+def _on(dev, arrays):
+    """The numpy arrays (or tuples of them, or None) as tensors on ``dev``."""
+    import torch
+
+    return [None if a is None else tuple(_on(dev, a)) if isinstance(a, tuple)
+            else torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def _ulps(v, n=4):
+    """n float32 ulps at |v|, elementwise."""
+    import torch
+
+    a = v.abs()
+    return n * (torch.nextafter(a, torch.full_like(a, float("inf"))) - a)
+
+
+def check_dense_case(dev, name, shape, bn, acts, with_sf, seed, bf16=False):
+    """Hold K4 against its plain version on one case (see the module
+    docstring's tolerances).  Returns (max abs error of the activated
+    outputs against the whole plain version, the worst error over its
+    tolerance)."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_dense as fd
+
+    B, K, N = shape
+    what = f"K4 {name} {shape}{' bf16' if bf16 else ''}"
+    x, w, b, stats, sf = _on(dev, dense_inputs(B, K, N, seed, bn, with_sf,
+                                               nonneg=name == "heads"))
+    prev = os.environ.get("DCA_TPU_MATMUL")
+    os.environ["DCA_TPU_MATMUL"] = "bf16" if bf16 else "f32"
+    try:
+        lin = fd.fused_dense_block(x, w, b, bn=stats, activation="linear")
+        want_lin = fd.fused_dense_reference(x, w, b, bn=stats, activation="linear")
+        xr, wr = (x.bfloat16().float(), w.bfloat16().float()) if bf16 else (x, w)
+        tol = 2 * K * 2.0 ** -24 * (xr.abs() @ wr.abs() + b.abs())
+        if stats is not None:
+            tol = tol * fd.fold_bn(stats)[0].abs()
+        tol = tol + _ulps(want_lin)
+        err = (lin - want_lin).abs()
+        _check(bool(torch.isfinite(lin).all()), f"{what}: linear output not finite")
+        _check(bool((err <= tol).all()),
+               f"{what}: linear output off by {err.max().item():.3e}, "
+               f"{(err / tol).max().item():.3f} of its tolerance")
+        worst = (err / tol).max().item()
+        max_err = err.max().item()
+        sfc = 1.0 if sf is None else sf.reshape(-1, 1)
+        for act in acts:
+            got = fd.fused_dense_block(x, w, b, bn=stats, activation=act, size_factors=sf)
+            want = fd.EPILOGUES[act](lin) * sfc
+            nan = torch.isnan(want)
+            _check(torch.equal(torch.isnan(got), nan), f"{what} {act}: NaN where the plain "
+                   "activation of the linear output has none, or the reverse")
+            e = (got - want).abs()[~nan]
+            t = _ulps(want)[~nan]
+            _check(bool((e <= t).all()), f"{what} {act}: {int((e > t).sum())} outputs more "
+                   f"than 4 ulps from the plain activation of the kernel's linear output")
+            if act in ("relu", "elu", "linear"):
+                # identity where positive: the pre-activation is the same bits
+                pos = lin > 0
+                _check(torch.equal(got[pos], (lin * sfc)[pos] if sf is not None else lin[pos]),
+                       f"{what} {act}: pre-activation bits differ from the linear epilogue's")
+            full = fd.fused_dense_reference(x, w, b, bn=stats, activation=act, size_factors=sf)
+            max_err = max(max_err, (got - full).abs()[~nan].max().item())
+        if name == "ragged":
+            # a NaN in one row of x: that row NaN under every epilogue, the
+            # other rows' bits unchanged
+            xn = x.clone()
+            xn[3, 10] = float("nan")
+            for act in acts:
+                clean = fd.fused_dense_block(x, w, b, bn=stats, activation=act, size_factors=sf)
+                got = fd.fused_dense_block(xn, w, b, bn=stats, activation=act, size_factors=sf)
+                _check(bool(torch.isnan(got[3]).all()), f"{what} {act}: NaN row not NaN")
+                rest = torch.arange(B, device=dev) != 3
+                _check(torch.equal(got[rest], clean[rest]),
+                       f"{what} {act}: a NaN in row 3 changed other rows")
+    finally:
+        if prev is None:
+            os.environ.pop("DCA_TPU_MATMUL", None)
+        else:
+            os.environ["DCA_TPU_MATMUL"] = prev
+    return max_err, worst
+
+
+def phase_dense_compare(dev):
+    """K4 against its plain version at every case of DENSE_CASES."""
+    max_err = worst = 0.0
+    n = 0
+    for seed, (name, shape, bn, acts, with_sf, also_bf16) in enumerate(DENSE_CASES):
+        for bf16 in (False, True) if also_bf16 else (False,):
+            e, r = check_dense_case(dev, name, shape, bn, acts, with_sf, 500 + seed, bf16)
+            max_err, worst = max(max_err, e), max(worst, r)
+            n += 1
+            print(f"phase 1: K4 {name} {shape}{' bf16' if bf16 else ''}, BN {bn}, sf "
+                  f"{with_sf}, {', '.join(acts)}: agrees (max abs error {e:.3e}, linear "
+                  f"{r:.3f} of its tolerance)")
+    print(f"phase 1: K4: {n} cases agree; worst linear error {worst:.3f} of its tolerance, "
+          f"max abs error against the whole plain version {max_err:.3e}")
+    return max_err
+
+
+K4_TIMED = [  # name, (rows, K, N), BN, epilogue: the denoise path's layers
+    ("encoder", (2730, 3451, 64), True, "relu"),
+    ("encoder", (2730, 3451, 64), False, "linear"),
+    ("head", (2730, 64, 3451), False, "mean"),
+    ("head", (2730, 64, 3451), False, "disp"),
+    ("head", (2730, 64, 3451), False, "sigmoid"),
+    ("head", (2730, 64, 3451), False, "linear"),
+]
+
+
+def dense_timings(dev):
+    """K4, its plain version and (linear only) torch.addmm at the denoise
+    path's shapes; {(name, activation): (ms, plain ms, bound ms, bound by,
+    library ms or None)}."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_dense as fd
+
+    out = {}
+    for i, (name, (B, K, N), bn, act) in enumerate(K4_TIMED):
+        x, w, b, stats, _ = _on(dev, dense_inputs(B, K, N, 700 + i, bn, nonneg=name == "head"))
+        ms = _device_ms(lambda: fd._kernel(x, w, b, stats, act, None))
+        plain_ms = _device_ms(lambda: fd.fused_dense_reference(x, w, b, bn=stats,
+                                                               activation=act))
+        lib_ms = (_device_ms(lambda: torch.addmm(b, x, w)) if act == "linear" and not bn
+                  else None)
+        bound, by, n_bytes, n_ops = k4_bound(B, K, N, bn, act)
+        out[(name, act)] = (ms, plain_ms, bound, by, lib_ms)
+        lib = "no single PyTorch call" if lib_ms is None else f"addmm {lib_ms * 1e3:.2f} us"
+        print(f"phase 2: K4 {name} ({B}, {K}) x ({K}, {N}), BN {bn}, {act}: "
+              f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, {lib}; bound "
+              f"{bound * 1e3:.2f} us by {by}: {n_bytes / 1e6:.1f} MB, "
+              f"{n_ops / 1e9:.3f} GFLOP)")
+    return out
+
+
 def phase_timings(dev):
     import torch
 
@@ -372,10 +575,6 @@ def phase_timings(dev):
         out[f"{fam}_fwd"] = (k1_ms, k1_plain_ms, k1_bound, k1_by,
                              {"val_ms": k1_val_ms, "val_bound_ms": k1_val_bound})
         out[f"{fam}_bwd"] = (k2_ms, k2_plain_ms, k2_bound, k2_by, {})
-    k4_ms, k4_by, k4_bytes, k4_ops = k4_bound()
-    print(f"phase 2: K4 (fused dense, not ported) at the predict head (2730, 64) x "
-          f"(64, 3451): {k4_bytes / 1e6:.1f} MB, {k4_ops / 1e9:.3f} GFLOP, bound "
-          f"{k4_ms * 1e3:.2f} us by {k4_by}")
     return out
 
 
@@ -448,7 +647,7 @@ def phase_zoo():
 
 def phase_api(ae_type, epochs, timed):
     """One dca() run of ``ae_type`` at 2730 x 3451; returns (launches,
-    per-epoch seconds or None)."""
+    per-epoch seconds or None, the trained network)."""
     import torch
 
     import dca_tpu_torch
@@ -474,7 +673,8 @@ def phase_api(ae_type, epochs, timed):
 
     fl.reset_launches()
     t0 = time.perf_counter()
-    ret = dca_tpu_torch.dca(AnnData(counts.copy()), epochs=epochs, verbose=True, **kw)
+    ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), epochs=epochs, verbose=True,
+                                 return_model=True, **kw)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = dict(fl.launches)
@@ -499,7 +699,168 @@ def phase_api(ae_type, epochs, timed):
         f" (predict-only run {t_zero:.3f} s): {per_epoch * 1e3:.1f} ms per epoch")
     print(f"phase 4: dca() {ae_type} {n_cells} x {n_genes}, {epochs} epochs in "
           f"{t_run:.3f} s{timing}, {steps} steps each; launches {launches}")
-    return launches, per_epoch
+    return launches, per_epoch, net
+
+
+def _prepped_paul15():
+    """The 2730 x 3451 matrix preprocessed as dca() preprocesses it."""
+    from dca_tpu_torch.data import io
+    from dca_tpu_torch.data.adata import AnnData
+
+    return io.normalize(io.read_dataset(AnnData(make_paul15_like())),
+                        filter_min_counts=False)
+
+
+def _forward_tolerance(net, x, sf):
+    """Elementwise bound on |forward with K4 - forward without| for a
+    network of dense relu layers and dense heads (zinb-conddisp): each
+    product of K terms is off by at most 2 K 2^-24 (|x| @ |W| + |b|) on the
+    two paths together, the error carried in from the layer before goes
+    through |W|, the BN scale multiplies both, each elementwise step adds
+    4 ulps; relu passes the error on, MeanAct multiplies it by
+    mean (e^dz - 1), DispAct's softplus by at most 1, sigmoid by 1/4, and
+    the output is mean times sf.  Returns {output key: tolerance}."""
+    import torch
+
+    from dca_tpu_torch.models import core
+
+    u = 2.0 ** -24
+    d, m = net.definition, net.model
+    with torch.no_grad():
+        h = torch.tensor(np.asarray(x, np.float32), device=net.device)
+        sfc = torch.tensor(sf, device=net.device).reshape(-1, 1)
+        err = torch.zeros_like(h)
+        tol, val = {}, {}
+        for layer in d.shared:
+            p = m.trunk[layer.name]
+            aw = p.kernel.abs()
+            z = h @ p.kernel + p.bias
+            dz = err @ aw + 2 * p.kernel.shape[0] * u * (h.abs() @ aw + p.bias.abs())
+            if layer.name == "center":
+                tol["latent"] = dz + _ulps(z)
+            if layer.batchnorm:
+                s = torch.rsqrt(p.moving_var + core.BN_EPS)
+                dz = dz * s + _ulps(z * s) + _ulps(p.moving_mean * s) + _ulps(p.bn_beta)
+                z = (z - p.moving_mean) * s + p.bn_beta
+            h, err = torch.relu(z), dz
+        for head, key in (("mean", "mean_norm"), ("dispersion", "disp"), ("pi", "pi")):
+            p = m.heads[head]
+            aw = p.kernel.abs()
+            z = h @ p.kernel + p.bias
+            dz = err @ aw + 2 * p.kernel.shape[0] * u * (h.abs() @ aw + p.bias.abs()) + _ulps(z)
+            v = val[key] = core._HEAD_ACTS[d.heads[head].activation](z)
+            gain = {"mean": v * torch.expm1(dz), "disp": dz, "sigmoid": 0.25 * dz}
+            tol[key] = gain[d.heads[head].activation] + _ulps(v)
+        tol["output"] = tol["mean_norm"] * sfc + _ulps(val["mean_norm"] * sfc)
+    return {k: t.cpu().numpy() for k, t in tol.items()}
+
+
+def phase_denoise(zinb_net, nb_net):
+    """The denoise tier at 2730 x 3451 (module docstring, phase 6)."""
+    import pandas as pd
+    import torch
+
+    from dca_tpu_torch.data import io
+    from dca_tpu_torch.ops import fused_dense as fd
+
+    saved = {k: os.environ.get(k) for k in ("DCA_TPU_FUSED_DENSE", "DCA_TPU_WRITE_ALIASES")}
+    res = {}
+    try:
+        adata = _prepped_paul15()
+        x, sf = adata.X, io.size_factors(adata)
+        n_cells, n_genes = x.shape
+        outs = {}
+        for mode in ("0", "1"):
+            os.environ["DCA_TPU_FUSED_DENSE"] = mode
+            zinb_net.forward(x, sf)  # warm-up
+            torch.cuda.synchronize()
+            fd.reset_launches()
+            outs[mode] = zinb_net.forward(x, sf)  # the main path: counted
+            res[f"forward_launches_{mode}"] = fd.launches["fused_dense"]
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                zinb_net.forward(x, sf)
+                secs.append(time.perf_counter() - t0)
+            res[f"forward_s_{mode}"] = float(np.median(secs))
+        _check(res["forward_launches_0"] == 0 and res["forward_launches_1"] == 4,
+               f"forward: K4 launches {res['forward_launches_0']} with the switch off "
+               f"and {res['forward_launches_1']} on, expected 0 and 4 (encoder, mean, "
+               "dispersion and pi heads)")
+        tol = _forward_tolerance(zinb_net, x, sf)
+        worst = 0.0
+        for key, t in tol.items():
+            on, off = outs["1"][key], outs["0"][key]
+            _check(on.shape == off.shape and bool(np.isfinite(on).all()),
+                   f"forward with K4: {key} of shape {on.shape} or not finite")
+            err = np.abs(on - off)
+            _check(bool((err <= t).all()), f"forward with K4: {key} off by {err.max():.3e}, "
+                   f"{(err / t).max():.3f} of the propagated tolerance")
+            worst = max(worst, float((err / t).max()))
+        res["forward_worst"] = worst
+        print(f"phase 6: forward zinb-conddisp {n_cells} x {n_genes}: K4 off "
+              f"{res['forward_s_0'] * 1e3:.1f} ms, on {res['forward_s_1'] * 1e3:.1f} ms "
+              f"(median of 3); K4 launches {res['forward_launches_1']}; outputs agree, worst "
+              f"{worst:.3f} of the propagated tolerance")
+
+        # the streaming write, in 3 blocks of at most 1024 rows, with K4
+        os.environ["DCA_TPU_WRITE_ALIASES"] = "0"
+        out_dir = os.path.join(OUT_DIR, "stream")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        ad = _prepped_paul15()
+        fd.reset_launches()
+        t0 = time.perf_counter()
+        zinb_net.write_streaming(ad, out_dir, mode="full", return_info=True, chunk_rows=1024)
+        res["stream_s"] = time.perf_counter() - t0
+        res["stream_launches"] = fd.launches["fused_dense"]
+        _check(res["stream_launches"] == 12,
+               f"write_streaming: K4 launches {res['stream_launches']}, expected 12 "
+               "(3 blocks x encoder, mean, dispersion, pi)")
+        files = [("mean.tsv", 0, (n_genes, n_cells)), ("dispersion.tsv", None, (n_genes, n_cells)),
+                 ("dropout.tsv", None, (n_genes, n_cells)), ("latent.tsv", None, (n_cells, 32))]
+        _check(sorted(os.listdir(out_dir)) == sorted(f for f, _, _ in files),
+               f"write_streaming wrote {sorted(os.listdir(out_dir))}")
+        for fname, header, shape in files:
+            df = pd.read_csv(os.path.join(out_dir, fname), sep="\t", index_col=0, header=header)
+            _check(df.shape == shape and bool(np.isfinite(df.to_numpy()).all()),
+                   f"write_streaming {fname}: shape {df.shape}, expected {shape}, or not finite")
+        # the first genes of mean.tsv: the in-memory output of the same
+        # blocks, printed to 6 decimals
+        ref = zinb_net.forward(x, sf, chunk_rows=1024, keys=("output",))["output"]
+        with open(os.path.join(out_dir, "mean.tsv")) as f:
+            f.readline()
+            for g in range(5):
+                fields = f.readline().rstrip("\n").split("\t")
+                _check(fields[0] == ad.var_names[g]
+                       and fields[1:] == ["%.6f" % v for v in ref[:, g]],
+                       f"mean.tsv gene {g} differs from the in-memory output")
+        print(f"phase 6: write_streaming zinb-conddisp full, 3 blocks of <= 1024 rows, "
+              f"no aliases: {res['stream_s']:.2f} s; K4 launches {res['stream_launches']}; "
+              f"{', '.join(f for f, _, _ in files)} of the right shapes, finite, and the "
+              "first 5 genes of mean.tsv equal to the in-memory output to 6 decimals")
+        shutil.rmtree(out_dir)
+
+        # nb-conddisp predict: the denoise, then the dispersion from it
+        os.environ["DCA_TPU_FUSED_DENSE"] = "1"
+        ad = _prepped_paul15()
+        fd.reset_launches()
+        nb_net.predict(ad, mode="denoise", return_info=True)
+        res["nb_predict_launches"] = fd.launches["fused_dense"]
+        _check(res["nb_predict_launches"] == 4,
+               f"nb-conddisp predict: K4 launches {res['nb_predict_launches']}, expected 4 "
+               "(encoder and mean head, then encoder and dispersion head)")
+        for name, arr in (("X", ad.X), ("X_dca_dispersion", ad.obsm["X_dca_dispersion"])):
+            _check(arr.shape == (n_cells, n_genes) and bool(np.isfinite(arr).all()),
+                   f"nb-conddisp predict {name}: shape {arr.shape} or not finite")
+        print(f"phase 6: nb-conddisp predict(return_info=True) with K4: launches "
+              f"{res['nb_predict_launches']}, outputs finite")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return res
 
 
 def phase_cli():
@@ -513,13 +874,21 @@ def phase_cli():
     pd.DataFrame(counts.T.astype(int), index=[f"gene{i}" for i in range(120)],
                  columns=[f"cell{i}" for i in range(300)]).to_csv(tsv, sep="\t")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    for ae_type in ("nb-conddisp", "zinb-conddisp", "zinb"):
-        out = os.path.join(work, ae_type)
+    # the last run goes through the streaming write, with K4
+    stream_env = {"DCA_TPU_HOST_DENSE_BYTES": "1", "DCA_TPU_FUSED_DENSE": "1"}
+    for ae_type, label, extra in (("nb-conddisp", "nb-conddisp", {}),
+                                  ("zinb-conddisp", "zinb-conddisp", {}),
+                                  ("zinb", "zinb", {}),
+                                  ("zinb-conddisp", "zinb-conddisp-stream", stream_env)):
+        out = os.path.join(work, label)
         proc = subprocess.run([sys.executable, "-m", "dca_tpu_torch", tsv, out, "-e", "2",
                                "--type", ae_type],
-                              cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-        _check(proc.returncode == 0, f"CLI --type {ae_type} exited {proc.returncode}:\n"
+                              cwd=REPO, env=dict(env, **extra), capture_output=True,
+                              text=True, timeout=600)
+        _check(proc.returncode == 0, f"CLI {label} exited {proc.returncode}:\n"
                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        _check(("[streaming]" in proc.stdout) == bool(extra),
+               f"CLI {label}: the streaming write ran where it should not, or the reverse")
         files = [("mean.tsv", 0, (120, 300)), ("mean_norm.tsv", 0, (120, 300)),
                  ("dispersion.tsv", None, (120, 1 if ae_type == "zinb" else 300)),
                  ("latent.tsv", None, (300, 32)), ("reduced.tsv", None, (300, 32))]
@@ -527,13 +896,13 @@ def phase_cli():
             files += [("dropout.tsv", None, (120, 300)), ("pi.tsv", None, (120, 300))]
         for fname, header, shape in files:
             df = pd.read_csv(os.path.join(out, fname), sep="\t", index_col=0, header=header)
-            _check(df.shape == shape, f"--type {ae_type} {fname} has shape {df.shape}, "
+            _check(df.shape == shape, f"CLI {label} {fname} has shape {df.shape}, "
                    f"not {shape}")
             _check(bool(np.isfinite(df.to_numpy()).all()),
-                   f"--type {ae_type} {fname} is not finite")
+                   f"CLI {label} {fname} is not finite")
         _check(os.path.exists(os.path.join(out, "model.pickle")),
-               f"--type {ae_type}: no model.pickle")
-        print(f"phase 5: CLI --type {ae_type} on the card wrote "
+               f"CLI {label}: no model.pickle")
+        print(f"phase 5: CLI {label}{' ' + str(extra) if extra else ''} on the card wrote "
               f"{', '.join(f for f, _, _ in files)} and model.pickle, all finite")
     shutil.rmtree(work)
 
@@ -563,12 +932,15 @@ def main():
     try:
         phase_build()
         worst = phase_compare(dev)
+        dense_err = phase_dense_compare(dev)
         times = phase_timings(dev)
+        dense_times = dense_timings(dev)
         phase_zoo()
-        launches, per_epoch = phase_api("zinb-conddisp", 5, timed=True)
-        nb_launches, _ = phase_api("nb-conddisp", 2, timed=False)
+        launches, per_epoch, zinb_net = phase_api("zinb-conddisp", 5, timed=True)
+        nb_launches, _, nb_net = phase_api("nb-conddisp", 2, timed=False)
         launches.update({k: v for k, v in nb_launches.items() if k.startswith("nb_")})
         phase_cli()
+        den = phase_denoise(zinb_net, nb_net)
         card = _card()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -598,8 +970,31 @@ def main():
                 "checked_shapes": f"{shapes}; {cases}", "tolerance": tol, "card": card,
                 **extra,
             })
+    timings = {f"{name} {act}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms"), t))
+               for (name, act), t in dense_times.items()}
+    ms, plain_ms, bound_ms, bound_by, library_ms = dense_times[("head", "linear")]
+    kernels.append({
+        "name": "fused_dense", "route": "cuda", "source": "dca_tpu_torch/csrc/fused_dense.cu",
+        "replaces": "dca_tpu/ops/fused_dense.py:63",
+        "launches": den["forward_launches_1"] + den["stream_launches"],
+        "max_abs_err": dense_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "timed_shape": [2730, 64, 3451], "timed_epilogue": "linear (library: torch.addmm)",
+        "timings": timings,
+        "launches_by_run": {"forward": den["forward_launches_1"],
+                            "write_streaming": den["stream_launches"],
+                            "nb_predict": den["nb_predict_launches"]},
+        "checked_shapes": "; ".join(f"{n} {sh}" for n, sh, *_ in DENSE_CASES),
+        "tolerance": "linear: 2 K 2^-24 (|x|@|W| + |b|) |s| + 4 ulps; activations: 4 ulps "
+                     "of the plain activation of the kernel's linear output",
+        "card": card,
+    })
     print(f"per-epoch time {per_epoch * 1e3:.1f} ms (dca() 2730 x 3451, zinb-conddisp "
           f"64-32-64, batch 32) on {card}")
+    print(f"denoise tier (2730 x 3451, zinb-conddisp) on {card}: forward "
+          f"{den['forward_s_0'] * 1e3:.1f} ms without K4, {den['forward_s_1'] * 1e3:.1f} ms "
+          f"with; write_streaming {den['stream_s']:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

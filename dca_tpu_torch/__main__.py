@@ -4,9 +4,10 @@ The flag surface of the JAX package's CLI (``dca_tpu/__main__.py``: names,
 defaults, paired --x/--no-x booleans), plus ``--device``: the run goes to
 the CUDA device unless ``--device cpu`` is given.  Flags whose paths are not
 ported yet (--hyper, --tensorboard, --saveweights, --devices,
---modelparallel, --outputformat h5ad, --activation PReLU and the
-optimizers other than RMSprop) are parsed and then refused with an error
-that names ROADMAP.md.  Every ``--type`` of the JAX package runs.
+--modelparallel, --activation PReLU and the optimizers other than
+RMSprop) are parsed and then refused with an error that names ROADMAP.md.
+Every ``--type`` of the JAX package runs; ``--outputformat h5ad`` writes
+``denoised.h5ad`` through the streaming writer.
 """
 
 from __future__ import annotations
@@ -160,7 +161,9 @@ def parse_args(argv=None):
     parser.add_argument("--outputformat", dest="outputformat", type=str,
                         default="tsv", choices=("tsv", "h5ad"),
                         help="Output format: 'tsv' is the reference TSV "
-                        "contract; 'h5ad' is not ported yet (default: tsv)")
+                        "contract; 'h5ad' writes one denoised.h5ad (X = "
+                        "denoised, obsm/var layers) through the streaming "
+                        "writer (default: tsv)")
     parser.add_argument("--device", dest="device", type=str, default=None,
                         choices=("cuda", "cpu"),
                         help="Device to run on (default: cuda; with no CUDA "

@@ -23,7 +23,7 @@ import random
 import numpy as np
 
 from .data.adata import is_anndata_like
-from .data.io import _col_sums, normalize, read_dataset
+from .data.io import _col_sums, auto_lazy_scale, normalize, read_dataset
 from .device import resolve_device
 from .models.network import get_ae_type
 from .train.loop import train
@@ -84,6 +84,9 @@ def dca(
         size_factors=normalize_per_cell,
         normalize_input=scale,
         logtrans_input=log1p,
+        # large sparse inputs stay sparse, their z-scale deferred to the fit's
+        # assembly and the predict's blocks
+        lazy_scale=auto_lazy_scale(adata),
     )
 
     network_kwds = {

@@ -14,7 +14,12 @@ The scanpy preprocessing calls are re-implemented with identical semantics:
   * size factors ``n_counts / median(n_counts)``
   * ``sc.pp.log1p``
   * ``sc.pp.scale``: per-gene z-score with ddof=1, zero-variance genes keep
-    std=1, densifies sparse input
+    std=1, densifies sparse input; or, with ``normalize(lazy_scale=True)``,
+    the deferred form: the statistics go to ``uns['dca_scale_mean']`` and
+    ``uns['dca_scale_std']``, ``X`` stays as it is (sparse stays sparse),
+    and the fit and every pre-denoise forward apply ``(x - mean) / std``
+    block by block.  ``auto_lazy_scale`` chooses it for sparse inputs above
+    DCA_TPU_HOST_DENSE_BYTES, as the JAX package's entry points do.
 """
 
 from __future__ import annotations
@@ -203,17 +208,48 @@ def scale(adata):
     return adata
 
 
+def lazy_scale_stats(X):
+    """Per-gene (mean, std) with sc.pp.scale semantics (ddof=1, std 0 -> 1)
+    computed without densifying a sparse X (the JAX package's
+    ``data/loader.py::lazy_scale_stats``)."""
+    n = X.shape[0]
+    if sp.issparse(X):
+        mean = np.asarray(X.mean(axis=0)).ravel()
+        sq = np.asarray(X.multiply(X).mean(axis=0)).ravel()
+        var = (sq - mean**2) * (n / max(n - 1, 1))
+    else:
+        X = np.asarray(X)
+        mean = X.mean(axis=0)
+        var = X.var(axis=0, ddof=1) if n > 1 else np.zeros(X.shape[1])
+    std = np.sqrt(np.maximum(var, 0.0))
+    std[std == 0] = 1.0
+    return mean.astype(np.float32), std.astype(np.float32)
+
+
+def auto_lazy_scale(adata) -> bool:
+    """Should the entry points defer z-scaling (``normalize(...,
+    lazy_scale=True)``) for this input?  True for sparse matrices whose
+    dense form would exceed DCA_TPU_HOST_DENSE_BYTES (default 2 GB):
+    ``scale`` would densify them on the host in float64.  Small or dense
+    inputs keep the eager path."""
+    if not sp.issparse(adata.X):
+        return False
+    limit = int(os.environ.get("DCA_TPU_HOST_DENSE_BYTES", 2_000_000_000))
+    return adata.X.shape[0] * adata.X.shape[1] * 4 > limit
+
+
 def normalize(
     adata,
     filter_min_counts=True,
     size_factors=True,
     normalize_input=True,
     logtrans_input=True,
+    lazy_scale=False,
 ):
     """Model input = scaled log counts in ``adata.X``; loss target = raw
     counts in ``adata.raw.X``; size factors in ``adata.obs.size_factors``.
-    (The JAX package's ``lazy_scale`` serves its streaming tier, which waits
-    here.)"""
+    ``lazy_scale=True`` computes the scale statistics into ``uns`` and
+    leaves ``X`` unscaled (see the module docstring)."""
     if filter_min_counts:
         filter_genes(adata, min_counts=1)
         filter_cells(adata, min_counts=1)
@@ -233,7 +269,12 @@ def normalize(
         log1p(adata)
 
     if normalize_input:
-        scale(adata)
+        if lazy_scale:
+            mean, std = lazy_scale_stats(adata.X)
+            adata.uns["dca_scale_mean"] = mean
+            adata.uns["dca_scale_std"] = std
+        else:
+            scale(adata)
 
     return adata
 
@@ -257,6 +298,11 @@ def write_text_matrix(matrix, filename, rownames=None, colnames=None, transpose=
     if transpose:
         matrix = matrix.T
         rownames, colnames = colnames, rownames
+    if rownames is not None and len(rownames) > matrix.shape[0]:
+        # the *-shared heads' (N, 1) dispersion and dropout are written
+        # against the gene names: the JAX package's writer names the one
+        # row by the first of them (pandas would refuse the mismatch)
+        rownames = rownames[:matrix.shape[0]]
     pd.DataFrame(matrix, index=rownames, columns=colnames).to_csv(
         filename,
         sep="\t",
@@ -271,6 +317,15 @@ def densify(X):
     if sp.issparse(X):
         return np.asarray(X.todense(), dtype=np.float32)
     return np.asarray(X, dtype=np.float32)
+
+
+def scale_stats(adata):
+    """(mean, std) of a deferred z-scale, ``normalize(lazy_scale=True)``,
+    or (None, None) when ``X`` is already scaled."""
+    if "dca_scale_mean" in adata.uns:
+        return (np.asarray(adata.uns["dca_scale_mean"], np.float32),
+                np.asarray(adata.uns["dca_scale_std"], np.float32))
+    return None, None
 
 
 def size_factors(adata):

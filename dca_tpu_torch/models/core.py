@@ -30,6 +30,14 @@ it updates its running variance with the unbiased variance.  The fork
 architectures' decoder branches (``branches.<mean|disp|pi>.<layer>``) are
 such layers too, each with its own batch-norm state.
 
+In eval mode with DCA_TPU_FUSED_DENSE=1 the trunk layers before ``center``,
+the fork branches' layers and the dense heads go through the fused dense
+kernel K4 (``ops/fused_dense.py``), as the JAX package routes them through
+its Pallas kernel; ``center`` stays plain so that ``latent`` is its pre-BN
+output.  Matrix products honour DCA_TPU_MATMUL (``_dot``).  ``apply`` with
+``keys`` computes only the heads (and fork branches) those outputs need,
+what XLA's dead-code elimination gives the JAX package's per-keys predict.
+
 All 11 architectures of the JAX package run here; the PReLU activation
 (its trainable alpha) waits for a later slice (ROADMAP.md, Queue 1).
 """
@@ -43,7 +51,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import matmul_dtype, use_fused_dense
 from ..ops.activations import DispAct, MeanAct, get_activation
+from ..ops.fused_dense import fused_dense_block, supported_activation
 from ..ops.initializers import get_initializer
 
 BN_EPS = 1e-3
@@ -394,6 +404,10 @@ class DCANetwork(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _eval_state(d: Dense):
+    return {"moving_mean": d.moving_mean, "moving_var": d.moving_var}
+
+
 def _batchnorm(d: Dense, x, training: bool):
     """Keras BatchNormalization(center=True, scale=False)."""
     if training:
@@ -407,7 +421,7 @@ def _batchnorm(d: Dense, x, training: bool):
         }
         return xn, new_s
     xn = (x - d.moving_mean) * torch.rsqrt(d.moving_var + BN_EPS) + d.bn_beta
-    return xn, {"moving_mean": d.moving_mean, "moving_var": d.moving_var}
+    return xn, _eval_state(d)
 
 
 def _dropout(x, rate: float, generator):
@@ -416,14 +430,32 @@ def _dropout(x, rate: float, generator):
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def _dot(x, w):
+    """x @ w in the configured input precision (``config.matmul_dtype``):
+    under DCA_TPU_MATMUL=bf16 both operands are rounded to bfloat16 and the
+    product accumulates in float32, JAX's bf16 dot with
+    ``preferred_element_type=f32``; float32 otherwise."""
+    dt = matmul_dtype()
+    if dt is not None:
+        x = x.to(dt).to(torch.float32)
+        w = w.to(dt).to(torch.float32)
+    return x @ w
+
+
 _HEAD_ACTS = {"mean": MeanAct, "disp": DispAct, "sigmoid": torch.sigmoid}
+# the fused kernel's epilogue of each dense head activation
+_HEAD_EPILOGUES = {"mean": "mean", "disp": "disp", "sigmoid": "sigmoid",
+                   "linear": "linear", "none": "linear"}
 
 
-def _apply_head(head: HeadDef, d: Dense, x):
+def _apply_head(head: HeadDef, d: Dense, x, fused: bool = False):
     if head.kind == "elementwise":
         z = x * d.kernel + d.bias
+    elif fused and head.activation in _HEAD_EPILOGUES:
+        return fused_dense_block(x, d.kernel, d.bias,
+                                 activation=_HEAD_EPILOGUES[head.activation])
     else:
-        z = x @ d.kernel + d.bias
+        z = _dot(x, d.kernel) + d.bias
     act = _HEAD_ACTS.get(head.activation)
     return z if act is None else act(z)
 
@@ -434,13 +466,29 @@ def theta_exp(net: DCANetwork):
     return torch.clamp(torch.exp(net.heads["dispersion"].theta), *THETA_EXP_CLIP)
 
 
-def _apply_stack(layers, stack, x, act_fn, training, generator, new_state):
+def _apply_stack(layers, stack, x, activation, training, generator, new_state):
     """Dense -> BN -> activation -> dropout per layer; returns (x, latent)
-    and puts each BN layer's new state into ``new_state``."""
+    and puts each BN layer's new state into ``new_state``.  In eval mode
+    with the fused kernel switched on, the layers run through it up to
+    ``center``, which stays plain: ``latent`` is its Dense output before
+    BN and activation."""
     latent = None
+    if not training and use_fused_dense() and supported_activation(activation):
+        for i, layer in enumerate(layers):
+            if layer.name == "center":
+                layers = layers[i:]
+                break
+            d = stack[layer.name]
+            bn = (d.moving_mean, d.moving_var, d.bn_beta) if layer.batchnorm else None
+            x = fused_dense_block(x, d.kernel, d.bias, bn=bn, activation=activation)
+            if layer.batchnorm:
+                new_state[layer.name] = _eval_state(d)
+        else:
+            return x, latent
+    act_fn = get_activation(activation)
     for layer in layers:
         d = stack[layer.name]
-        x = x @ d.kernel + d.bias
+        x = _dot(x, d.kernel) + d.bias
         if layer.name == "center":
             latent = x  # encoder output = center Dense before BN/activation
         if layer.batchnorm:
@@ -451,58 +499,114 @@ def _apply_stack(layers, stack, x, act_fn, training, generator, new_state):
     return x, latent
 
 
+# the heads each output needs
+_HEADS_OF_KEY = {"output": ("mean",), "mean": ("mean",), "mean_norm": ("mean",),
+                 "disp": ("dispersion",), "pi": ("pi",)}
+
+
+def _wanted_heads(definition: NetworkDef, keys):
+    """The heads to compute for ``keys`` (None: all of them)."""
+    if keys is None:
+        return set(definition.heads)
+    wanted = {h for k in keys for h in _HEADS_OF_KEY.get(k, ())}
+    if definition.ae_type == "zinb-elempi" and "pi" in wanted:
+        wanted.add("mean")  # pi reads the mean head's logits
+    return wanted & set(definition.heads)
+
+
+def _apply_branches(definition, net, x, activation, training, generator, new_state,
+                    heads):
+    """{branch: output} of the fork branches that feed ``heads``; '' is the
+    shared trunk's output ``x``."""
+    of = definition.branch_of_head
+    branch_out = {"": x}
+    for bname, layers in definition.branches.items():
+        if not any(of[h] == bname for h in heads):
+            continue
+        new_state[bname] = {}
+        branch_out[bname], _ = _apply_stack(layers, net.branches[bname], x, activation,
+                                            training, generator, new_state[bname])
+    return branch_out
+
+
+def _apply_heads(definition, net, branch_out, sf, heads, fused):
+    """The outputs of ``heads`` (the rest None), and ``output`` = mean * sf."""
+    hdefs = definition.heads
+    of = definition.branch_of_head
+    out: Dict[str, Optional[torch.Tensor]] = {"mean": None, "pi": None, "disp": None}
+    if definition.ae_type == "zinb-elempi":
+        if "mean" in heads:
+            # pi from the negated mean logits z: mean = MeanAct(z), pi =
+            # sigmoid(z * kernel + bias)
+            d = net.heads["mean"]
+            z = -(_dot(branch_out[of["mean"]], d.kernel) + d.bias)
+            out["mean"] = MeanAct(z)
+            if "pi" in heads:
+                out["pi"] = _apply_head(hdefs["pi"], net.heads["pi"], z)
+    else:
+        for hname, key in (("mean", "mean"), ("pi", "pi")):
+            if hname in heads:
+                out[key] = _apply_head(hdefs[hname], net.heads[hname],
+                                       branch_out[of[hname]], fused)
+    if "dispersion" in heads:
+        if hdefs["dispersion"].kind == "constant":
+            out["disp"] = theta_exp(net)
+        else:
+            out["disp"] = _apply_head(hdefs["dispersion"], net.heads["dispersion"],
+                                      branch_out[of["dispersion"]], fused)
+    out["output"] = None if out["mean"] is None else out["mean"] * sf
+    out["mean_norm"] = out["mean"]
+    return out
+
+
 def apply(definition: NetworkDef, net: DCANetwork, count, size_factors, *,
-          training: bool = False, generator: Optional[torch.Generator] = None):
+          training: bool = False, generator: Optional[torch.Generator] = None,
+          keys=None):
     """Full forward pass.  Returns (outputs dict, new batch-norm state);
     the state is the current one in eval mode, and the caller commits a
-    training step's state with ``net.load_bn_state``."""
+    training step's state with ``net.load_bn_state``.  With ``keys`` the
+    dict holds only those outputs, and only the heads they need run."""
     x = count.to(torch.float32)
     sf = size_factors.to(torch.float32).reshape(-1, 1)
 
     if definition.input_dropout > 0.0 and training:
         x = _dropout(x, definition.input_dropout, generator)
 
-    act_fn = get_activation(definition.activation)
+    activation = definition.activation
     new_state = {"trunk": {}, "branches": {}}
-    x, latent = _apply_stack(definition.shared, net.trunk, x, act_fn, training,
+    x, latent = _apply_stack(definition.shared, net.trunk, x, activation, training,
                              generator, new_state["trunk"])
-
-    # branch outputs of the fork architectures; '' is the shared trunk
-    branch_out = {"": x}
-    for bname, layers in definition.branches.items():
-        new_state["branches"][bname] = {}
-        branch_out[bname], _ = _apply_stack(layers, net.branches[bname], x, act_fn,
-                                            training, generator,
-                                            new_state["branches"][bname])
-
-    heads = definition.heads
-    of = definition.branch_of_head
-    out: Dict[str, Optional[torch.Tensor]] = {}
-    if definition.ae_type == "zinb-elempi":
-        # pi from the negated mean logits z: mean = MeanAct(z), pi =
-        # sigmoid(z * kernel + bias)
-        d = net.heads["mean"]
-        z = -(branch_out[of["mean"]] @ d.kernel + d.bias)
-        out["mean"] = MeanAct(z)
-        out["pi"] = _apply_head(heads["pi"], net.heads["pi"], z)
-    else:
-        out["mean"] = _apply_head(heads["mean"], net.heads["mean"], branch_out[of["mean"]])
-        out["pi"] = (_apply_head(heads["pi"], net.heads["pi"], branch_out[of["pi"]])
-                     if "pi" in heads else None)
-
-    if "dispersion" not in heads:
-        out["disp"] = None
-    elif heads["dispersion"].kind == "constant":
-        out["disp"] = theta_exp(net)
-    else:
-        out["disp"] = _apply_head(heads["dispersion"], net.heads["dispersion"],
-                                  branch_out[of["dispersion"]])
-
-    out["output"] = out["mean"] * sf
-    out["mean_norm"] = out["mean"]
+    heads = _wanted_heads(definition, keys)
+    branch_out = _apply_branches(definition, net, x, activation, training, generator,
+                                 new_state["branches"], heads)
+    out = _apply_heads(definition, net, branch_out, sf, heads,
+                       fused=not training and use_fused_dense(definition.output_size))
     out["latent"] = latent
     out["decoded"] = x if not definition.branches else None
+    if keys is not None:
+        out = {k: out[k] for k in keys}
     return out, new_state
+
+
+def apply_decoder(definition: NetworkDef, net: DCANetwork, latent_act, size_factors):
+    """Decoder-only eval forward, from the center layer's output after
+    BN/activation (what the decoder stack consumes in the full forward) to
+    the heads: the analogue of the reference's get_decoder.  Returns
+    (outputs dict, the last trunk hidden).  With the fused kernel switched
+    on, every decoder layer and head goes through it, as in the JAX
+    package."""
+    x = latent_act.to(torch.float32)
+    sf = size_factors.to(torch.float32).reshape(-1, 1)
+    center_idx = next(i for i, layer in enumerate(definition.shared)
+                      if layer.name == "center")
+    x, _ = _apply_stack(definition.shared[center_idx + 1:], net.trunk, x,
+                        definition.activation, False, None, {})
+    heads = set(definition.heads)
+    branch_out = _apply_branches(definition, net, x, definition.activation, False, None,
+                                 {}, heads)
+    out = _apply_heads(definition, net, branch_out, sf, heads,
+                       fused=use_fused_dense(definition.output_size))
+    return out, x
 
 
 def regularization_loss(definition: NetworkDef, net: DCANetwork) -> torch.Tensor:

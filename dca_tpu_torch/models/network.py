@@ -14,25 +14,60 @@ package either, are the plain losses of ``losses.py``.
 
 Outputs follow the reference's TSV contract (mean.tsv, latent.tsv,
 dispersion.tsv, dropout.tsv) with the README-era aliases ``mean_norm.tsv``,
-``reduced.tsv`` and ``pi.tsv``.
+``reduced.tsv`` and ``pi.tsv``, written either from the in-memory predict
+(``predict`` then ``write``) or block by block (``write_streaming``, also
+as one ``denoised.h5ad``), for outputs too large to hold on the host.
+
+The eval forward runs in blocks of rows (``iter_forward_blocks``),
+pipelined: the next block's host preparation runs on a thread, and its
+upload and forward are dispatched before this block's outputs are copied
+back.  It reads the JAX package's switches: DCA_TPU_PREDICT_BLOCK_BYTES
+(the block size), DCA_TPU_PREFETCH=0 (no pipelining), DCA_TPU_FETCH_DTYPE
+(bf16/f16: outputs downcast on the device before the copy, lossy),
+DCA_TPU_WRITE_ALIASES=0 (``write_streaming`` without the alias outputs),
+and, in the model, DCA_TPU_FUSED_DENSE and DCA_TPU_MATMUL.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .. import losses
-from ..data.io import densify, size_factors, write_text_matrix
+from ..data.io import densify, scale_stats, size_factors, write_text_matrix
 from ..device import resolve_device
 from ..ops.fused_loss import nb_nll_fused, zinb_nll_fused
 from . import core
 
-# rows per predict block: about this many bytes of input and outputs
-_PREDICT_BLOCK_BYTES = 2_000_000_000
+
+def _fetch_dtype():
+    """The dtype forward outputs cross to the host in:
+    DCA_TPU_FETCH_DTYPE=bf16 or f16 halves the copy (lossy: about 3
+    significant digits for bf16, where the TSVs print 6 decimals); the
+    default, f32, is exact."""
+    mode = os.environ.get("DCA_TPU_FETCH_DTYPE", "f32")
+    if mode in ("f32", "0", ""):
+        return None
+    if mode == "bf16":
+        return torch.bfloat16
+    if mode == "f16":
+        return torch.float16
+    raise ValueError(f"DCA_TPU_FETCH_DTYPE={mode!r}: expected f32/bf16/f16")
+
+
+def _to_host(v):
+    """A float32 numpy copy of a forward output, downcast on the device
+    first under DCA_TPU_FETCH_DTYPE and cast back on the host."""
+    if v is None:
+        return None
+    dt = _fetch_dtype()
+    if dt is not None and v.dtype == torch.float32:
+        return v.to(dt).cpu().to(torch.float32).numpy()
+    return v.cpu().numpy()
 
 
 class Autoencoder:
@@ -120,9 +155,9 @@ class Autoencoder:
     # ------------------------------------------------------------------
     # functional pieces used by the trainer
     # ------------------------------------------------------------------
-    def apply(self, count, size_factors, training=False, generator=None):
+    def apply(self, count, size_factors, training=False, generator=None, keys=None):
         return core.apply(self.definition, self.model, count, size_factors,
-                          training=training, generator=generator)
+                          training=training, generator=generator, keys=keys)
 
     def likelihood_loss(self, outputs, target):
         """Negative log-likelihood of the forward outputs (no weight penalty).
@@ -164,35 +199,125 @@ class Autoencoder:
     # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
-    def forward(self, count, sf=None, keys=None):
-        """Eval-mode forward over a full matrix, block by block; returns a
-        dict of numpy outputs (only ``keys`` when given)."""
+    def _auto_chunk_rows(self, n_keys):
+        """Rows per forward block: about DCA_TPU_PREDICT_BLOCK_BYTES (default
+        2 GB) of input and outputs on the device per block, between 1024 and
+        32768 rows."""
+        budget = int(os.environ.get("DCA_TPU_PREDICT_BLOCK_BYTES", 2_000_000_000))
+        G = max(self.input_size, self.output_size, 1)
+        rows = budget // (4 * G * (max(n_keys, 1) + 1))
+        return int(max(1024, min(32768, rows)))
+
+    def iter_forward_blocks(self, count, size_factors=None, scale_mean=None,
+                            scale_std=None, chunk_rows=None, keys=None):
+        """Yield ``(lo, hi, {key: np.ndarray})``: the eval forward of rows
+        [lo, hi) of ``count`` (dense or scipy sparse), block by block.
+
+        Pipelined: while block k's outputs are copied back, block k+1's
+        rows are already densified (and z-scaled) on a worker thread, which
+        runs no torch, and its upload and forward are queued on the device.
+        DCA_TPU_PREFETCH=0 runs the blocks one after another.
+        ``scale_mean``/``scale_std``: the deferred z-scale of
+        ``normalize(lazy_scale=True)``, applied to each block.
+        ``chunk_rows=None`` sizes the blocks from DCA_TPU_PREDICT_BLOCK_BYTES;
+        ``keys`` restricts the outputs, and the heads computed, to those."""
         assert self.model is not None, "call build() first"
         n = count.shape[0]
-        sf = np.ones((n,), np.float32) if sf is None else np.asarray(sf, np.float32)
-        G = max(self.input_size, self.output_size, 1)
-        n_keys = len(keys) if keys is not None else 5
-        chunk_rows = int(max(1024, min(32768, _PREDICT_BLOCK_BYTES
-                                       // (4 * G * (n_keys + 1)))))
-        pieces = []
-        with torch.no_grad():
-            for lo in range(0, max(n, 1), chunk_rows):
-                hi = min(lo + chunk_rows, n)
+        sf = (np.ones((n,), np.float32) if size_factors is None
+              else np.asarray(size_factors, np.float32))
+        keys = tuple(keys) if keys is not None else None
+
+        def prep(lo, hi):
+            """Host half, on the worker thread: densify and scale."""
+            x = densify(count[lo:hi])
+            if scale_mean is not None:
+                x = (x - scale_mean) / scale_std
+            return x
+
+        def compute(x, lo, hi):
+            """Device half: upload and forward, queued on the device."""
+            with torch.no_grad():
                 # torch.tensor copies: adata's arrays may be read-only views
-                x = torch.tensor(densify(count[lo:hi]), device=self.device)
-                out, _ = self.apply(x, torch.tensor(sf[lo:hi], device=self.device),
-                                    training=False)
-                pieces.append({k: None if v is None else v.cpu().numpy()
-                               for k, v in out.items()
-                               if keys is None or k in keys})
+                out, _ = self.apply(torch.tensor(x, device=self.device),
+                                    torch.tensor(sf[lo:hi], device=self.device),
+                                    keys=keys)
+            return out
+
+        def fetch(out):
+            return {k: _to_host(v) for k, v in out.items()}
+
+        if chunk_rows is None:
+            chunk_rows = self._auto_chunk_rows(len(keys) if keys is not None else 5)
+        blocks = [(lo, min(lo + chunk_rows, n))
+                  for lo in range(0, n, chunk_rows)] or [(0, 0)]
+        if len(blocks) == 1 or os.environ.get("DCA_TPU_PREFETCH", "1") == "0":
+            for lo, hi in blocks:
+                yield lo, hi, fetch(compute(prep(lo, hi), lo, hi))
+            return
+
+        pool = ThreadPoolExecutor(max_workers=1)
+        try:
+            prep_fut = pool.submit(prep, *blocks[0])
+            pending = None
+            for i, (lo, hi) in enumerate(blocks):
+                prepped = prep_fut.result()
+                if i + 1 < len(blocks):
+                    prep_fut = pool.submit(prep, *blocks[i + 1])
+                dev = compute(prepped, lo, hi)
+                if pending is not None:
+                    plo, phi, pdev = pending
+                    yield plo, phi, fetch(pdev)
+                pending = (lo, hi, dev)
+            plo, phi, pdev = pending
+            yield plo, phi, fetch(pdev)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def forward(self, count, size_factors=None, scale_mean=None, scale_std=None,
+                chunk_rows=None, keys=None):
+        """Eval-mode forward over a full matrix; returns a dict of numpy
+        outputs (only ``keys`` when given).  See ``iter_forward_blocks``."""
+        pieces = []
+        rows0 = None
+        for lo, hi, out in self.iter_forward_blocks(count, size_factors, scale_mean,
+                                                    scale_std, chunk_rows, keys):
+            if rows0 is None:
+                rows0 = hi - lo
+            pieces.append(out)
         if len(pieces) == 1:
             return pieces[0]
-        rows0 = min(chunk_rows, n)
         # per-row outputs are concatenated; per-gene constants (the constant
         # dispersion head's (1, G)) are the same in every block
         return {k: v if v is None or v.shape[0] != rows0
                 else np.concatenate([p[k] for p in pieces], axis=0)
                 for k, v in pieces[0].items()}
+
+    def get_encoder(self):
+        """Callable (count, size_factors) -> latent: the center layer's
+        Dense output, before BN and activation."""
+
+        def encode(count, size_factors=None):
+            return self.forward(count, size_factors, keys=("latent",))["latent"]
+
+        return encode
+
+    def get_decoder(self):
+        """Callable (latent_activation, size_factors) -> denoised output,
+        from the center layer's output after BN and activation
+        (``core.apply_decoder``)."""
+
+        def decode(latent_act, size_factors=None):
+            latent_act = np.asarray(latent_act, np.float32)
+            if size_factors is None:
+                size_factors = np.ones((latent_act.shape[0],), np.float32)
+            with torch.no_grad():
+                out, _ = core.apply_decoder(
+                    self.definition, self.model,
+                    torch.tensor(latent_act, device=self.device),
+                    torch.tensor(np.asarray(size_factors, np.float32), device=self.device))
+            return out["output"].cpu().numpy()
+
+        return decode
 
     def _set_denoised(self, adata, denoised):
         if denoised.shape[1] == adata.n_vars:
@@ -215,7 +340,7 @@ class Autoencoder:
 
         out = _forward_out
         if out is None:
-            out = self.forward(adata.X, size_factors(adata),
+            out = self.forward(adata.X, size_factors(adata), *scale_stats(adata),
                                keys=self._PREDICT_KEYS[mode])
 
         if mode in ("latent", "full"):
@@ -301,7 +426,7 @@ class Autoencoder:
             if "X_dca_mean_norm" in adata.obsm:
                 mean_norm = adata.obsm["X_dca_mean_norm"]
             else:  # write() without a prior predict(): X still is the input
-                mean_norm = self.forward(adata.X, size_factors(adata),
+                mean_norm = self.forward(adata.X, size_factors(adata), *scale_stats(adata),
                                          keys=("mean_norm",))["mean_norm"]
             write_text_matrix(mean_norm, os.path.join(file_path, "mean_norm.tsv"),
                               rownames=rownames, colnames=colnames, transpose=True)
@@ -311,6 +436,168 @@ class Autoencoder:
             for fname in ("latent.tsv", "reduced.tsv"):
                 write_text_matrix(adata.obsm["X_dca"], os.path.join(file_path, fname),
                                   rownames=rownames, transpose=False)
+
+    # ------------------------------------------------------------------
+    # streaming predict -> write (corpus scale)
+    # ------------------------------------------------------------------
+    def write_streaming(self, adata, file_path, mode="full", colnames=None,
+                        return_info=False, output_format="tsv", chunk_rows=None):
+        """Denoise and write in one pass, block by block.
+
+        ``predict`` then ``write`` holds every (N, G) output on the host;
+        this streams the blocks of ``iter_forward_blocks`` into incremental
+        writers (``data/stream_write.py``), so host memory stays O(block +
+        gene strip) whatever N.  ``output_format='tsv'`` writes the TSV
+        contract byte for byte as ``predict(mode, return_info)`` then
+        ``write(mode)`` do; ``'h5ad'`` writes one
+        ``<file_path>/denoised.h5ad`` with ``X`` = the denoised matrix and
+        the obsm/var layers of ``predict``'s side effects.
+
+        On ``adata`` only the small outputs are stored (``obsm['X_dca']``
+        when the mode covers the latent; the constant dispersion in var or
+        uns); ``adata.X`` is not overwritten.  ``return_info`` keeps the
+        predict-order quirks: the ZINB classes' dispersion and dropout come
+        from the same pre-denoise pass; the NB conditional classes'
+        dispersion is computed from each denoised block (per block, as eval
+        BatchNorm uses running statistics), or, on a denoise-subset run,
+        from the unscaled input block, as the in-memory predict does.
+        Outputs are routed by the heads' built widths, never by a block's
+        shape: a width-1 latent still reaches its streaming writers.  On a
+        failure every writer is aborted and its scratch files removed."""
+        from ..data.stream_write import H5ADStreamWriter, RowStreamTSV, TransposedSpillTSV
+
+        assert mode in ("denoise", "latent", "full"), "Unknown mode"
+        assert output_format in ("tsv", "h5ad"), output_format
+        colnames = adata.var_names.values if colnames is None else np.asarray(colnames)
+        rownames = adata.obs_names.values
+
+        disp_kind, has_pi, _ = core._STAGE_HEADS[self.ae_type]
+        lk = self.definition.likelihood
+        want_denoise = mode in ("denoise", "full")
+        want_latent = mode in ("latent", "full")
+        if output_format == "h5ad" and not want_denoise:
+            raise ValueError("output_format='h5ad' needs mode 'denoise' or "
+                             "'full' (X holds the denoised matrix)")
+
+        # DCA_TPU_WRITE_ALIASES=0 drops the alias outputs (mean_norm.tsv,
+        # reduced.tsv, pi.tsv and the mean_norm h5ad layer) that the
+        # reference does not write: mean_norm alone doubles the (N, G) copy
+        aliases = os.environ.get("DCA_TPU_WRITE_ALIASES", "1") != "0"
+        keys = [k for k in self._PREDICT_KEYS[mode] if aliases or k != "mean_norm"]
+        info_same_pass_disp = (return_info and lk == "zinb"
+                               and disp_kind in ("conddisp", "shared"))
+        info_pi = return_info and has_pi
+        info_post_disp = (return_info and lk == "nb"
+                          and disp_kind in ("conddisp", "shared") and want_denoise)
+        if info_same_pass_disp:
+            keys.append("disp")
+        if info_pi:
+            keys.append("pi")
+
+        heads = self.definition.heads
+        # (N, 1) outputs of the *-shared heads: gathered, written at the end
+        small_keys = {key for key, head in (("disp", "dispersion"), ("pi", "pi"))
+                      if head in heads and heads[head].units == 1}
+        small_acc = {}
+        writers = {}  # key -> incremental writers
+        h5 = None
+        print("dca_tpu_torch: Saving output(s)... [streaming]")
+        os.makedirs(file_path, exist_ok=True)
+
+        def _transposed(fname, header=True):
+            # mean.tsv and mean_norm.tsv carry the cell names as header;
+            # dispersion, dropout and pi do not (write() passes no rownames)
+            return TransposedSpillTSV(os.path.join(file_path, fname), rownames=colnames,
+                                      colnames=rownames if header else None)
+
+        h5_keys = {"output": "X", "latent": "X_dca", "mean_norm": "X_dca_mean_norm",
+                   "disp": "X_dca_dispersion", "pi": "X_dca_dropout"}
+        pi_files = ("dropout.tsv", "pi.tsv") if aliases else ("dropout.tsv",)
+        try:
+            if output_format == "h5ad":
+                h5 = H5ADStreamWriter(os.path.join(file_path, "denoised.h5ad"),
+                                      n_obs=adata.n_obs, n_vars=len(colnames),
+                                      obs_index=rownames, var_index=colnames)
+            else:
+                if want_denoise:
+                    writers["output"] = [_transposed("mean.tsv")]
+                    if aliases:
+                        writers["mean_norm"] = [_transposed("mean_norm.tsv")]
+                if want_latent:
+                    writers["latent"] = [
+                        RowStreamTSV(os.path.join(file_path, f), rownames=rownames)
+                        for f in (("latent.tsv", "reduced.tsv") if aliases
+                                  else ("latent.tsv",))]
+                if (info_same_pass_disp or info_post_disp) and disp_kind == "conddisp":
+                    writers["disp"] = [_transposed("dispersion.tsv", header=False)]
+                if info_pi and "pi" not in small_keys:
+                    writers["pi"] = [_transposed(f, header=False) for f in pi_files]
+
+            def sink(key, block):
+                if key in small_keys:
+                    small_acc.setdefault(key, []).append(block)
+                    return
+                for w in writers.get(key, ()):
+                    w.append(block)
+                if h5 is not None and key in h5_keys:
+                    h5.append(h5_keys[key], block)
+
+            sf = size_factors(adata)
+            latent_acc = []
+            for lo, hi, out in self.iter_forward_blocks(adata.X, sf, *scale_stats(adata),
+                                                        chunk_rows=chunk_rows,
+                                                        keys=tuple(keys)):
+                for k in keys:
+                    sink(k, out[k])
+                if want_latent:
+                    latent_acc.append(out["latent"])
+                if info_post_disp:
+                    # the NB quirk: dispersion from the denoised block, or, on
+                    # a denoise-subset run (where predict leaves X as it is),
+                    # from the unscaled input block
+                    if out["output"].shape[1] == self.input_size:
+                        x_post = out["output"]
+                    else:
+                        x_post = densify(adata.X[lo:hi])
+                    with torch.no_grad():
+                        d, _ = self.apply(torch.tensor(x_post, device=self.device),
+                                          torch.tensor(sf[lo:hi], device=self.device),
+                                          keys=("disp",))
+                    sink("disp", _to_host(d["disp"]))
+            for ws in writers.values():
+                for w in ws:
+                    w.close()
+        except BaseException:
+            for ws in writers.values():
+                for w in ws:
+                    (w.abort_spill if hasattr(w, "abort_spill") else w.abort)()
+            if h5 is not None:
+                h5.abort()
+            raise
+
+        # small and per-gene outputs, and the side effects on adata
+        if want_latent:
+            adata.obsm["X_dca"] = np.concatenate(latent_acc, axis=0)
+        if return_info and disp_kind == "constant":
+            self._store_dispersion(adata)
+        if output_format == "tsv":
+            if return_info and disp_kind == "constant":
+                self._write_dispersion(adata, file_path, colnames)
+            for key, fnames in (("disp", ("dispersion.tsv",)), ("pi", pi_files)):
+                if key in small_acc:
+                    m = np.concatenate(small_acc[key], axis=0)
+                    for f in fnames:
+                        write_text_matrix(m, os.path.join(file_path, f),
+                                          colnames=colnames, transpose=True)
+        else:
+            for key in ("disp", "pi"):
+                if key in small_acc:
+                    h5.append(h5_keys[key], np.concatenate(small_acc[key], axis=0))
+            if return_info and disp_kind == "constant":
+                disp = self._stored_dispersion(adata)
+                if disp is not None and disp.size == len(colnames):
+                    h5.set_var_vector("X_dca_dispersion", disp)
+            h5.close()
 
 
 class PoissonAutoencoder(Autoencoder):
@@ -382,7 +669,7 @@ class NBAutoencoder(Autoencoder):
         adata = res if copy else adata
         if return_info:
             # the reference's order: info computed after denoising, from
-            # the current (denoised) adata.X -- a separate forward
+            # the current (denoised) adata.X, unscaled -- a separate forward
             out = self.forward(adata.X, size_factors(adata), keys=("disp",))
             adata.obsm["X_dca_dispersion"] = out["disp"]
         return adata if copy else None
@@ -416,7 +703,7 @@ class ZINBAutoencoder(Autoencoder):
         # one forward serves the info quirk (the pre-denoise input) and the
         # base keys
         keys = self._PREDICT_KEYS[mode] + (("disp", "pi") if return_info else ())
-        out = self.forward(adata.X, size_factors(adata), keys=keys)
+        out = self.forward(adata.X, size_factors(adata), *scale_stats(adata), keys=keys)
         if return_info:
             adata.obsm["X_dca_dispersion"] = out["disp"]
             adata.obsm["X_dca_dropout"] = out["pi"]
@@ -467,7 +754,7 @@ class ZINBConstantDispAutoencoder(_ConstantDispersion, Autoencoder):
     def predict(self, adata, mode="denoise", return_info=False, copy=False):
         adata = adata.copy() if copy else adata
         keys = self._PREDICT_KEYS[mode] + (("pi",) if return_info else ())
-        out = self.forward(adata.X, size_factors(adata), keys=keys)
+        out = self.forward(adata.X, size_factors(adata), *scale_stats(adata), keys=keys)
         if return_info:
             self._store_dispersion(adata)
             adata.obsm["X_dca_dropout"] = out["pi"]

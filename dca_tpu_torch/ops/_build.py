@@ -1,6 +1,7 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` (Hopper) into a shared
+``nvcc`` compiles each of ``csrc/*.cu`` for ``sm_90a`` (Hopper), all
+sources at once in parallel processes, and links them into one shared
 library with a plain C interface, in ``dca_tpu_torch/_build/<hash>/``.  The
 hash covers the sources and the flags, so an edited source builds anew and
 an unchanged one is loaded from the earlier build.  A failed build raises.
@@ -21,12 +22,12 @@ import tempfile
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("fused_nll.cu",)
+SOURCES = ("fused_nll.cu", "fused_dense.cu")
 HEADERS = ("special.cuh",)
 # no --use_fast_math: the kernels must agree with their plain versions
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +42,10 @@ _SIGNATURES = {
     # pi mode, ridge, with_pi, stream
     "dca_nll_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
                      _P], _I),
+    # x, w, b, s, t, sf, out, M, K, N, activation, with_bn, with_sf, bf16,
+    # stream
+    "dca_fused_dense": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P], _I),
 }
 
 
@@ -66,6 +71,14 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands at once; return (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, text) for p, text in zip(procs, outputs)]
+
+
 def build() -> str:
     """Compile the kernels unless this exact build exists; return the path
     of the shared library.  ``build.log`` beside it holds nvcc's output
@@ -75,21 +88,30 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    # build under a temporary name and rename: a concurrent process sees
+    # build under temporary names and rename: a concurrent process sees
     # either no library or a whole one
-    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp_path,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
-    os.replace(tmp_path, lib_path)
+    work = tempfile.mkdtemp(dir=out_dir)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", o,
+                 os.path.join(CSRC_DIR, s)] for s, o in zip(SOURCES, objs)]
+        tmp_lib = os.path.join(work, "lib.so")
+        link = [nvcc, "-shared", "-o", tmp_lib, *objs]
+        results = _run_all(cmds)
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([link])
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            for cmd, (rc, text) in zip(cmds + [link], results):
+                f.write(" ".join(cmd) + f"\n(exit {rc})\n{text}\n")
+        failed = [(c, r) for c, r in zip(cmds + [link], results) if r[0] != 0]
+        if failed:
+            (cmd, (rc, text)) = failed[0]
+            raise RuntimeError(
+                f"nvcc failed with exit code {rc}: {' '.join(cmd)}\n{text}")
+        os.replace(tmp_lib, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 

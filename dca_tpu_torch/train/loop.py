@@ -14,9 +14,15 @@ the path it takes on every backend but the TPU):
     (min_delta 0) are plain Python state between epochs; as in the JAX
     package, the final weights are kept (no restore of the best ones).
 
-Streaming, the whole-fit-as-one-program path, checkpoint/resume,
-TensorBoard, saved weights and device meshes wait for later slices
-(ROADMAP.md, Queue 1).
+A deferred z-scale (``normalize(lazy_scale=True)``) is applied when the
+host arrays are assembled.  The CLI's run writes its outputs from the
+in-memory predict, or, for ``--outputformat h5ad`` and outputs above
+DCA_TPU_HOST_DENSE_BYTES (default 2 GB), streams them block by block
+(``write_streaming``).
+
+The streaming trainer, the whole-fit-as-one-program path,
+checkpoint/resume, TensorBoard, saved weights and device meshes wait for
+later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -28,13 +34,9 @@ import random
 import numpy as np
 import torch
 
-from ..data.io import densify, size_factors
+from ..data.io import densify, scale_stats, size_factors
 from ..device import resolve_device
 from .optim import get_optimizer
-
-# dense outputs above this many bytes need the streaming writer, which
-# waits for a later slice
-_HOST_DENSE_BYTES = 2_000_000_000
 
 
 def _not_ported(what):
@@ -136,6 +138,10 @@ def train(
 
     # ----- host arrays -----
     X = densify(adata.X)
+    mean, std = scale_stats(adata)
+    if mean is not None:
+        # the deferred z-scale of normalize(lazy_scale=True)
+        X = (X - mean) / std
     sf = size_factors(adata)
     if output_subset:
         gene_idx = [np.where(adata.raw.var_names == x)[0][0] for x in output_subset]
@@ -213,7 +219,9 @@ def train(
 
 
 def train_with_args(args):
-    """The CLI's run: read -> normalize -> build -> train -> predict -> write."""
+    """The CLI's run: read -> normalize -> build -> train -> predict ->
+    write, or, for h5ad output and outputs above DCA_TPU_HOST_DENSE_BYTES,
+    train -> streaming denoise and write."""
     from ..data import io as dio
     from ..models.network import get_ae_type
 
@@ -221,8 +229,6 @@ def train_with_args(args):
                        ("saveweights", "--saveweights")):
         if getattr(args, flag):
             raise _not_ported(what)
-    if args.outputformat != "tsv":
-        raise _not_ported("--outputformat h5ad")
     if args.devices is not None or args.modelparallel != 1:
         raise _not_ported("training over several devices (--devices, --modelparallel)")
     ae_cls = get_ae_type(args.type)
@@ -243,6 +249,8 @@ def train_with_args(args):
         size_factors=args.sizefactors,
         logtrans_input=args.loginput,
         normalize_input=args.norminput,
+        # large sparse inputs stay sparse, their z-scale deferred
+        lazy_scale=dio.auto_lazy_scale(adata),
     )
 
     if args.denoisesubset:
@@ -254,8 +262,6 @@ def train_with_args(args):
     else:
         genelist = None
         output_size = adata.n_vars
-    if adata.n_obs * output_size * 4 > _HOST_DENSE_BYTES:
-        raise _not_ported("the streaming write of outputs above 2 GB")
 
     hidden_size = [int(x) for x in args.hiddensize.split(",")]
     hidden_dropout = [float(x) for x in args.dropoutrate.split(",")]
@@ -304,5 +310,12 @@ def train_with_args(args):
         ]
     else:
         predict_columns = adata.var_names
-    net.predict(adata, mode="full", return_info=True)
-    net.write(adata, args.outputdir, mode="full", colnames=predict_columns)
+    # outputs too large for the host stream block by block to disk
+    out_bytes = adata.n_obs * output_size * 4
+    limit = int(os.environ.get("DCA_TPU_HOST_DENSE_BYTES", 2_000_000_000))
+    if args.outputformat == "h5ad" or out_bytes > limit:
+        net.write_streaming(adata, args.outputdir, mode="full", colnames=predict_columns,
+                            return_info=True, output_format=args.outputformat)
+    else:
+        net.predict(adata, mode="full", return_info=True)
+        net.write(adata, args.outputdir, mode="full", colnames=predict_columns)

@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: NB
-and ZINB, with full and broadcast theta/pi.
+and ZINB, with full and broadcast theta/pi, and the fused dense block K4.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import COMPARE_SHAPES, _grad_check, _loss_inputs
-from dca_tpu_torch.ops import fused_loss
+from chip_smoke import COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs, check_dense_case
+from dca_tpu_torch.ops import fused_dense, fused_loss
 
 
 def _data(B, G, seed=0, nan_frac=0.0):
@@ -114,3 +114,31 @@ def test_zinb_and_broadcast_kernels_match_plain_version_on_card(cuda, shape_inde
     again = (fused_loss.nb_nll_fused(y, mu, th) if pi is None
              else fused_loss.zinb_nll_fused(y, mu, th, pi, ridge))
     assert torch.equal(again, loss)  # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,bf16", [(c, False) for c in DENSE_CASES]
+                         + [(c, True) for c in DENSE_CASES if c[5]],
+                         ids=lambda v: v[0] if isinstance(v, tuple) else ("bf16" if v else "f32"))
+def test_fused_dense_matches_plain_version_on_card(cuda, case, bf16):
+    """K4 at the shapes and with the tolerances of chip_smoke.py's phase 1:
+    the linear output within the float32 bound of two sums of K products,
+    every epilogue within 4 ulps of the plain activation of the kernel's
+    linear output, the pre-activation the same bits for every epilogue, a
+    NaN row staying NaN."""
+    name, shape, bn, acts, with_sf, _ = case
+    before = fused_dense.launches["fused_dense"]
+    check_dense_case(cuda, name, shape, bn, acts, with_sf, seed=900, bf16=bf16)
+    assert fused_dense.launches["fused_dense"] > before
+
+
+@pytest.mark.gpu
+def test_fused_dense_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 6), device=cuda)
+    w = torch.zeros((6, 5), device=cuda)
+    b = torch.zeros(5, device=cuda)
+    with pytest.raises(ValueError):
+        fused_dense.fused_dense_block(x, w, b.cpu())  # operands on two devices
+    with pytest.raises(ValueError, match="not fusable"):
+        fused_dense.fused_dense_block(x, w, b, activation="softplus")
+    assert fused_dense.fused_dense_block(x[:0], w, b).shape == (0, 5)

@@ -155,7 +155,7 @@ def test_cli_zinb_on_cpu(input_tsv, tmp_path, ae_type):
 
 
 @pytest.mark.parametrize("flags", [["--activation", "PReLU"], ["--hyper"],
-                                   ["--outputformat", "h5ad"], ["--tensorboard"]])
+                                   ["--saveweights"], ["--tensorboard"]])
 def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
     with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
         main([input_tsv, str(tmp_path / "out"), "-e", "1", "--device", "cpu", *flags])
