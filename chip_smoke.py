@@ -23,6 +23,13 @@ Phases, each of which must pass:
    broadcast operand's gradient is a sum of n such elements: its tolerance
    is the sum of theirs plus 2 ceil(log2 n) ulps of the summed magnitudes
    for the two reductions' rounding.  K1 must give the same bits twice.
+   K1w/K2w (the weighted variants) at the validation block of one of two
+   ranks (137, 3451), the batch (32, 3451) and the ragged (7, 50), with
+   the same theta/pi cases, each with padding weights (ones, the last row
+   0), fractional weights (two rows 0) and all-zero weights (denominator
+   1): the same tolerances, the total weight exact for 0/1 weights, each
+   element's gradient tolerance times its weight, and gradients of
+   exactly 0 on zero-weight rows and at NaN targets.
    K4 (the fused dense block) at the shapes of the denoise path
    (``DENSE_CASES``): the encoder (2730, 3451) -> 64 with BN and relu, the
    heads (2730, 64) -> 3451 with the mean, disp and sigmoid epilogues, the
@@ -42,6 +49,7 @@ Phases, each of which must pass:
    events (see ``_device_ms``); beside them the plain version's time and
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s float32).  K1 also at the validation split (273, 3451).
+   K1w at (137, 3451) and K2w at (32, 3451), NB and ZINB, likewise.
    K4 at the encoder and head shapes, with its bound, the plain version's
    time and, for the ``linear`` epilogue, ``torch.addmm``'s.
 3. Zoo: every architecture of ``AE_types``, and zinb-elempi with
@@ -73,6 +81,18 @@ Phases, each of which must pass:
    and phase 4's nb-conddisp network's ``predict(return_info=True)``
    (4 K4 launches: encoder and mean head for the denoise, encoder and
    dispersion head for the dispersion after it).
+7. The data-parallel fit: 2 ranks, spawned, both on the one card over
+   gloo (asked for explicitly; NCCL refuses ranks that share a device),
+   each running ``dca(devices="all")`` on phase 4's matrix and seed:
+   zinb-conddisp for 2 epochs, then nb-conddisp for 1.  Loss and val_loss
+   the same on both ranks and within rtol 1e-3 of phase 4's first two
+   epochs; per-rank launches 154 / 154 K1/K2 and 2 K1w (the padded
+   validation, 273 rows to 274) for zinb-conddisp, 77 / 77 and 1 for
+   nb-conddisp, no K2w (nothing differentiates the weighted validation);
+   the denoised matrices equal on both ranks and finite; rank 0 alone
+   writes (its model.pickle).  A rank that fails or outlives its time
+   limit fails the phase.  The data-parallel epoch time is printed: two
+   ranks sharing one card measure no scaling.
 
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -367,6 +387,119 @@ def phase_compare(dev):
     return worst
 
 
+# K1w/K2w: the validation block of one of 2 ranks (273 rows padded to 274),
+# the training batch, and the ragged case with NaN targets and clipped theta
+WEIGHTED_SHAPES = [((137, 3451), 0.0, 0), ((32, 3451), 0.0, 0), ((7, 50), 0.1, 3)]
+WEIGHT_KINDS = ("padding", "fractional", "zero")
+
+
+def _weights(B, kind, seed):
+    """A (B, 1) weight column: ``padding`` ones with the last row at 0 (a
+    padded validation block), ``fractional`` in [0.2, 2) with two rows at
+    0, ``zero`` all 0 (the denominator is then 1)."""
+    w = np.ones((B, 1), np.float32)
+    if kind == "padding":
+        w[-1] = 0.0
+    elif kind == "fractional":
+        w = np.random.RandomState(seed).uniform(0.2, 2.0, size=(B, 1)).astype(np.float32)
+        w[[0, B // 2]] = 0.0
+    else:
+        w[:] = 0.0
+    return w
+
+
+def check_weighted_case(dev, B, G, nan_frac, n_clipped, th_shape, pi_shape, ridge, kind,
+                        seed):
+    """Hold K1w/K2w against their plain versions on one case: the loss
+    within LOSS_RTOL (exactly 0 for all-zero weights), the total weight
+    exact where the weights are 0 and 1 and within LOSS_RTOL otherwise,
+    the unscaled gradients as K2's (``_grad_check``, with each element's
+    terms times its weight), and exactly 0 on zero-weight rows and at NaN
+    targets; K1w the same bits twice.  Returns (loss abs error, loss rel
+    error, max unscaled gradient error, worst gradient error over its
+    tolerance)."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(dev)
+                     for a in _loss_inputs(B, G, seed, nan_frac, n_clipped, th_shape, pi_shape))
+    w = torch.from_numpy(_weights(B, kind, seed)).to(dev)
+    what = (f"{'nb' if pi is None else 'zinb'} K1w/K2w at {(B, G)}, theta {th_shape}, pi "
+            f"{pi_shape}, ridge {ridge}, {kind} weights")
+    ops = [t.requires_grad_(True) for t in (mu, th, pi) if t is not None]
+    if pi is None:
+        loss = fl.nb_nll_fused_w(y, mu, th, w)
+        again = fl.nb_nll_fused_w(y, mu, th, w)
+    else:
+        loss = fl.zinb_nll_fused_w(y, mu, th, pi, w, ridge)
+        again = fl.zinb_nll_fused_w(y, mu, th, pi, w, ridge)
+    grads = torch.autograd.grad(loss, ops)
+    _, denom = fl._fwd_kernel(y, mu, th, pi, ridge, w)
+    _check(torch.equal(loss, again), f"{what}: K1w is not deterministic")
+    with torch.no_grad():
+        ref, rdenom = fl._fwd_reference(y, mu, th, pi, ridge, w)
+        scale = 1.0 / rdenom
+        refs = fl._bwd_reference(y, mu, th, pi, ridge, scale.reshape(1), w)
+        w_eff = torch.where(torch.isnan(y), 0.0, w)  # what each element weighs
+        fulls = [g * w_eff for g in fl._elem_grads(y, mu, th, pi, ridge) if g is not None]
+        mags = [m * w_eff for m in fl.grad_term_magnitudes(y, mu, th, pi, ridge)
+                if m is not None]
+    _check(np.isfinite(loss.item()), f"{what}: loss not finite")
+    if kind == "zero":
+        _check(loss.item() == 0.0 and denom.item() == 1.0 and ref.item() == 0.0,
+               f"{what}: loss {loss.item()!r}, total weight {denom.item()!r}, expected 0 and 1")
+        fwd_abs = fwd_rel = 0.0
+    else:
+        fwd_abs = abs(loss.item() - ref.item())
+        fwd_rel = fwd_abs / abs(ref.item())
+        _check(fwd_rel <= LOSS_RTOL, f"{what}: loss {loss.item()!r} vs plain {ref.item()!r}, "
+               f"relative error {fwd_rel:.3e} > {LOSS_RTOL}")
+        if kind == "padding":
+            _check(torch.equal(denom, rdenom),
+                   f"{what}: total weight {denom.item()} vs plain {rdenom.item()}")
+        else:
+            _check(abs(denom.item() - rdenom.item()) <= LOSS_RTOL * rdenom.item(),
+                   f"{what}: total weight {denom.item()} vs plain {rdenom.item()}")
+    zero = (w_eff == 0.0).expand(B, G)
+    e_abs = e_tol = 0.0
+    for gname, got, want, full, mag in zip(("d mu", "d theta", "d pi"), grads, refs, fulls,
+                                           mags):
+        if got.shape == (B, G):
+            _check(bool((got[zero] == 0.0).all()),
+                   f"{what}: {gname} not exactly 0 on zero-weight rows or NaN targets")
+        a, t = _grad_check(f"{what}: {gname}", got, want, full.expand(B, G),
+                           mag.expand(B, G), scale)
+        e_abs, e_tol = max(e_abs, a), max(e_tol, t)
+    return fwd_abs, fwd_rel, e_abs, e_tol
+
+
+def phase_weighted_compare(dev):
+    """K1w/K2w against their plain versions at every shape of
+    WEIGHTED_SHAPES, every theta/pi case of ``_compare_cases`` and every
+    kind of weights."""
+    worst = {k: {"fwd_abs": 0.0, "fwd_rel": 0.0, "bwd_abs": 0.0, "bwd_tol": 0.0}
+             for k in ("nb", "zinb")}
+    n = 0
+    for s_i, ((B, G), nan_frac, n_clipped) in enumerate(WEIGHTED_SHAPES):
+        for case, (th_shape, pi_shape, ridge) in enumerate(_compare_cases(B, G)):
+            for k_i, kind in enumerate(WEIGHT_KINDS):
+                r = check_weighted_case(dev, B, G, nan_frac, n_clipped, th_shape, pi_shape,
+                                        ridge, kind, 3000 + 100 * s_i + 10 * case + k_i)
+                w = worst["nb" if pi_shape is None else "zinb"]
+                for key, v in zip(("fwd_abs", "fwd_rel", "bwd_abs", "bwd_tol"), r):
+                    w[key] = max(w[key], v)
+                n += 1
+        print(f"phase 1: K1w/K2w at {(B, G)}: {len(_compare_cases(B, G)) * len(WEIGHT_KINDS)} "
+              "NB/ZINB cases agree")
+    for fam, w in worst.items():
+        print(f"phase 1: weighted {fam}: worst K1w loss error {w['fwd_abs']:.3e} abs, "
+              f"{w['fwd_rel']:.3e} rel; worst K2w unscaled gradient error {w['bwd_abs']:.3e} "
+              f"abs, {w['bwd_tol']:.3f} of its tolerance ({n} cases in all); zero-weight rows "
+              "and NaN targets exactly 0")
+    return worst
+
+
 ALL_ACTS = ("mean", "disp", "sigmoid", "relu", "selu", "elu", "tanh", "linear")
 # name, (rows, K, N), BN, epilogues, size factors, checked again in bf16 mode
 DENSE_CASES = [
@@ -578,6 +711,48 @@ def phase_timings(dev):
     return out
 
 
+def weighted_timings(dev):
+    """K1w at the validation block of one of 2 ranks (137, 3451) and K2w at
+    the training batch (32, 3451), NB and ZINB, padding weights, with the
+    plain versions' times and the bounds; {name: (ms, plain ms, bound ms,
+    bound by, extra)}."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    G = 3451
+    out = {}
+    for fam, seed in (("nb", 21), ("zinb", 23)):
+        with_pi = fam == "zinb"
+        n_in = 4 if with_pi else 3  # y, mu, theta and pi, each read once
+        for kind, B in (("fwd", 137), ("bwd", 32)):
+            n = B * G
+            y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(dev)
+                             for a in _loss_inputs(B, G, seed, pi_shape=(B, G) if with_pi
+                                                   else None))
+            w = torch.from_numpy(_weights(B, "padding", seed)).to(dev)
+            if kind == "fwd":
+                ms = _device_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1, w))
+                plain_ms = _device_ms(lambda: fl._fwd_reference(y, mu, th, pi, 0.1, w))
+                # the inputs and the weight column read once, the loss and
+                # its total weight written; one more multiply per element
+                bound, by = _bound_ms(n_in * 4 * n + 4 * B + 2 * 4,
+                                      _k1_ops(y, mu, th, with_pi) + n)
+            else:
+                scale = torch.full((1,), 1.0 / n, device=dev)
+                ms = _device_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, scale, w))
+                plain_ms = _device_ms(lambda: fl._bwd_reference(y, mu, th, pi, 0.1, scale, w))
+                # also the scale read and 2 or 3 (B, G) gradients written;
+                # w * scale once more per element
+                bound, by = _bound_ms(n_in * 4 * n + 4 * B + 4 + (n_in - 1) * 4 * n,
+                                      _k2_ops(y, mu, th, with_pi) + n)
+            out[f"{fam}_{kind}_w"] = (ms, plain_ms, bound, by, {"timed_shape": [B, G]})
+            print(f"phase 2: {fam} K{1 if kind == 'fwd' else 2}w at {(B, G)}: "
+                  f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} "
+                  f"us by {by}); no single PyTorch call computes it")
+    return out
+
+
 def _small_counts(n_cells, n_genes, seed):
     rs = np.random.RandomState(seed)
     mu = rs.gamma(2.0, 1.0, size=(1, n_genes)) * rs.lognormal(0.0, 0.3, (n_cells, 1)) * 5
@@ -588,11 +763,16 @@ def _small_counts(n_cells, n_genes, seed):
     return counts
 
 
+LAUNCH_NAMES = [f"{fam}_nll_{kind}{w}" for fam in ("nb", "zinb") for kind in ("fwd", "bwd")
+                for w in ("", "_w")]
+
+
 def _want_launches(likelihood, epochs, steps):
-    """What train() launches: per epoch one K1 per step and one for the
-    validation split, one K2 per step (train/loop.py), of the likelihood's
-    kernel family; normal and poisson launch none."""
-    want = {"nb_nll_fwd": 0, "nb_nll_bwd": 0, "zinb_nll_fwd": 0, "zinb_nll_bwd": 0}
+    """What train() on one device launches: per epoch one K1 per step and
+    one for the validation split, one K2 per step (train/loop.py), of the
+    likelihood's kernel family, and no weighted kernel; normal and poisson
+    launch none."""
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
     if likelihood in ("nb", "zinb"):
         want[f"{likelihood}_nll_fwd"] = epochs * (steps + 1)
         want[f"{likelihood}_nll_bwd"] = epochs * steps
@@ -647,7 +827,7 @@ def phase_zoo():
 
 def phase_api(ae_type, epochs, timed):
     """One dca() run of ``ae_type`` at 2730 x 3451; returns (launches,
-    per-epoch seconds or None, the trained network)."""
+    per-epoch seconds or None, the trained network, its loss history)."""
     import torch
 
     import dca_tpu_torch
@@ -699,7 +879,7 @@ def phase_api(ae_type, epochs, timed):
         f" (predict-only run {t_zero:.3f} s): {per_epoch * 1e3:.1f} ms per epoch")
     print(f"phase 4: dca() {ae_type} {n_cells} x {n_genes}, {epochs} epochs in "
           f"{t_run:.3f} s{timing}, {steps} steps each; launches {launches}")
-    return launches, per_epoch, net
+    return launches, per_epoch, net, hist
 
 
 def _prepped_paul15():
@@ -907,6 +1087,159 @@ def phase_cli():
     shutil.rmtree(work)
 
 
+DP_RANKS = 2
+DP_TIMEOUT = 480  # seconds for both ranks, start-up included
+DP_RUNS = (("zinb-conddisp", 2), ("nb-conddisp", 1))
+
+
+def _dp_rank(rank, world, port, out_dir, backend):
+    """One rank of phase 7, in a process of its own: join the group (gloo
+    on the one card, or NCCL with a card a rank), run
+    ``dca(devices="all")`` for each of DP_RUNS
+    (zinb-conddisp after an untimed warm-up fit and a timed epochs=0 run), save
+    the model on rank 0, and leave the history, launches, times and the
+    denoised matrix in ``out_dir``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import dca_tpu_torch
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", world, rank, backend=backend)
+    counts = make_paul15_like()
+    kw = dict(hidden_size=(64, 32, 64), batch_size=32, copy=True, return_info=True,
+              return_model=True, devices="all")
+    res = {}
+    for ae_type, epochs in DP_RUNS:
+        files = os.path.join(out_dir, f"{ae_type}-rank{rank}")
+        t_zero = None
+        if ae_type == "zinb-conddisp":
+            # a warm-up fit first: the collectives' and the libraries' set-up
+            # is paid there, not in the epochs=0 run that is subtracted
+            dca_tpu_torch.dca(AnnData(counts.copy()), ae_type=ae_type, epochs=1, **kw)
+            t0 = time.perf_counter()
+            dca_tpu_torch.dca(AnnData(counts.copy()), ae_type=ae_type, epochs=0, **kw)
+            torch.cuda.synchronize()
+            t_zero = time.perf_counter() - t0
+        fl.reset_launches()
+        t0 = time.perf_counter()
+        ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), ae_type=ae_type, epochs=epochs,
+                                     network_kwds={"file_path": files}, **kw)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = dict(fl.launches)
+        net.save()  # with the trained parameters: rank 0 alone writes
+        np.save(os.path.join(out_dir, f"denoised-{ae_type}-rank{rank}.npy"), ret.X)
+        res[ae_type] = {"history": ret.uns["dca_loss_history"], "launches": launches,
+                        "t_run": t_run, "t_zero": t_zero}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_data_parallel(single_hist, n_ranks=DP_RANKS, backend="gloo", val_rtol=1e-3):
+    """Phase 7: the data-parallel fit, by default 2 ranks on the one card
+    over gloo (module docstring; ``chip_dp.py`` runs it with a card a rank
+    over NCCL).  ``single_hist``: phase 4's zinb-conddisp history, which
+    the loss must match within rtol 1e-3 and val_loss within
+    ``val_rtol``.  Returns each run's per-rank launches and the per-epoch
+    time."""
+    import multiprocessing
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"phase 7: compute mode {mode!r}; {n_ranks} ranks, backend {backend}")
+    out_dir = os.path.join(OUT_DIR, "dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = multiprocessing.get_context("spawn")  # CUDA does not survive fork
+    port = _free_port()
+    procs = [ctx.Process(target=_dp_rank, args=(r, n_ranks, port, out_dir, backend))
+             for r in range(n_ranks)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        _check(not hung, f"phase 7: ranks {hung} still running after {DP_TIMEOUT} s")
+        codes = [p.exitcode for p in procs]
+        _check(codes == [0] * n_ranks, f"phase 7: ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(n_ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # every rank has rows in every step (the trailing 25 rows split 13/12,
+    # or 7/7/7/4 on 4 ranks); 273 validation rows need padding for 2 or 4
+    want = {"zinb-conddisp": {"zinb_nll_fwd": 154, "zinb_nll_bwd": 154, "zinb_nll_fwd_w": 2},
+            "nb-conddisp": {"nb_nll_fwd": 77, "nb_nll_bwd": 77, "nb_nll_fwd_w": 1}}
+    out = {}
+    for ae_type, epochs in DP_RUNS:
+        runs = [rk[ae_type] for rk in ranks]
+        hist = runs[0]["history"]
+        for rk, run in enumerate(runs[1:], 1):
+            _check(run["history"] == hist,
+                   f"phase 7 {ae_type}: rank {rk}'s history {run['history']} differs from rank "
+                   f"0's {hist}")
+        expect = dict(dict.fromkeys(LAUNCH_NAMES, 0), **want[ae_type])
+        for rk, run in enumerate(runs):
+            _check(run["launches"] == expect, f"phase 7 {ae_type}: rank {rk} launched "
+                   f"{run['launches']}, expected {expect}")
+        _check(len(hist["loss"]) == epochs and np.all(np.isfinite(hist["loss"]))
+               and np.all(np.isfinite(hist["val_loss"])), f"phase 7 {ae_type}: history {hist}")
+        if ae_type == "zinb-conddisp":
+            # same seed and initial weights as phase 4; the sums run in
+            # another order over the ranks, and the difference grows over
+            # the RMSprop steps
+            rel = {}
+            for key, rtol in (("loss", 1e-3), ("val_loss", val_rtol)):
+                ref = np.asarray(single_hist[key][:epochs])
+                rel[key] = float(np.max(np.abs(np.asarray(hist[key]) - ref) / np.abs(ref)))
+                _check(rel[key] <= rtol, f"phase 7: {key} {hist[key]} vs phase 4's "
+                       f"{ref.tolist()}, relative difference {rel[key]:.3e} > {rtol}")
+            print(f"phase 7: zinb-conddisp against phase 4's first {epochs} epochs "
+                  f"{single_hist['loss'][:epochs]} / {single_hist['val_loss'][:epochs]}: largest "
+                  f"relative difference {rel['loss']:.3e} (loss), {rel['val_loss']:.3e} (val_loss)")
+        den = [np.load(os.path.join(out_dir, f"denoised-{ae_type}-rank{r}.npy"))
+               for r in range(n_ranks)]
+        _check(den[0].shape == (2730, 3451) and bool(np.isfinite(den[0]).all()),
+               f"phase 7 {ae_type}: denoised matrix of shape {den[0].shape} or not finite")
+        _check(all(np.array_equal(d, den[0]) for d in den[1:]),
+               f"phase 7 {ae_type}: the ranks' denoised matrices differ")
+        written = [os.path.exists(os.path.join(out_dir, f"{ae_type}-rank{r}"))
+                   for r in range(n_ranks)]
+        _check(os.path.exists(os.path.join(out_dir, f"{ae_type}-rank0", "model.pickle"))
+               and not any(written[1:]), f"phase 7 {ae_type}: written by ranks {written}")
+        out[ae_type] = [run["launches"] for run in runs]
+        print(f"phase 7: {ae_type} {epochs} epochs on {n_ranks} ranks: loss {hist['loss']}, "
+              f"val_loss {hist['val_loss']}, the same on every rank; per-rank launches "
+              f"{runs[0]['launches']}; denoised matrices equal and finite; rank 0 alone wrote")
+    zinb = ranks[0]["zinb-conddisp"]
+    out["per_epoch_s"] = (zinb["t_run"] - zinb["t_zero"]) / DP_RUNS[0][1]
+    print(f"phase 7: data-parallel zinb-conddisp epoch {out['per_epoch_s'] * 1e3:.1f} ms on "
+          f"rank 0 ({n_ranks} ranks over {backend}"
+          f"{': sharing one card, this measures no scaling' if backend == 'gloo' else ''})")
+    shutil.rmtree(out_dir)
+    return out
+
+
 def _card():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -932,15 +1265,18 @@ def main():
     try:
         phase_build()
         worst = phase_compare(dev)
+        worst_w = phase_weighted_compare(dev)
         dense_err = phase_dense_compare(dev)
         times = phase_timings(dev)
+        times.update(weighted_timings(dev))
         dense_times = dense_timings(dev)
         phase_zoo()
-        launches, per_epoch, zinb_net = phase_api("zinb-conddisp", 5, timed=True)
-        nb_launches, _, nb_net = phase_api("nb-conddisp", 2, timed=False)
+        launches, per_epoch, zinb_net, zinb_hist = phase_api("zinb-conddisp", 5, timed=True)
+        nb_launches, _, nb_net, _ = phase_api("nb-conddisp", 2, timed=False)
         launches.update({k: v for k, v in nb_launches.items() if k.startswith("nb_")})
         phase_cli()
         den = phase_denoise(zinb_net, nb_net)
+        dp = phase_data_parallel(zinb_hist)
         card = _card()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -970,6 +1306,36 @@ def main():
                 "checked_shapes": f"{shapes}; {cases}", "tolerance": tol, "card": card,
                 **extra,
             })
+    for fam in ("nb", "zinb"):
+        dp_launches = dp[f"{fam}-conddisp"]
+        for kind, line, err, tol in (
+            ("fwd", 158, worst_w[fam]["fwd_abs"],
+             f"loss rel err <= {LOSS_RTOL}; total weight exact for 0/1 weights, rel err <= "
+             f"{LOSS_RTOL} for fractional ones, 1 for all-zero weights"),
+            ("bwd", 191, worst_w[fam]["bwd_abs"],
+             f"unscaled grads rtol {GRAD_RTOL}, atol {GRAD_ATOL} + {GRAD_ULPS} ulps of the "
+             "weighted terms; exactly 0 on zero-weight rows and at NaN targets"),
+        ):
+            ms, plain_ms, bound_ms, bound_by, extra = times[f"{fam}_{kind}_w"]
+            name = f"{fam}_nll_{kind}_w"
+            per_rank = [rk[name] for rk in dp_launches]
+            entry = {
+                "name": name, "route": "cuda", "source": "dca_tpu_torch/csrc/fused_nll.cu",
+                "replaces": f"dca_tpu/ops/fused_loss.py:{line}",
+                "launches": sum(per_rank), "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "launches_per_rank": per_rank,
+                "main_path": f"phase 7: {fam}-conddisp data parallel on {DP_RANKS} ranks",
+                "checked_shapes": f"{', '.join(str(sh) for sh, _, _ in WEIGHTED_SHAPES)}; the "
+                                  f"theta/pi cases of K1/K2; weights {', '.join(WEIGHT_KINDS)}",
+                "tolerance": tol, "card": card, **extra,
+            }
+            if kind == "bwd":
+                entry["not_launched_because"] = (
+                    "no path of the fit differentiates a weighted loss: the weighted "
+                    "validation is evaluated without gradients, as in the JAX package, "
+                    "where only TensorBoard's gradients of a padded run launch it (not ported)")
+            kernels.append(entry)
     timings = {f"{name} {act}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms"), t))
                for (name, act), t in dense_times.items()}
@@ -992,6 +1358,9 @@ def main():
     })
     print(f"per-epoch time {per_epoch * 1e3:.1f} ms (dca() 2730 x 3451, zinb-conddisp "
           f"64-32-64, batch 32) on {card}")
+    print(f"data-parallel per-epoch time {dp['per_epoch_s'] * 1e3:.1f} ms on rank 0 (the same "
+          f"fit on {DP_RANKS} ranks sharing the one card through gloo: no scaling measured) "
+          f"on {card}")
     print(f"denoise tier (2730 x 3451, zinb-conddisp) on {card}: forward "
           f"{den['forward_s_0'] * 1e3:.1f} ms without K4, {den['forward_s_1'] * 1e3:.1f} ms "
           f"with; write_streaming {den['stream_s']:.2f} s")

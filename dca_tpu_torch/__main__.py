@@ -2,10 +2,13 @@
 
 The flag surface of the JAX package's CLI (``dca_tpu/__main__.py``: names,
 defaults, paired --x/--no-x booleans), plus ``--device``: the run goes to
-the CUDA device unless ``--device cpu`` is given.  Flags whose paths are not
-ported yet (--hyper, --tensorboard, --saveweights, --devices,
---modelparallel, --activation PReLU and the optimizers other than
-RMSprop) are parsed and then refused with an error that names ROADMAP.md.
+the CUDA device unless ``--device cpu`` is given.  ``--devices`` trains data
+parallel over the ranks of a process group, one process per device:
+``torchrun --nproc-per-node N -m dca_tpu_torch in.tsv out/ --devices all``
+(rank 0 writes the outputs).  Flags whose paths are not ported yet
+(--hyper, --tensorboard, --saveweights, --modelparallel above 1,
+--activation PReLU and the optimizers other than RMSprop) are parsed and
+then refused with an error that names ROADMAP.md.
 Every ``--type`` of the JAX package runs; ``--outputformat h5ad`` writes
 ``denoised.h5ad`` through the streaming writer.
 """
@@ -153,11 +156,12 @@ def parse_args(argv=None):
                         "one gene per line.")
 
     parser.add_argument("--devices", dest="devices", type=str, default=None,
-                        help="Train over several devices (not ported yet; "
-                        "default: one device)")
+                        help="Train data parallel over the ranks of a process "
+                        "group, one process per device: 'all' or their number; "
+                        "start the ranks with torchrun (default: one device)")
     parser.add_argument("--modelparallel", dest="modelparallel", type=int, default=1,
-                        help="Width of the model axis of a device mesh (not "
-                        "ported yet; default: 1)")
+                        help="Width of the model (gene) axis of a device mesh "
+                        "(above 1 not ported yet; default: 1)")
     parser.add_argument("--outputformat", dest="outputformat", type=str,
                         default="tsv", choices=("tsv", "h5ad"),
                         help="Output format: 'tsv' is the reference TSV "

@@ -11,8 +11,14 @@ and the ZINB dropout in ``obsm['X_dca_dropout']``; the loss history in
 return_model), for every ``ae_type`` of the JAX package, plus ``device``:
 the CUDA device unless ``device="cpu"``.
 
-The JAX package's ``devices``/``model_parallel`` mesh arguments wait for a
-later slice (ROADMAP.md).
+``devices``/``model_parallel`` as the JAX package's: with ``devices``
+(``"all"``, an int or a list) the fit is data parallel over the ranks of a
+``torch.distributed`` process group, one process per device, each calling
+``dca`` on the same data (``parallel/``); under torchrun the ranks join
+their group here.  After the fit every rank holds the same parameters and
+the full denoised matrix.  ``model_parallel > 1`` (gene-dim model
+parallelism) and one process over several GPUs are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from .data.adata import is_anndata_like
 from .data.io import _col_sums, auto_lazy_scale, normalize, read_dataset
 from .device import resolve_device
 from .models.network import get_ae_type
+from .parallel.multihost import initialize
 from .train.loop import train
 
 
@@ -56,6 +63,8 @@ def dca(
     return_info=False,
     copy=False,
     check_counts=True,
+    devices=None,
+    model_parallel=1,
     device=None,
 ):
     """Deep count autoencoder: denoise ``adata`` or embed it in the latent
@@ -65,6 +74,9 @@ def dca(
     assert is_anndata_like(adata), "adata must be an AnnData instance"
     assert mode in ("denoise", "latent"), "%s is not a valid mode." % mode
     ae_cls = get_ae_type(ae_type)
+    if devices is not None:
+        # before the network is built: each rank takes its own device
+        initialize(device=device)
     device = resolve_device(device)
 
     random.seed(random_state)
@@ -105,7 +117,9 @@ def dca(
     net.build()
 
     training_kwds = {
-        **training_kwds,
+        "devices": devices,
+        "model_parallel": model_parallel,
+        **training_kwds,  # may override the mesh arguments
         "epochs": epochs,
         "reduce_lr": reduce_lr,
         "early_stop": early_stop,

@@ -1,9 +1,10 @@
 // Fused NB and ZINB negative log-likelihood, forward (K1) and backward (K2),
 // for Hopper.
 //
-// Both kernels compute what the JAX package's Pallas kernels compute with no
-// weights (dca_tpu/ops/fused_loss.py, _elem_terms / _elem_grads), for the NB
-// loss and, templated on WITH_PI, the zero-inflated NB loss:
+// Both kernels compute what the JAX package's Pallas kernels compute
+// (dca_tpu/ops/fused_loss.py, _elem_terms / _elem_grads), for the NB loss
+// and, templated on WITH_PI, the zero-inflated NB loss, and, templated on
+// WITH_W, their per-row weighted means (the with_w variants, K1w and K2w):
 //   NaN targets are evaluated at y = 0, while the ZINB zero branch tests the
 //   original y (y < 1e-8), so a NaN target takes the NB case; theta is
 //   clipped at 1e6; eps = 1e-10; the log(1 + mu/theta) term is log1pf; the
@@ -13,7 +14,8 @@
 // y and mu are contiguous float32 (B, G) arrays of n = B*G elements.  theta
 // and pi may be (B, G), (1, G), (B, 1) or (1, 1): each is read through its
 // broadcast mode (bcast_index), so a broadcast operand is never expanded in
-// device memory.
+// device memory.  The weights w are a (B, 1) column, read through the same
+// column index i / G.
 // Plain C interface, loaded with ctypes by dca_tpu_torch/ops/_build.py.
 // Each launcher returns cudaGetLastError() for the wrapper to check; the
 // kernels run on the caller's stream, never synchronise and allocate
@@ -140,14 +142,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // K1: per block, the sum of the elementwise NLL and the count for the
 // denominator: non-NaN targets for NB, non-NaN results for ZINB (the JAX
-// losses' _nelem and _reduce_mean_nan).  partials is (2, gridDim.x): row 0
-// the sums, row 1 the counts.
-template <bool WITH_PI>
+// losses' _nelem and _reduce_mean_nan).  With WITH_W (K1w), the sum of
+// res * w and the sum of w over the non-NaN targets (losses._apply_weights:
+// a NaN target weighs 0; a non-finite res times a weight of 0 stays NaN, as
+// in JAX).  partials is (2, gridDim.x): row 0 the sums, row 1 the counts.
+template <bool WITH_PI, bool WITH_W>
 __global__ void __launch_bounds__(kFwdThreads)
 nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
                const float* __restrict__ th, const float* __restrict__ pi,
-               float* __restrict__ partials, long long n, long long G,
-               int th_mode, int pi_mode, float ridge) {
+               const float* __restrict__ w, float* __restrict__ partials,
+               long long n, long long G, int th_mode, int pi_mode,
+               float ridge) {
     float s = 0.0f;
     float c = 0.0f;
     const long long stride = (long long)gridDim.x * kFwdThreads;
@@ -157,8 +162,15 @@ nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
         const float piv = WITH_PI ? pi[bcast_index(i, G, pi_mode)] : 0.0f;
         const float r = nll_elem<WITH_PI>(
             yv, mu[i], th[bcast_index(i, G, th_mode)], piv, ridge);
-        s += r;
-        c += isnan(WITH_PI ? r : yv) ? 0.0f : 1.0f;
+        if (WITH_W) {
+            const bool valid = !isnan(yv);
+            const float wv = w[i / G];
+            s += valid ? r * wv : 0.0f;
+            c += valid ? wv : 0.0f;
+        } else {
+            s += r;
+            c += isnan(WITH_PI ? r : yv) ? 0.0f : 1.0f;
+        }
     }
     s = warp_sum(s);
     c = warp_sum(c);
@@ -186,25 +198,57 @@ nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
 
 // K2: the full (B, G) d loss / d mu, d theta and (WITH_PI) d pi, each times
 // *scale (= g / denom, read from device memory).  d theta is 0 where theta
-// was clipped.  A broadcast operand's gradient is summed to its shape by
-// the wrapper.
-template <bool WITH_PI>
+// was clipped.  With WITH_W (K2w), each times w * scale, formed in that
+// order, where the target is not NaN, and exactly 0 where it is: a
+// zero-weight (padding) row gets a gradient of exactly 0, and a NaN target
+// no y = 0 gradient, unlike the unweighted K2.  A broadcast operand's
+// gradient is summed to its shape by the wrapper.
+template <bool WITH_PI, bool WITH_W>
 __global__ void __launch_bounds__(kBwdThreads)
 nll_bwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
                const float* __restrict__ th, const float* __restrict__ pi,
-               const float* __restrict__ scale, float* __restrict__ dmu,
-               float* __restrict__ dth, float* __restrict__ dpi, long long n,
-               long long G, int th_mode, int pi_mode, float ridge) {
+               const float* __restrict__ w, const float* __restrict__ scale,
+               float* __restrict__ dmu, float* __restrict__ dth,
+               float* __restrict__ dpi, long long n, long long G, int th_mode,
+               int pi_mode, float ridge) {
     const long long i = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
     if (i >= n) return;
-    const float s = *scale;
+    const float yv = y[i];
     const float piv = WITH_PI ? pi[bcast_index(i, G, pi_mode)] : 0.0f;
     float gmu, gth, gpi;
-    nll_grads<WITH_PI>(y[i], mu[i], th[bcast_index(i, G, th_mode)], piv, ridge,
+    nll_grads<WITH_PI>(yv, mu[i], th[bcast_index(i, G, th_mode)], piv, ridge,
                        &gmu, &gth, &gpi);
+    if (WITH_W) {
+        const bool sel = !isnan(yv);
+        const float f = w[i / G] * *scale;
+        dmu[i] = sel ? gmu * f : 0.0f;
+        dth[i] = sel ? gth * f : 0.0f;
+        if (WITH_PI) dpi[i] = sel ? gpi * f : 0.0f;
+        return;
+    }
+    const float s = *scale;
     dmu[i] = gmu * s;
     dth[i] = gth * s;
     if (WITH_PI) dpi[i] = gpi * s;
+}
+
+template <bool WITH_PI, bool WITH_W>
+void launch_fwd(int grid, cudaStream_t st, const float* y, const float* mu,
+                const float* th, const float* pi, const float* w,
+                float* partials, long long n, long long G, int th_mode,
+                int pi_mode, float ridge) {
+    nll_fwd_kernel<WITH_PI, WITH_W><<<grid, kFwdThreads, 0, st>>>(
+        y, mu, th, pi, w, partials, n, G, th_mode, pi_mode, ridge);
+}
+
+template <bool WITH_PI, bool WITH_W>
+void launch_bwd(unsigned int grid, cudaStream_t st, const float* y,
+                const float* mu, const float* th, const float* pi,
+                const float* w, const float* scale, float* dmu, float* dth,
+                float* dpi, long long n, long long G, int th_mode, int pi_mode,
+                float ridge) {
+    nll_bwd_kernel<WITH_PI, WITH_W><<<grid, kBwdThreads, 0, st>>>(
+        y, mu, th, pi, w, scale, dmu, dth, dpi, n, G, th_mode, pi_mode, ridge);
 }
 
 }  // namespace
@@ -223,38 +267,33 @@ int dca_nll_fwd_grid(long long n) {
     return (int)(b < 1 ? 1 : b);
 }
 
-// pi is not read (and may be NULL) unless with_pi.
+// pi is not read (and may be NULL) unless with_pi, nor w unless with_w.
 int dca_nll_fwd(const float* y, const float* mu, const float* th,
-                const float* pi, float* partials, long long n, long long G,
-                int th_mode, int pi_mode, float ridge, int with_pi,
-                void* stream) {
+                const float* pi, const float* w, float* partials, long long n,
+                long long G, int th_mode, int pi_mode, float ridge, int with_pi,
+                int with_w, void* stream) {
     const int grid = dca_nll_fwd_grid(n);
     const cudaStream_t st = (cudaStream_t)stream;
-    if (with_pi) {
-        nll_fwd_kernel<true><<<grid, kFwdThreads, 0, st>>>(
-            y, mu, th, pi, partials, n, G, th_mode, pi_mode, ridge);
-    } else {
-        nll_fwd_kernel<false><<<grid, kFwdThreads, 0, st>>>(
-            y, mu, th, pi, partials, n, G, th_mode, pi_mode, ridge);
-    }
+    auto launch = with_pi ? (with_w ? launch_fwd<true, true> : launch_fwd<true, false>)
+                          : (with_w ? launch_fwd<false, true> : launch_fwd<false, false>);
+    launch(grid, st, y, mu, th, pi, w, partials, n, G, th_mode, pi_mode, ridge);
     return (int)cudaGetLastError();
 }
 
-// pi and dpi are not touched (and may be NULL) unless with_pi.
+// pi and dpi are not touched (and may be NULL) unless with_pi, nor w unless
+// with_w.
 int dca_nll_bwd(const float* y, const float* mu, const float* th,
-                const float* pi, const float* scale, float* dmu, float* dth,
-                float* dpi, long long n, long long G, int th_mode, int pi_mode,
-                float ridge, int with_pi, void* stream) {
+                const float* pi, const float* w, const float* scale, float* dmu,
+                float* dth, float* dpi, long long n, long long G, int th_mode,
+                int pi_mode, float ridge, int with_pi, int with_w,
+                void* stream) {
     const unsigned int grid =
         (unsigned int)((n + kBwdThreads - 1) / kBwdThreads);
     const cudaStream_t st = (cudaStream_t)stream;
-    if (with_pi) {
-        nll_bwd_kernel<true><<<grid, kBwdThreads, 0, st>>>(
-            y, mu, th, pi, scale, dmu, dth, dpi, n, G, th_mode, pi_mode, ridge);
-    } else {
-        nll_bwd_kernel<false><<<grid, kBwdThreads, 0, st>>>(
-            y, mu, th, pi, scale, dmu, dth, dpi, n, G, th_mode, pi_mode, ridge);
-    }
+    auto launch = with_pi ? (with_w ? launch_bwd<true, true> : launch_bwd<true, false>)
+                          : (with_w ? launch_bwd<false, true> : launch_bwd<false, false>);
+    launch(grid, st, y, mu, th, pi, w, scale, dmu, dth, dpi, n, G, th_mode,
+           pi_mode, ridge);
     return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,12 @@ contract:
 ``lgamma`` here is ``torch.lgamma``, the library function, as the JAX module
 uses ``jax.lax.lgamma``.  ``sample_weights`` is the JAX package's per-row
 weighted mean (NaN targets weight 0).
+
+``group``: under a ``torch.distributed`` process group each loss returns
+this rank's share of the mean over the whole batch: its own sum over the
+count (or total weight) summed over the ranks, the (sum, count) pair
+all-reduced as one 2-vector before the division (``_mean``).  The shares
+add up to the mean, and each rank's gradients stay its own.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 EPS = 1e-10
 THETA_CLIP = 1e6
@@ -40,25 +47,34 @@ def _nan2inf(x):
     return torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x)
 
 
-def _nelem(x):
-    """Number of non-NaN elements, clamped to 1 to avoid 0/0."""
-    nelem = torch.sum((~torch.isnan(x)).to(torch.float32))
-    return torch.where(nelem == 0.0, torch.ones_like(nelem), nelem).to(x.dtype)
+def _count(x):
+    """Number of non-NaN elements of x."""
+    return torch.sum((~torch.isnan(x)).to(torch.float32))
 
 
-def _reduce_mean_nan(x):
+def _mean(total, count, group=None):
+    """total / count, a count of exactly 0 taken as 1.  Under ``group`` the
+    (total, count) pair is summed over its ranks first and ``total`` stays
+    this rank's own: the rank's share of the global mean."""
+    if group is not None:
+        pair = torch.stack([total.detach(), count.detach().to(total.dtype)])
+        dist.all_reduce(pair, group=group)
+        count = pair[1]
+    count = count.to(total.dtype)
+    return total / torch.where(count == 0.0, torch.ones_like(count), count)
+
+
+def _reduce_mean_nan(x, group=None):
     """Mean over the non-NaN elements of x (NaN counted as 0 in the sum)."""
-    return torch.sum(_nan2zero(x)) / _nelem(x)
+    return _mean(torch.sum(_nan2zero(x)), _count(x), group)
 
 
-def _apply_weights(elem, y_true, sample_weights):
+def _apply_weights(elem, y_true, sample_weights, group=None):
     """Weighted mean over elements; per-row weights broadcast over genes and
     NaN targets get weight 0."""
     w = sample_weights.to(elem.dtype)[:, None].expand(elem.shape)
     w = w * (~torch.isnan(y_true)).to(elem.dtype)
-    total = torch.sum(w)
-    total = torch.where(total == 0.0, torch.ones_like(total), total)
-    return torch.sum(_nan2zero(elem) * w) / total
+    return _mean(torch.sum(_nan2zero(elem) * w), torch.sum(w), group)
 
 
 def _assert_finite(x, name):
@@ -67,16 +83,17 @@ def _assert_finite(x, name):
         raise FloatingPointError("dca_tpu_torch debug: " + name + " has inf/nan")
 
 
-def mse_loss(y_true, y_pred, sample_weights: Optional[torch.Tensor] = None):
+def mse_loss(y_true, y_pred, sample_weights: Optional[torch.Tensor] = None, group=None):
     """Masked mean squared error."""
     y_true = y_true.to(torch.float32)
     ret = torch.square(y_pred.to(torch.float32) - y_true)
     if sample_weights is not None:
-        return _apply_weights(ret, y_true, sample_weights)
-    return _reduce_mean_nan(ret)
+        return _apply_weights(ret, y_true, sample_weights, group)
+    return _reduce_mean_nan(ret, group)
 
 
-def poisson_loss(y_true, y_pred, sample_weights: Optional[torch.Tensor] = None):
+def poisson_loss(y_true, y_pred, sample_weights: Optional[torch.Tensor] = None,
+                 group=None):
     """Poisson NLL ``y_pred - y log(y_pred + 1e-10) + lgamma(y + 1)``,
     averaged over the non-NaN targets."""
     y_pred = y_pred.to(torch.float32)
@@ -84,8 +101,8 @@ def poisson_loss(y_true, y_pred, sample_weights: Optional[torch.Tensor] = None):
     y0 = _nan2zero(y_true)
     ret = y_pred - y0 * torch.log(y_pred + 1e-10) + torch.lgamma(y0 + 1.0)
     if sample_weights is not None:
-        return _apply_weights(ret, y_true, sample_weights)
-    return torch.sum(ret) / _nelem(y_true)
+        return _apply_weights(ret, y_true, sample_weights, group)
+    return _mean(torch.sum(ret), _count(y_true), group)
 
 
 def nb_nll(
@@ -98,6 +115,7 @@ def nb_nll(
     mean: bool = True,
     sample_weights: Optional[torch.Tensor] = None,
     debug: bool = False,
+    group=None,
 ):
     """Negative binomial negative log-likelihood.
 
@@ -108,7 +126,7 @@ def nb_nll(
     y_pred = y_pred.to(torch.float32) * scale_factor
 
     if masking and sample_weights is None:
-        nelem = _nelem(y_true)
+        nelem = _count(y_true)
         y_true = _nan2zero(y_true)
 
     theta = torch.clamp(theta.to(torch.float32), max=THETA_CLIP)
@@ -136,10 +154,10 @@ def nb_nll(
     if not mean:
         return final
     if sample_weights is not None:
-        return _apply_weights(final, y_true, sample_weights)
-    if masking:
-        return torch.sum(final) / nelem
-    return torch.mean(final)
+        return _apply_weights(final, y_true, sample_weights, group)
+    if not masking:
+        nelem = final.new_tensor(float(final.numel()))
+    return _mean(torch.sum(final), nelem, group)
 
 
 def zinb_nll(
@@ -154,6 +172,7 @@ def zinb_nll(
     mean: bool = True,
     sample_weights: Optional[torch.Tensor] = None,
     debug: bool = False,
+    group=None,
 ):
     """Zero-inflated NB negative log-likelihood.
 
@@ -178,9 +197,9 @@ def zinb_nll(
 
     if mean:
         if sample_weights is not None:
-            result = _apply_weights(result, y_true, sample_weights)
+            result = _apply_weights(result, y_true, sample_weights, group)
         elif masking:
-            result = _reduce_mean_nan(result)
+            result = _reduce_mean_nan(result, group)
         else:
-            result = torch.mean(result)
+            result = _mean(torch.sum(result), result.new_tensor(float(result.numel())), group)
     return _nan2inf(result)

@@ -38,6 +38,13 @@ output.  Matrix products honour DCA_TPU_MATMUL (``_dot``).  ``apply`` with
 ``keys`` computes only the heads (and fork branches) those outputs need,
 what XLA's dead-code elimination gives the JAX package's per-keys predict.
 
+In a data-parallel training step (``shard``, a ``parallel.step.BatchShard``)
+each rank runs its rows of the global batch: BatchNorm normalises with the
+mean and biased variance of the whole global batch, summed over the ranks
+as GSPMD's psum gives them in the JAX package, and dropout draws the
+global batch's mask from the shared-seed generator and takes its own rows,
+so the ranks compute what one device would on the whole batch.
+
 All 11 architectures of the JAX package run here; the PReLU activation
 (its trainable alpha) waits for a later slice (ROADMAP.md, Queue 1).
 """
@@ -55,6 +62,7 @@ from ..config import matmul_dtype, use_fused_dense
 from ..ops.activations import DispAct, MeanAct, get_activation
 from ..ops.fused_dense import fused_dense_block, supported_activation
 from ..ops.initializers import get_initializer
+from ..parallel.multihost import all_reduce_sum
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
@@ -408,11 +416,19 @@ def _eval_state(d: Dense):
     return {"moving_mean": d.moving_mean, "moving_var": d.moving_var}
 
 
-def _batchnorm(d: Dense, x, training: bool):
-    """Keras BatchNormalization(center=True, scale=False)."""
+def _batchnorm(d: Dense, x, training: bool, shard=None):
+    """Keras BatchNormalization(center=True, scale=False); in training
+    under a ``shard``, with the statistics of the whole global batch: the
+    sum of x over the ranks first, then the sum of (x - mean)^2.  The sums
+    are differentiable, so the moving statistics and the gradients are
+    those of the global batch."""
     if training:
-        mu = torch.mean(x, dim=0)
-        var = torch.mean(torch.square(x - mu), dim=0)  # biased, as Keras
+        if shard is None:
+            mu = torch.mean(x, dim=0)
+            var = torch.mean(torch.square(x - mu), dim=0)  # biased, as Keras
+        else:
+            mu = all_reduce_sum(torch.sum(x, dim=0), shard.group) / shard.n
+            var = all_reduce_sum(torch.sum(torch.square(x - mu), dim=0), shard.group) / shard.n
         xn = (x - mu) * torch.rsqrt(var + BN_EPS) + d.bn_beta
         mu, var = mu.detach(), var.detach()
         new_s = {
@@ -424,9 +440,14 @@ def _batchnorm(d: Dense, x, training: bool):
     return xn, _eval_state(d)
 
 
-def _dropout(x, rate: float, generator):
+def _dropout(x, rate: float, generator, shard=None):
+    """Inverted dropout; under a ``shard`` this rank's rows of the global
+    batch's mask."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if shard is None else (shard.n, x.shape[1])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask[shard.lo:shard.hi]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -466,7 +487,8 @@ def theta_exp(net: DCANetwork):
     return torch.clamp(torch.exp(net.heads["dispersion"].theta), *THETA_EXP_CLIP)
 
 
-def _apply_stack(layers, stack, x, activation, training, generator, new_state):
+def _apply_stack(layers, stack, x, activation, training, generator, new_state,
+                 shard=None):
     """Dense -> BN -> activation -> dropout per layer; returns (x, latent)
     and puts each BN layer's new state into ``new_state``.  In eval mode
     with the fused kernel switched on, the layers run through it up to
@@ -492,10 +514,10 @@ def _apply_stack(layers, stack, x, activation, training, generator, new_state):
         if layer.name == "center":
             latent = x  # encoder output = center Dense before BN/activation
         if layer.batchnorm:
-            x, new_state[layer.name] = _batchnorm(d, x, training)
+            x, new_state[layer.name] = _batchnorm(d, x, training, shard)
         x = act_fn(x)
         if layer.dropout > 0.0 and training:
-            x = _dropout(x, layer.dropout, generator)
+            x = _dropout(x, layer.dropout, generator, shard)
     return x, latent
 
 
@@ -515,7 +537,7 @@ def _wanted_heads(definition: NetworkDef, keys):
 
 
 def _apply_branches(definition, net, x, activation, training, generator, new_state,
-                    heads):
+                    heads, shard=None):
     """{branch: output} of the fork branches that feed ``heads``; '' is the
     shared trunk's output ``x``."""
     of = definition.branch_of_head
@@ -525,7 +547,7 @@ def _apply_branches(definition, net, x, activation, training, generator, new_sta
             continue
         new_state[bname] = {}
         branch_out[bname], _ = _apply_stack(layers, net.branches[bname], x, activation,
-                                            training, generator, new_state[bname])
+                                            training, generator, new_state[bname], shard)
     return branch_out
 
 
@@ -561,24 +583,25 @@ def _apply_heads(definition, net, branch_out, sf, heads, fused):
 
 def apply(definition: NetworkDef, net: DCANetwork, count, size_factors, *,
           training: bool = False, generator: Optional[torch.Generator] = None,
-          keys=None):
+          keys=None, shard=None):
     """Full forward pass.  Returns (outputs dict, new batch-norm state);
     the state is the current one in eval mode, and the caller commits a
     training step's state with ``net.load_bn_state``.  With ``keys`` the
-    dict holds only those outputs, and only the heads they need run."""
+    dict holds only those outputs, and only the heads they need run.
+    ``shard``: this rank's rows of a data-parallel training batch."""
     x = count.to(torch.float32)
     sf = size_factors.to(torch.float32).reshape(-1, 1)
 
     if definition.input_dropout > 0.0 and training:
-        x = _dropout(x, definition.input_dropout, generator)
+        x = _dropout(x, definition.input_dropout, generator, shard)
 
     activation = definition.activation
     new_state = {"trunk": {}, "branches": {}}
     x, latent = _apply_stack(definition.shared, net.trunk, x, activation, training,
-                             generator, new_state["trunk"])
+                             generator, new_state["trunk"], shard)
     heads = _wanted_heads(definition, keys)
     branch_out = _apply_branches(definition, net, x, activation, training, generator,
-                                 new_state["branches"], heads)
+                                 new_state["branches"], heads, shard)
     out = _apply_heads(definition, net, branch_out, sf, heads,
                        fused=not training and use_fused_dense(definition.output_size))
     out["latent"] = latent

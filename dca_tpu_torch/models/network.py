@@ -26,6 +26,11 @@ back.  It reads the JAX package's switches: DCA_TPU_PREDICT_BLOCK_BYTES
 (bf16/f16: outputs downcast on the device before the copy, lossy),
 DCA_TPU_WRITE_ALIASES=0 (``write_streaming`` without the alias outputs),
 and, in the model, DCA_TPU_FUSED_DENSE and DCA_TPU_MATMUL.
+
+Under a ``torch.distributed`` process group (a data-parallel fit) every
+rank holds the same parameters, so each predicts the whole matrix; rank 0
+alone writes files (``save``, ``write``, ``write_streaming``), and the
+other ranks return from them at once.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import torch
 from .. import losses
 from ..data.io import densify, scale_stats, size_factors, write_text_matrix
 from ..device import resolve_device
-from ..ops.fused_loss import nb_nll_fused, zinb_nll_fused
+from ..ops.fused_loss import nb_nll_fused, nb_nll_fused_w, zinb_nll_fused, zinb_nll_fused_w
+from ..parallel.multihost import is_primary
 from . import core
 
 
@@ -155,11 +161,12 @@ class Autoencoder:
     # ------------------------------------------------------------------
     # functional pieces used by the trainer
     # ------------------------------------------------------------------
-    def apply(self, count, size_factors, training=False, generator=None, keys=None):
+    def apply(self, count, size_factors, training=False, generator=None, keys=None,
+              shard=None):
         return core.apply(self.definition, self.model, count, size_factors,
-                          training=training, generator=generator, keys=keys)
+                          training=training, generator=generator, keys=keys, shard=shard)
 
-    def likelihood_loss(self, outputs, target):
+    def likelihood_loss(self, outputs, target, sample_weights=None, group=None):
         """Negative log-likelihood of the forward outputs (no weight penalty).
 
         MSE and Poisson are the plain losses.  NB and ZINB go through the
@@ -169,31 +176,51 @@ class Autoencoder:
         the plain ``losses.nb_nll``/``zinb_nll``, as in the JAX package.
         Masking is on: identical to the reference's default on finite
         targets, and NaN targets are masked by the reference's rules.
-        Weighted batches wait for the weighted kernels (ROADMAP.md, Queue 2)."""
+        ``sample_weights``, a vector of one weight per row (the padded
+        validation of a data-parallel fit), gives the weighted mean: a
+        (B, 1) column for the weighted kernels K1w/K2w.  ``group``: this
+        rank's share of the mean over a data-parallel batch."""
         lk = self.definition.likelihood
         out = outputs["output"]
+        w = None
+        if sample_weights is not None:
+            if tuple(sample_weights.shape) != (out.shape[0],):
+                raise ValueError(f"sample_weights must be one weight per row, shape "
+                                 f"{(out.shape[0],)}; got {tuple(sample_weights.shape)}")
+            w = sample_weights.to(torch.float32).reshape(-1, 1).contiguous()
         if lk == "mse":
-            return losses.mse_loss(target, out)
+            return losses.mse_loss(target, out, sample_weights=sample_weights, group=group)
         if lk == "poisson":
-            return losses.poisson_loss(target, out)
+            return losses.poisson_loss(target, out, sample_weights=sample_weights, group=group)
         disp, pi = outputs["disp"], outputs["pi"]
         if self.definition.debug:
+            kw = dict(masking=sample_weights is None, sample_weights=sample_weights,
+                      debug=True, group=group)
             if lk == "nb":
-                return losses.nb_nll(target, out, disp, masking=True, debug=True)
-            return losses.zinb_nll(target, out, disp, pi, ridge_lambda=self.ridge,
-                                   masking=True, debug=True)
+                return losses.nb_nll(target, out, disp, **kw)
+            return losses.zinb_nll(target, out, disp, pi, ridge_lambda=self.ridge, **kw)
         y = target.to(torch.float32).contiguous()
         if lk == "nb":
-            return nb_nll_fused(y, out, disp)
-        return zinb_nll_fused(y, out, disp, pi, self.ridge)
+            if w is not None:
+                return nb_nll_fused_w(y, out, disp, w, group)
+            return nb_nll_fused(y, out, disp, group)
+        if w is not None:
+            return zinb_nll_fused_w(y, out, disp, pi, w, self.ridge, group)
+        return zinb_nll_fused(y, out, disp, pi, self.ridge, group)
 
-    def loss_fn(self, count, size_factors, target, training, generator=None):
+    def loss_fn(self, count, size_factors, target, training, generator=None,
+                sample_weights=None, shard=None):
         """Total loss = NLL + l1/l2 weight penalties.  Returns (loss,
-        new batch-norm state)."""
+        new batch-norm state).  ``shard`` (a ``parallel.step.BatchShard``):
+        this rank's rows of a data-parallel batch; the loss is then this
+        rank's share, and the penalty, added on rank 0 alone, enters the
+        summed gradient once."""
         outputs, new_state = self.apply(count, size_factors, training=training,
-                                        generator=generator)
-        loss = self.likelihood_loss(outputs, target)
-        loss = loss + core.regularization_loss(self.definition, self.model)
+                                        generator=generator, shard=shard)
+        loss = self.likelihood_loss(outputs, target, sample_weights,
+                                    None if shard is None else shard.group)
+        if shard is None or shard.rank == 0:
+            loss = loss + core.regularization_loss(self.definition, self.model)
         return loss, new_state
 
     # ------------------------------------------------------------------
@@ -363,8 +390,9 @@ class Autoencoder:
     def save(self):
         """Pickle the network to <file_path>/model.pickle, in the JAX
         package's payload format (ae_type, constructor arguments, and the
-        params/state trees as numpy arrays, or None before build)."""
-        if not self.file_path:
+        params/state trees as numpy arrays, or None before build).  Rank 0
+        alone writes."""
+        if not self.file_path or not is_primary():
             return
         params = state = None
         if self.model is not None:
@@ -409,6 +437,9 @@ class Autoencoder:
     # output files
     # ------------------------------------------------------------------
     def write(self, adata, file_path, mode="denoise", colnames=None):
+        """Write the TSV contract of ``predict``'s outputs (rank 0 alone)."""
+        if not is_primary():
+            return
         colnames = adata.var_names.values if colnames is None else colnames
         rownames = adata.obs_names.values
 
@@ -436,6 +467,10 @@ class Autoencoder:
             for fname in ("latent.tsv", "reduced.tsv"):
                 write_text_matrix(adata.obsm["X_dca"], os.path.join(file_path, fname),
                                   rownames=rownames, transpose=False)
+        self._write_info(adata, file_path, colnames)
+
+    def _write_info(self, adata, file_path, colnames):
+        """The info outputs of ``predict(return_info=True)``: none here."""
 
     # ------------------------------------------------------------------
     # streaming predict -> write (corpus scale)
@@ -466,6 +501,8 @@ class Autoencoder:
         failure every writer is aborted and its scratch files removed."""
         from ..data.stream_write import H5ADStreamWriter, RowStreamTSV, TransposedSpillTSV
 
+        if not is_primary():
+            return
         assert mode in ("denoise", "latent", "full"), "Unknown mode"
         assert output_format in ("tsv", "h5ad"), output_format
         colnames = adata.var_names.values if colnames is None else np.asarray(colnames)
@@ -653,9 +690,7 @@ class NBConstantDispAutoencoder(_ConstantDispersion, Autoencoder):
             self._store_dispersion(adata)
         return adata if copy else None
 
-    def write(self, adata, file_path, mode="denoise", colnames=None):
-        colnames = adata.var_names.values if colnames is None else colnames
-        super().write(adata, file_path, mode, colnames=colnames)
+    def _write_info(self, adata, file_path, colnames):
         self._write_dispersion(adata, file_path, colnames)
 
 
@@ -674,9 +709,7 @@ class NBAutoencoder(Autoencoder):
             adata.obsm["X_dca_dispersion"] = out["disp"]
         return adata if copy else None
 
-    def write(self, adata, file_path, mode="denoise", colnames=None):
-        colnames = adata.var_names.values if colnames is None else colnames
-        super().write(adata, file_path, mode, colnames=colnames)
+    def _write_info(self, adata, file_path, colnames):
         _write_obsm(adata, "X_dca_dispersion", file_path, ("dispersion.tsv",), colnames)
 
 
@@ -710,9 +743,7 @@ class ZINBAutoencoder(Autoencoder):
         super().predict(adata, mode, return_info, copy=False, _forward_out=out)
         return adata if copy else None
 
-    def write(self, adata, file_path, mode="denoise", colnames=None):
-        colnames = adata.var_names.values if colnames is None else colnames
-        super().write(adata, file_path, mode, colnames=colnames)
+    def _write_info(self, adata, file_path, colnames):
         _write_obsm(adata, "X_dca_dispersion", file_path, ("dispersion.tsv",), colnames)
         _write_obsm(adata, "X_dca_dropout", file_path, ("dropout.tsv", "pi.tsv"), colnames)
 
@@ -761,9 +792,7 @@ class ZINBConstantDispAutoencoder(_ConstantDispersion, Autoencoder):
         super().predict(adata, mode, return_info, copy=False, _forward_out=out)
         return adata if copy else None
 
-    def write(self, adata, file_path, mode="denoise", colnames=None):
-        colnames = adata.var_names.values if colnames is None else colnames
-        super().write(adata, file_path, mode, colnames=colnames)
+    def _write_info(self, adata, file_path, colnames):
         self._write_dispersion(adata, file_path, colnames)
         _write_obsm(adata, "X_dca_dropout", file_path, ("dropout.tsv", "pi.tsv"), colnames)
 

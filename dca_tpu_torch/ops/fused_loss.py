@@ -1,5 +1,5 @@
 """Fused NB and ZINB negative log-likelihood: CUDA kernels K1 (forward) and
-K2 (backward).
+K2 (backward), and their weighted variants K1w and K2w.
 
 ``nb_nll_fused(y, mu, theta)`` is the mean NB NLL with the semantics of
 ``losses.nb_nll(y, mu, theta, masking=True)``: NaN targets are evaluated at
@@ -17,15 +17,28 @@ operand is read in place by the kernels, and its gradient is K2's full
 (B, G) cotangent summed over the broadcast axes, as the JAX package's
 ``_reduce_to`` does.  y gets no gradient.
 
+``nb_nll_fused_w(y, mu, theta, w)`` and ``zinb_nll_fused_w(y, mu, theta,
+pi, w, ridge)`` are the per-row weighted means of
+``losses.*(sample_weights=w)``: w is a (B, 1) float32 column, a NaN target
+weighs 0, and the mean divides by the total weight, with a total of exactly
+0 taken as 1 (fractional totals divide as they are).  A row of weight 0
+adds exactly nothing to the value or the gradients: the data-parallel
+trainer pads its validation split with such rows.  They launch K1w and K2w,
+the same kernels templated on WITH_W; w and y get no gradient.
+
+Every entry point takes ``group``: under a ``torch.distributed`` process
+group the (sum, count) pair is summed over the ranks before the division,
+and the function returns this rank's share of the mean over the whole
+batch, its own sum over the global count.  The shares add up to the mean,
+and each rank's backward scales its own gradients by g over the global
+count.  A rank with an empty share joins the sum with (0, 0) and launches
+nothing.
+
 For a tensor on the CPU the same functions run their plain PyTorch
 versions, which repeat the kernels' arithmetic (``log1p``, the Stirling
 functions of ``ops/special.py``, exp/log for the zero probability, the same
 masks): that is what the CPU tests hold against the JAX package.  For a
 CUDA tensor they launch the kernels or raise.
-
-The weighted variants of the JAX package's kernels (its multi-process
-padding and streaming validation chunks) wait for the slices that port
-those paths (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -38,8 +51,10 @@ EPS = 1e-10
 THETA_CLIP = 1e6
 ZERO_THRESHOLD = 1e-8
 
-# Launches of each kernel, counted by its wrapper where it launches.
-launches = {"nb_nll_fwd": 0, "nb_nll_bwd": 0, "zinb_nll_fwd": 0, "zinb_nll_bwd": 0}
+# Launches of each kernel, counted by its wrapper where it launches; the
+# _w names count the weighted variants.
+launches = {f"{fam}_nll_{kind}{w}": 0 for fam in ("nb", "zinb")
+            for kind in ("fwd", "bwd") for w in ("", "_w")}
 
 # broadcast modes, as csrc/fused_nll.cu numbers them
 _FULL, _ROW, _COLUMN, _SCALAR = 0, 1, 2, 3
@@ -50,11 +65,13 @@ def reset_launches():
         launches[k] = 0
 
 
-def _check(y, mu, theta, pi=None):
+def _check(y, mu, theta, pi=None, w=None, allow_empty=False):
     """Raise on what the kernels do not take: anything but float32,
-    2-D, contiguous tensors on one CPU or CUDA device, y of mu's shape and
-    theta/pi of a shape ``_bcastable`` accepts."""
+    2-D, contiguous tensors on one CPU or CUDA device, y of mu's shape,
+    theta/pi of a shape ``_bcastable`` accepts, w a (B, 1) column, and
+    (unless ``allow_empty``) an empty input."""
     named = [("y", y), ("mu", mu), ("theta", theta)] + ([("pi", pi)] if pi is not None else [])
+    named += [("w", w)] if w is not None else []
     for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"fused NLL: {name} must be float32, got {t.dtype}")
@@ -69,11 +86,13 @@ def _check(y, mu, theta, pi=None):
         raise ValueError(f"fused NLL: y {tuple(y.shape)} and mu {tuple(mu.shape)} differ")
     for name, t in named[2:]:
         r, c = t.shape
+        if name == "w" and (r, c) != (B, 1):
+            raise ValueError(f"fused NLL: w must be (B, 1) = {(B, 1)}; got {tuple(t.shape)}")
         if r not in (B, 1) or c not in (G, 1):
             raise ValueError(
                 f"fused NLL: {name} must be (B, G), (1, G), (B, 1) or (1, 1) "
                 f"against mu {(B, G)}; got {tuple(t.shape)}")
-    if mu.numel() == 0:
+    if mu.numel() == 0 and not allow_empty:
         raise ValueError("fused NLL: empty input")
     if mu.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused NLL: unsupported device {mu.device}")
@@ -195,24 +214,51 @@ def grad_term_magnitudes(y, mu, th_raw, pi=None, ridge=0.0):
     return mag_mu, mag_th, mag_pi
 
 
-def _fwd_reference(y, mu, theta, pi, ridge):
-    """Plain version of K1 and its wrapper (NB when ``pi`` is None):
-    (loss, denom)."""
+def _fwd_sums_reference(y, mu, theta, pi, ridge, w=None):
+    """Plain version of K1 (NB when ``pi`` is None; K1w with ``w``): the
+    (sum, count) pair, a (2,) tensor."""
     res = _elem_terms(y, mu, theta, pi, ridge)
-    total = torch.sum(res)
+    if w is not None:
+        valid = ~torch.isnan(y)
+        return torch.stack([torch.sum(torch.where(valid, res * w, 0.0)),
+                            torch.sum(torch.where(valid, w, 0.0))])
     counted = torch.isnan(res) if pi is not None else torch.isnan(y)
-    denom = torch.clamp(torch.sum((~counted).to(torch.float32)), min=1.0)
-    return total / denom, denom
+    return torch.stack([torch.sum(res), torch.sum((~counted).to(torch.float32))])
 
 
-def _bwd_reference(y, mu, theta, pi, ridge, scale):
-    """Plain version of K2 and its wrapper: the gradients times ``scale``,
-    each summed to its operand's shape."""
-    dmu, dth, dpi = _elem_grads(y, mu, theta, pi, ridge)
-    dth = _reduce_to(dth * scale, theta.shape)
+def _denominator(count, weighted):
+    """The mean's denominator from the count: at least 1, or, weighted,
+    the total weight with only an exact 0 taken as 1 (the JAX wrapper's
+    ``where(total == 0, 1, total)``)."""
+    if weighted:
+        return torch.where(count == 0.0, torch.ones_like(count), count)
+    return torch.clamp(count, min=1.0)
+
+
+def _fwd_reference(y, mu, theta, pi, ridge, w=None):
+    """Plain version of K1 and its wrapper (NB when ``pi`` is None;
+    weighted with ``w``): (loss, denom)."""
+    sums = _fwd_sums_reference(y, mu, theta, pi, ridge, w)
+    denom = _denominator(sums[1], w is not None)
+    return sums[0] / denom, denom
+
+
+def _bwd_reference(y, mu, theta, pi, ridge, scale, w=None):
+    """Plain version of K2 and its wrapper: the gradients times ``scale``
+    (weighted: times ``w * scale``, and exactly 0 at NaN targets), each
+    summed to its operand's shape."""
+    grads = _elem_grads(y, mu, theta, pi, ridge)
+    if w is None:
+        grads = [None if d is None else d * scale for d in grads]
+    else:
+        sel = ~torch.isnan(y)
+        f = w * scale
+        grads = [None if d is None else torch.where(sel, d * f, 0.0) for d in grads]
+    dmu, dth, dpi = grads
+    dth = _reduce_to(dth, theta.shape)
     if pi is None:
-        return dmu * scale, dth
-    return dmu * scale, dth, _reduce_to(dpi * scale, pi.shape)
+        return dmu, dth
+    return dmu, dth, _reduce_to(dpi, pi.shape)
 
 
 def nb_nll_fwd_reference(y, mu, theta):
@@ -231,6 +277,22 @@ def zinb_nll_fwd_reference(y, mu, theta, pi, ridge=0.0):
     return _fwd_reference(y, mu, theta, pi, float(ridge))
 
 
+def nb_nll_fwd_w_reference(y, mu, theta, w):
+    """Plain version of the NB K1w and its wrapper: (loss, denom)."""
+    return _fwd_reference(y, mu, theta, None, 0.0, w)
+
+
+def nb_nll_bwd_w_reference(y, mu, theta, w, scale):
+    """Plain version of the NB K2w and its wrapper: (d mu, d theta), each
+    times ``w * scale``, 0 at NaN targets, and of its operand's shape."""
+    return _bwd_reference(y, mu, theta, None, 0.0, scale, w)
+
+
+def zinb_nll_fwd_w_reference(y, mu, theta, pi, w, ridge=0.0):
+    """Plain version of the ZINB K1w and its wrapper: (loss, denom)."""
+    return _fwd_reference(y, mu, theta, pi, float(ridge), w)
+
+
 def nb_nll_fused_reference(y, mu, theta):
     """The NB loss in plain PyTorch with the kernels' math; differentiable
     by autograd, which gives a gradient independent of the analytic one."""
@@ -240,6 +302,18 @@ def nb_nll_fused_reference(y, mu, theta):
 def zinb_nll_fused_reference(y, mu, theta, pi, ridge=0.0):
     """The ZINB loss in plain PyTorch with the kernels' math, for autograd."""
     return zinb_nll_fwd_reference(y, mu, theta, pi, ridge)[0]
+
+
+def nb_nll_fused_w_reference(y, mu, theta, w):
+    """The weighted NB loss in plain PyTorch with the kernels' math, for
+    autograd."""
+    return nb_nll_fwd_w_reference(y, mu, theta, w)[0]
+
+
+def zinb_nll_fused_w_reference(y, mu, theta, pi, w, ridge=0.0):
+    """The weighted ZINB loss in plain PyTorch with the kernels' math, for
+    autograd."""
+    return zinb_nll_fwd_w_reference(y, mu, theta, pi, w, ridge)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -253,11 +327,16 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def _fwd_kernel(y, mu, theta, pi, ridge):
-    """Launch K1 (NB when ``pi`` is None); see ``nb_nll_fwd_kernel``."""
+def _name(pi, w, kind):
+    return f"{'nb' if pi is None else 'zinb'}_nll_{kind}{'' if w is None else '_w'}"
+
+
+def _fwd_sums_kernel(y, mu, theta, pi, ridge, w=None):
+    """Launch K1 (NB when ``pi`` is None; K1w with ``w``); return the
+    (sum, count) pair, a (2,) device tensor.  See ``nb_nll_fwd_kernel``."""
     from ._build import library
 
-    _check(y, mu, theta, pi)
+    _check(y, mu, theta, pi, w)
     if not mu.is_cuda:
         raise ValueError("the K1 wrapper needs CUDA tensors")
     lib = library()
@@ -267,24 +346,32 @@ def _fwd_kernel(y, mu, theta, pi, ridge):
                                device=mu.device, dtype=torch.float32)
         err = lib.dca_nll_fwd(
             y.data_ptr(), mu.data_ptr(), theta.data_ptr(),
-            None if pi is None else pi.data_ptr(), partials.data_ptr(), n, G,
+            None if pi is None else pi.data_ptr(), None if w is None else w.data_ptr(),
+            partials.data_ptr(), n, G,
             _mode(theta, mu.shape), 0 if pi is None else _mode(pi, mu.shape),
-            float(ridge), pi is not None,
+            float(ridge), pi is not None, w is not None,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
-    name = "nb_nll_fwd" if pi is None else "zinb_nll_fwd"
-    _raise_on(lib, err, f"{name} (K1)")
+    name = _name(pi, w, "fwd")
+    _raise_on(lib, err, f"{name} (K1{'' if w is None else 'w'})")
     launches[name] += 1
-    sums = partials.sum(dim=1)
-    denom = torch.clamp(sums[1], min=1.0)
+    return partials.sum(dim=1)
+
+
+def _fwd_kernel(y, mu, theta, pi, ridge, w=None):
+    """Launch K1 (K1w with ``w``); return (loss, denom) as device
+    scalars."""
+    sums = _fwd_sums_kernel(y, mu, theta, pi, ridge, w)
+    denom = _denominator(sums[1], w is not None)
     return sums[0] / denom, denom
 
 
-def _bwd_kernel(y, mu, theta, pi, ridge, scale):
-    """Launch K2 (NB when ``pi`` is None); see ``nb_nll_bwd_kernel``."""
+def _bwd_kernel(y, mu, theta, pi, ridge, scale, w=None):
+    """Launch K2 (NB when ``pi`` is None; K2w with ``w``); see
+    ``nb_nll_bwd_kernel``."""
     from ._build import library
 
-    _check(y, mu, theta, pi)
+    _check(y, mu, theta, pi, w)
     if not mu.is_cuda:
         raise ValueError("the K2 wrapper needs CUDA tensors")
     if (scale.dtype != torch.float32 or scale.numel() != 1
@@ -297,15 +384,16 @@ def _bwd_kernel(y, mu, theta, pi, ridge, scale):
     with torch.cuda.device(mu.device):
         err = lib.dca_nll_bwd(
             y.data_ptr(), mu.data_ptr(), theta.data_ptr(),
-            None if pi is None else pi.data_ptr(), scale.data_ptr(),
+            None if pi is None else pi.data_ptr(), None if w is None else w.data_ptr(),
+            scale.data_ptr(),
             dmu.data_ptr(), dth.data_ptr(), None if dpi is None else dpi.data_ptr(),
             mu.numel(), mu.shape[1],
             _mode(theta, mu.shape), 0 if pi is None else _mode(pi, mu.shape),
-            float(ridge), pi is not None,
+            float(ridge), pi is not None, w is not None,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
-    name = "nb_nll_bwd" if pi is None else "zinb_nll_bwd"
-    _raise_on(lib, err, f"{name} (K2)")
+    name = _name(pi, w, "bwd")
+    _raise_on(lib, err, f"{name} (K2{'' if w is None else 'w'})")
     launches[name] += 1
     # the broadcast operands' cotangents, summed outside the kernel as the
     # JAX package's _reduce_to sums them outside its Pallas kernel
@@ -376,34 +464,75 @@ def zinb_nll_bwd_kernel(y, mu, theta, pi, ridge, scale):
 
 
 class _FusedNLL(torch.autograd.Function):
-    """K1 forward, K2 backward; NB when ``pi`` is None, else ZINB."""
+    """K1 forward, K2 backward; NB when ``pi`` is None, else ZINB; K1w and
+    K2w with a weight column ``w``.  Under ``group`` the (sum, count) pair
+    is summed over its ranks first (the module docstring)."""
 
     @staticmethod
-    def forward(ctx, y, mu, theta, pi, ridge):
-        _check(y, mu, theta, pi)
-        fwd = _fwd_kernel if mu.is_cuda else _fwd_reference
-        loss, denom = fwd(y, mu, theta, pi, ridge)
+    def forward(ctx, y, mu, theta, pi, w, ridge, group):
+        _check(y, mu, theta, pi, w, allow_empty=True)
+        if mu.numel() == 0:
+            # an empty share of the batch: (0, 0), nothing launched
+            sums = torch.zeros(2, device=mu.device)
+        else:
+            fwd = _fwd_sums_kernel if mu.is_cuda else _fwd_sums_reference
+            sums = fwd(y, mu, theta, pi, ridge, w)
+        total = sums
+        if group is not None:
+            total = sums.clone()
+            torch.distributed.all_reduce(total, group=group)
+        denom = _denominator(total[1], w is not None)
         ctx.ridge = ridge
-        ctx.save_for_backward(y, mu, theta, pi, denom)
-        return loss
+        ctx.save_for_backward(y, mu, theta, pi, w, denom)
+        return sums[0] / denom
 
     @staticmethod
     def backward(ctx, g):
-        y, mu, theta, pi, denom = ctx.saved_tensors
-        scale = (g / denom).to(torch.float32).reshape(1)
-        bwd = _bwd_kernel if mu.is_cuda else _bwd_reference
-        grads = bwd(y, mu, theta, pi, ctx.ridge, scale)
+        y, mu, theta, pi, w, denom = ctx.saved_tensors
+        if mu.numel() == 0:
+            grads = [torch.zeros_like(t) for t in (mu, theta, pi) if t is not None]
+        else:
+            scale = (g / denom).to(torch.float32).reshape(1)
+            bwd = _bwd_kernel if mu.is_cuda else _bwd_reference
+            grads = bwd(y, mu, theta, pi, ctx.ridge, scale, w)
         dpi = grads[2] if pi is not None else None
-        return None, grads[0], grads[1], dpi, None
+        return None, grads[0], grads[1], dpi, None, None, None
 
 
-def nb_nll_fused(y, mu, theta):
+def nb_nll_fused(y, mu, theta, group=None):
     """Mean NB NLL, kernels forward and back.  y, mu (B, G) float32; theta
-    (B, G), (1, G), (B, 1) or (1, 1)."""
-    return _FusedNLL.apply(y, mu, theta, None, 0.0)
+    (B, G), (1, G), (B, 1) or (1, 1).  ``group``: see the module
+    docstring."""
+    return _FusedNLL.apply(y, mu, theta, None, None, 0.0, group)
 
 
-def zinb_nll_fused(y, mu, theta, pi, ridge=0.0):
+def zinb_nll_fused(y, mu, theta, pi, ridge=0.0, group=None):
     """Mean ZINB NLL with ridge * pi^2, kernels forward and back.  y, mu
     (B, G) float32; theta and pi each (B, G), (1, G), (B, 1) or (1, 1)."""
-    return _FusedNLL.apply(y, mu, theta, pi, float(ridge))
+    return _FusedNLL.apply(y, mu, theta, pi, None, float(ridge), group)
+
+
+def nb_nll_fused_w(y, mu, theta, w, group=None):
+    """Weighted mean NB NLL, ``losses.nb_nll(..., sample_weights=w)``: K1w
+    forward, K2w back; w is the (B, 1) float32 column of row weights.
+
+    Replaces ``dca_tpu/ops/fused_loss.py::_fwd_kernel`` and ``::_bwd_kernel``
+    with ``with_w=True``, ``with_pi=False`` (``nb_nll_fused_w``).  The
+    same one-pass design as K1 and K2, templated on WITH_W: w is read in
+    place through the (B, 1) column index i / G, never expanded.  Bound
+    on the H100 by memory as K1 and K2 are: K1w reads y, mu, theta and the
+    column, 3 x 1,891,148 B = 5.67 MB at the validation block (137, 3451)
+    of a 2-rank run, at least 1.69 us at 3.35 TB/s; K2w as K2, 2.21 MB at
+    (32, 3451)."""
+    return _FusedNLL.apply(y, mu, theta, None, w, 0.0, group)
+
+
+def zinb_nll_fused_w(y, mu, theta, pi, w, ridge=0.0, group=None):
+    """Weighted mean ZINB NLL with ridge * pi^2,
+    ``losses.zinb_nll(..., sample_weights=w)``: K1w forward, K2w back.
+
+    Replaces the JAX package's ``zinb_nll_fused_w`` (its two Pallas
+    kernels with ``with_w=True``, ``with_pi=True``).  Bound by memory: K1w
+    reads 4 (B, G) arrays, 7.56 MB at (137, 3451), at least 2.26 us at
+    3.35 TB/s; K2w as K2, 3.09 MB at (32, 3451)."""
+    return _FusedNLL.apply(y, mu, theta, pi, w, float(ridge), group)

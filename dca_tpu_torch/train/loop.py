@@ -20,9 +20,23 @@ in-memory predict, or, for ``--outputformat h5ad`` and outputs above
 DCA_TPU_HOST_DENSE_BYTES (default 2 GB), streams them block by block
 (``write_streaming``).
 
+With ``devices`` the fit is data parallel over the ranks of a
+``torch.distributed`` process group, one process per device
+(``parallel/``): every rank stages the whole train split, draws the same
+permutation and computes its block of each global batch, the trailing one
+included; the batch statistics, the loss's (sum, count) pair and the
+gradients are summed over the ranks, so the fit is the single-device fit
+up to the order of the sums.  The validation split is cut into one block
+per rank; where its length does not divide the ranks it is padded with
+copies of its row 0 at sample weight 0 (the JAX package's multi-process
+padding), and the blocks are evaluated through the weighted loss kernels.
+The per-step and validation losses are summed over the ranks once per
+epoch, so every rank sees the same history and takes the same callback
+decisions.
+
 The streaming trainer, the whole-fit-as-one-program path,
-checkpoint/resume, TensorBoard, saved weights and device meshes wait for
-later slices (ROADMAP.md, Queue 1).
+checkpoint/resume, TensorBoard, saved weights and gene-dim model
+parallelism wait for later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -33,9 +47,14 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.io import densify, scale_stats, size_factors
 from ..device import resolve_device
+from ..parallel.mesh import resolve_mesh
+from ..parallel.multihost import initialize, is_primary
+from ..parallel.step import (batch_shard, make_sharded_train_step, place_train_state,
+                             shard_train_data)
 from .optim import get_optimizer
 
 
@@ -100,6 +119,14 @@ class _FitCallbacks:
         return stop
 
 
+def _pad_rows(arr, n_pad):
+    """Append ``n_pad`` copies of row 0 (the padding rows carry sample
+    weight 0 through the loss)."""
+    if n_pad == 0:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[:1], n_pad, axis=0)], axis=0)
+
+
 def train(
     adata,
     network,
@@ -119,9 +146,17 @@ def train(
     verbose=True,
     threads=None,
     seed=42,
+    devices=None,
+    model_parallel=1,
 ):
     """Fit ``network`` (built) on ``adata``, on the network's device.
-    Returns a History."""
+    Returns a History.
+
+    ``devices``/``model_parallel`` as the JAX package's: None for one
+    device; ``"all"``, an int or a list for data parallelism over the
+    ranks of the initialized process group (``parallel.mesh.resolve_mesh``;
+    every rank calls ``train`` with the same data and seed).
+    ``model_parallel > 1`` raises (ROADMAP.md)."""
     assert network.model is not None, "network.build() must be called before train()"
     if save_weights:
         raise _not_ported("save_weights (weights.hdf5)")
@@ -132,9 +167,11 @@ def train(
     if output_dir is not None:
         os.makedirs(output_dir, exist_ok=True)
 
+    group = resolve_mesh(devices, model_parallel)
     opt = get_optimizer(optimizer, clipvalue=clip_grad)
     lr = float(learning_rate) if learning_rate is not None else opt.default_lr
     device = network.device
+    verbose = verbose and is_primary()
 
     # ----- host arrays -----
     X = densify(adata.X)
@@ -163,20 +200,30 @@ def train(
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
     X_tr, T_tr, sf_tr = dev(X[:split_at]), dev(target[:split_at]), dev(sf[:split_at])
+    val_shard = w_val = None
     if has_val:
-        X_val, T_val, sf_val = dev(X[split_at:]), dev(target[split_at:]), dev(sf[split_at:])
+        X_val, T_val, sf_val = X[split_at:], target[split_at:], sf[split_at:]
+        if group is not None:
+            # one block per rank, padded to a multiple of the ranks with
+            # copies of row 0 at weight 0
+            pad = (-n_val) % dist.get_world_size(group)
+            w = np.ones((n_val + pad,), np.float32)
+            w[n_val:] = 0.0
+            X_val, T_val, sf_val, w = shard_train_data(
+                group, *(_pad_rows(a, pad) for a in (X_val, T_val, sf_val)), w)
+            w_val = dev(w) if pad else None
+            val_shard = batch_shard(group, n_val + pad)
+        X_val, T_val, sf_val = dev(X_val), dev(T_val), dev(sf_val)
 
+    if group is not None:
+        place_train_state(network, group)
     params = list(network.model.parameters())
     opt_state = opt.init(params)
     generator = torch.Generator(device=device).manual_seed(seed)
+    train_step = make_sharded_train_step(network, opt, group)
 
     def step(idx, lr_now):
-        xb, tb, sfb = X_tr[idx], T_tr[idx], sf_tr[idx]
-        loss, new_state = network.loss_fn(xb, sfb, tb, True, generator)
-        grads = torch.autograd.grad(loss, params)
-        opt.update(grads, opt_state, params, lr_now)
-        network.model.load_bn_state(new_state)
-        return loss.detach()
+        return train_step(X_tr, T_tr, sf_tr, idx, opt_state, lr_now, generator)
 
     rng_np = np.random.RandomState(seed)
     hist = History()
@@ -195,8 +242,13 @@ def train(
         with torch.no_grad():
             sums = [full_losses.sum(), rem_loss]
             if has_val:
-                sums.append(network.loss_fn(X_val, sf_val, T_val, False)[0])
-            sums = torch.stack(sums).tolist()  # the epoch's one read-back
+                sums.append(network.loss_fn(X_val, sf_val, T_val, False, sample_weights=w_val,
+                                            shard=val_shard)[0])
+            sums = torch.stack(sums)
+            if group is not None:
+                # each rank's losses are its shares: their sums are the means
+                dist.all_reduce(sums, group=group)
+            sums = sums.tolist()  # the epoch's one read-back
         train_loss = (sums[0] * bs + sums[1] * rem) / max(n_train, 1)
         hist.append("loss", train_loss)
         hist.append("lr", cbs.lr)
@@ -229,9 +281,14 @@ def train_with_args(args):
                        ("saveweights", "--saveweights")):
         if getattr(args, flag):
             raise _not_ported(what)
-    if args.devices is not None or args.modelparallel != 1:
-        raise _not_ported("training over several devices (--devices, --modelparallel)")
     ae_cls = get_ae_type(args.type)
+    devices = args.devices
+    if devices is not None:
+        # torchrun's ranks join their process group before the network is
+        # built on each rank's device
+        initialize(device=args.device)
+        if devices != "all":
+            devices = int(devices)
     device = resolve_device(args.device)
 
     random.seed(42)
@@ -302,6 +359,8 @@ def train_with_args(args):
         optimizer=args.optimizer,
         clip_grad=args.gradclip,
         threads=args.threads,
+        devices=devices,
+        model_parallel=args.modelparallel,
     )
 
     if genelist:

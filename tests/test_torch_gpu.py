@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: NB
-and ZINB, with full and broadcast theta/pi, and the fused dense block K4.
+and ZINB, with full and broadcast theta/pi, their weighted variants
+K1w/K2w, and the fused dense block K4.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs, check_dense_case
+from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs,
+                        check_dense_case, check_weighted_case)
 from dca_tpu_torch.ops import fused_dense, fused_loss
 
 
@@ -114,6 +116,37 @@ def test_zinb_and_broadcast_kernels_match_plain_version_on_card(cuda, shape_inde
     again = (fused_loss.nb_nll_fused(y, mu, th) if pi is None
              else fused_loss.zinb_nll_fused(y, mu, th, pi, ridge))
     assert torch.equal(again, loss)  # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["padding", "fractional", "zero"])
+@pytest.mark.parametrize("shape,nan_frac,n_clipped,th_kind,pi_kind", [
+    ((7, 50), 0.1, 3, "full", None), ((7, 50), 0.1, 3, "full", "full"),
+    ((7, 50), 0.1, 3, "row", "col"), ((137, 3451), 0.0, 0, "full", "full")])
+def test_weighted_kernels_match_plain_version_on_card(cuda, shape, nan_frac, n_clipped, th_kind,
+                                                      pi_kind, kind):
+    """The checks of chip_smoke.py's phase 1 for K1w/K2w: the ragged case
+    with NaN targets and clipped theta, and the validation block of one of
+    two ranks; zero-weight rows and NaN targets get gradients of exactly
+    0, all-zero weights a loss of 0 over a denominator of 1."""
+    B, G = shape
+    shapes = {"full": (B, G), "row": (1, G), "col": (B, 1), None: None}
+    fam = "nb" if pi_kind is None else "zinb"
+    before = dict(fused_loss.launches)
+    check_weighted_case(cuda, B, G, nan_frac, n_clipped, shapes[th_kind], shapes[pi_kind],
+                        0.1, kind, seed=77)
+    assert fused_loss.launches[f"{fam}_nll_fwd_w"] > before[f"{fam}_nll_fwd_w"]
+    assert fused_loss.launches[f"{fam}_nll_bwd_w"] == before[f"{fam}_nll_bwd_w"] + 1
+    assert fused_loss.launches[f"{fam}_nll_fwd"] == before[f"{fam}_nll_fwd"]
+
+
+@pytest.mark.gpu
+def test_weighted_kernels_raise_on_what_they_do_not_take(cuda):
+    y, mu, th = (_t(a).to(cuda) for a in _data(8, 16, seed=13))
+    with pytest.raises(ValueError, match="w must be"):
+        fused_loss.nb_nll_fused_w(y, mu, th, torch.ones((8,), device=cuda))
+    with pytest.raises(ValueError):
+        fused_loss.nb_nll_fused_w(y, mu, th, torch.ones((8, 1)))  # on the CPU
 
 
 @pytest.mark.gpu

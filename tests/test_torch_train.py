@@ -155,7 +155,8 @@ def test_cli_zinb_on_cpu(input_tsv, tmp_path, ae_type):
 
 
 @pytest.mark.parametrize("flags", [["--activation", "PReLU"], ["--hyper"],
-                                   ["--saveweights"], ["--tensorboard"]])
+                                   ["--saveweights"], ["--tensorboard"],
+                                   ["--modelparallel", "2"]])
 def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
     with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
         main([input_tsv, str(tmp_path / "out"), "-e", "1", "--device", "cpu", *flags])
@@ -184,7 +185,7 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, input_t
 
 def _port_files():
     pkg = os.path.join(REPO, "dca_tpu_torch")
-    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_profile.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_profile.py", "chip_dp.py")]
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
