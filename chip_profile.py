@@ -11,10 +11,11 @@ epoch of the main path, and the loss kernels' own device time.
    share, the kernel launches per step, and the kernels that take the most
    device time.  The profiler's own cost lengthens the wall time.  The
    whole table goes to ``chiprun_out/profile.txt``.
-2. K1 and K2 alone at the training step's (32, 3451), NB and ZINB: the
-   kernels' mean device time from torch.profiler's trace, and K1 without
-   its wrapper's sum over the per-block partials, timed as
-   ``chip_smoke.py`` times the wrappers.
+2. K1, K1w and K2 alone at the training step's (32, 3451), NB and ZINB:
+   the kernels' mean device time from torch.profiler's trace, and the
+   device operations one loss forward through ``_FusedNLL`` makes without
+   a process group (1: K1 writes the loss itself).  Then K4 at the encoder
+   shape under every split of its split-K tiling, against torch.addmm.
 3. The denoise forward: ``forward`` of ``ae_type`` over the 2730 x 3451
    matrix in one block, with the fused dense kernel K4 off and on
    (DCA_TPU_FUSED_DENSE), after a warm-up, under torch.profiler: wall
@@ -94,33 +95,82 @@ def profile_epoch(ae_type):
         print(f"  {e.device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
+def _device_ops(fn, n=N_PROFILED):
+    """Device operations (kernels and copies) per call of ``fn`` and their
+    names, from torch.profiler's trace of ``n`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    items = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in items) / n, sorted({e.key[:60] for e in items})
+
+
 def profile_kernels():
+    """K1 and K2 at (32, 3451): each kernel's own device time, and the
+    device operations of one loss forward through ``_FusedNLL`` without a
+    group (the single-device training step's path), NB and ZINB, unweighted
+    and weighted."""
     import torch
 
-    from dca_tpu_torch.ops import _build
     from dca_tpu_torch.ops import fused_loss as fl
 
     dev = torch.device("cuda")
-    lib = _build.library()
     for fam, seed in (("nb", 11), ("zinb", 13)):
         y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(dev)
                          for a in _loss_inputs(32, 3451, seed,
                                                pi_shape=(32, 3451) if fam == "zinb" else None))
-        n = y.numel()
-        scale = torch.full((1,), 1.0 / n, device=dev)
-        # the kernels are templates: their names hold "nll_fwd_kernel<true>"
-        # for ZINB, "<false>" for NB
+        w = torch.ones((32, 1), device=dev)
+        scale = torch.full((1,), 1.0 / y.numel(), device=dev)
+        # the kernels are templates: nll_fwd_kernel<WITH_PI, WITH_W>
         tag = "true" if pi is not None else "false"
-        k1 = _profiled_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1), f"nll_fwd_kernel<{tag}>")
+        k1 = _profiled_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1),
+                          f"nll_fwd_kernel<{tag}, false>")
+        k1w = _profiled_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1, w),
+                           f"nll_fwd_kernel<{tag}, true>")
         k2 = _profiled_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, scale),
-                          f"nll_bwd_kernel<{tag}>")
-        partials = torch.empty((2, lib.dca_nll_fwd_grid(n)), device=dev)
-        k1_alone = _device_ms(lambda: lib.dca_nll_fwd(
-            y.data_ptr(), mu.data_ptr(), th.data_ptr(), None if pi is None else pi.data_ptr(),
-            partials.data_ptr(), n, 3451, 0, 0, 0.1, pi is not None,
-            torch.cuda.current_stream().cuda_stream))
-        print(f"{fam} (32, 3451) by torch.profiler: K1 kernel {k1} ms, K2 kernel {k2} ms; "
-              f"K1 without its partial sum, graph-timed: {k1_alone} ms")
+                          f"nll_bwd_kernel<{tag}, false>")
+        with torch.no_grad():
+            ops, names = _device_ops(lambda: fl._FusedNLL.apply(y, mu, th, pi, None, 0.1, None))
+            ops_w, names_w = _device_ops(lambda: fl._FusedNLL.apply(y, mu, th, pi, w, 0.1, None))
+        print(f"{fam} (32, 3451) by torch.profiler: K1 kernel {k1} ms, K1w kernel {k1w} ms, "
+              f"K2 kernel {k2} ms; device operations per loss forward without a group: "
+              f"{ops:g} ({', '.join(names)}), weighted {ops_w:g} ({', '.join(names_w)})")
+
+
+def profile_dense_plans():
+    """K4 at the encoder shape (2730, 3451) -> 64, linear, under every split
+    S = 1..8 of the split-K tiling, beside the plan's own choice and
+    torch.addmm, each graph-timed (``chip_smoke._device_ms``), in turns;
+    with the card's co-resident clusters of each size, which the plan
+    reads."""
+    import torch
+
+    from chip_smoke import dense_inputs
+    from dca_tpu_torch.ops import fused_dense as fd
+
+    dev = torch.device("cuda")
+    B, K, N = 2730, 3451, 64
+    x, w, b = (torch.from_numpy(a).to(dev) for a in dense_inputs(B, K, N, 7, bn=False)[:3])
+    chosen = fd.device_plan(B, K, N, dev)
+    print(f"co-resident clusters of S = 1..8 split-K blocks: {fd.max_clusters(dev)}")
+    times = {}
+    for rnd in range(2):
+        for s in range(1, fd.MAX_CLUSTER + 1):
+            p = chosen._replace(splits=s, cluster=s)
+            ms = _device_ms(lambda: fd._kernel(x, w, b, None, "linear", None, p))
+            times.setdefault(s, []).append(ms)
+        times.setdefault("addmm", []).append(_device_ms(lambda: torch.addmm(b, x, w)))
+    tiles = len(fd.plan_blocks(chosen._replace(splits=1, cluster=1), B, K, N))
+    for key, v in times.items():
+        what = "torch.addmm" if key == "addmm" else f"S = {key} ({tiles * key} blocks)"
+        mark = " <- the plan" if key == chosen.splits else ""
+        print(f"K4 encoder ({B}, {K}) -> {N}, linear, {what}: "
+              f"{' / '.join(f'{t * 1e3:.2f}' for t in v)} us{mark}")
 
 
 def profile_forward(ae_type):
@@ -178,6 +228,7 @@ def main():
     ae_type = sys.argv[1] if len(sys.argv) > 1 else "zinb-conddisp"
     profile_epoch(ae_type)
     profile_kernels()
+    profile_dense_plans()
     profile_forward(ae_type)
     return 0
 

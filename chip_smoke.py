@@ -31,11 +31,16 @@ Phases, each of which must pass:
    element's gradient tolerance times its weight, and gradients of
    exactly 0 on zero-weight rows and at NaN targets.
    K4 (the fused dense block) at the shapes of the denoise path
-   (``DENSE_CASES``): the encoder (2730, 3451) -> 64 with BN and relu, the
-   heads (2730, 64) -> 3451 with the mean, disp and sigmoid epilogues, the
-   decoder layer 32 -> 64 at 2730 and 64 rows, a ragged (33, 200) -> 70
-   with BN, size factors and all 8 epilogues, (16, 1500) -> 96, and the
-   encoder, heads and ragged case again under DCA_TPU_MATMUL=bf16.
+   (``DENSE_CASES``), through both tilings of its plan
+   (``fused_dense.plan``: whole K in shared memory for K <= 64, split-K
+   across a cluster above): the encoder (2730, 3451) -> 64 with BN and
+   relu (split-K), the heads (2730, 64) -> 3451 with the mean, disp and
+   sigmoid epilogues (whole K), the decoder layer 32 -> 64 at 2730 and 64
+   rows, a ragged (33, 200) -> 70 with BN, size factors and all 8
+   epilogues, (16, 1500) -> 96, a ragged last slice (33, 1000) -> 70, K =
+   65 in 3 one-step slices, K = 20 with all 8 epilogues, a head of N = 200,
+   and the encoder, heads, ragged case and small head again under
+   DCA_TPU_MATMUL=bf16.
    Tolerances: the ``linear`` output against the plain version within
    2 K 2^-24 (|x| @ |W| + |b|) elementwise, times |s| with BN, plus 4
    ulps (two float32 sums of K products in different orders); each
@@ -43,15 +48,19 @@ Phases, each of which must pass:
    kernel's own linear output (times sf); the pre-activation the same bits
    for every epilogue (relu, elu and linear outputs equal to the linear
    output where it is positive); a NaN in a row of x gives a NaN row
-   under every epilogue and leaves the other rows' bits as they were.
+   under every epilogue and leaves the other rows' bits as they were; two
+   runs give the same bits.  K1 and K1w also give (sum, count, loss,
+   denom) in one launch: the loss and denominator come from the kernel.
 2. Kernel timings at (32, 3451), NB and ZINB: median device time of 50
    launches after a warm-up, each launch a CUDA graph replay between CUDA
    events (see ``_device_ms``); beside them the plain version's time and
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s float32).  K1 also at the validation split (273, 3451).
    K1w at (137, 3451) and K2w at (32, 3451), NB and ZINB, likewise.
-   K4 at the encoder and head shapes, with its bound, the plain version's
-   time and, for the ``linear`` epilogue, ``torch.addmm``'s.
+   K4 at the encoder and head shapes, with its plan, its bound, the plain
+   version's time and, for the ``linear`` epilogue, ``torch.addmm``'s,
+   timed in turns with K4 on the same inputs (x warm in the 50 MB L2 for
+   both).
 3. Zoo: every architecture of ``AE_types``, and zinb-elempi with
    sharedpi, trains 2 epochs at 200 cells x 60 genes, (16, 8, 16), on the
    CPU and on the card from the same weights; the losses must agree epoch
@@ -282,7 +291,8 @@ def phase_build():
     print(f"phase 1: kernels built and loaded in {secs:.2f} s: {lib_path}")
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
         for line in f:
-            if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+            if ("ptxas info" in line and ("registers" in line or "Compiling" in line)
+                    or "spill" in line):
                 print("  " + line.strip())
 
 
@@ -501,14 +511,22 @@ def phase_weighted_compare(dev):
 
 
 ALL_ACTS = ("mean", "disp", "sigmoid", "relu", "selu", "elu", "tanh", "linear")
-# name, (rows, K, N), BN, epilogues, size factors, checked again in bf16 mode
+# name, (rows, K, N), BN, epilogues, size factors, checked again in bf16
+# mode; the plan (fused_dense.plan) takes K <= 64 through the whole-K tiling
+# and longer K through split-K
 DENSE_CASES = [
-    ("encoder", (2730, 3451, 64), True, ("relu",), False, True),
-    ("heads", (2730, 64, 3451), False, ("mean", "disp", "sigmoid"), False, True),
+    ("encoder", (2730, 3451, 64), True, ("relu",), False, True),  # split-K, 6 splits
+    ("heads", (2730, 64, 3451), False, ("mean", "disp", "sigmoid"), False, True),  # whole K
     ("decoder", (2730, 32, 64), True, ("relu",), False, False),
     ("decoder rows 64", (64, 32, 64), True, ("relu",), False, False),
-    ("ragged", (33, 200, 70), True, ALL_ACTS, True, True),
+    ("ragged", (33, 200, 70), True, ALL_ACTS, True, True),  # 7 splits of one step
     ("long K", (16, 1500, 96), True, ("relu",), False, False),
+    # the last step of the last slice 8 deep (1000 = 31 x 32 + 8), 8 splits
+    ("ragged last slice", (33, 1000, 70), True, ("linear",), True, False),
+    # 3 steps in 3 splits, the last 1 deep; and K shorter than one step
+    ("K 65", (100, 65, 64), False, ("relu",), False, False),
+    ("K 20", (40, 20, 300), True, ALL_ACTS, True, False),
+    ("head N 200", (300, 64, 200), False, ("mean",), True, True),  # N not a multiple of 128
 ]
 
 
@@ -572,6 +590,8 @@ def check_dense_case(dev, name, shape, bn, acts, with_sf, seed, bf16=False):
         tol = tol + _ulps(want_lin)
         err = (lin - want_lin).abs()
         _check(bool(torch.isfinite(lin).all()), f"{what}: linear output not finite")
+        _check(torch.equal(fd.fused_dense_block(x, w, b, bn=stats, activation="linear"), lin),
+               f"{what}: two runs gave other bits")
         _check(bool((err <= tol).all()),
                f"{what}: linear output off by {err.max().item():.3e}, "
                f"{(err / tol).max().item():.3f} of its tolerance")
@@ -595,24 +615,35 @@ def check_dense_case(dev, name, shape, bn, acts, with_sf, seed, bf16=False):
                        f"{what} {act}: pre-activation bits differ from the linear epilogue's")
             full = fd.fused_dense_reference(x, w, b, bn=stats, activation=act, size_factors=sf)
             max_err = max(max_err, (got - full).abs()[~nan].max().item())
-        if name == "ragged":
-            # a NaN in one row of x: that row NaN under every epilogue, the
-            # other rows' bits unchanged
-            xn = x.clone()
-            xn[3, 10] = float("nan")
-            for act in acts:
-                clean = fd.fused_dense_block(x, w, b, bn=stats, activation=act, size_factors=sf)
-                got = fd.fused_dense_block(xn, w, b, bn=stats, activation=act, size_factors=sf)
-                _check(bool(torch.isnan(got[3]).all()), f"{what} {act}: NaN row not NaN")
-                rest = torch.arange(B, device=dev) != 3
-                _check(torch.equal(got[rest], clean[rest]),
-                       f"{what} {act}: a NaN in row 3 changed other rows")
+        # a NaN in one row of x: that row NaN under every epilogue, the other
+        # rows' bits unchanged
+        xn = x.clone()
+        xn[3, 10] = float("nan")
+        for act in acts:
+            clean = fd.fused_dense_block(x, w, b, bn=stats, activation=act, size_factors=sf)
+            got = fd.fused_dense_block(xn, w, b, bn=stats, activation=act, size_factors=sf)
+            _check(bool(torch.isnan(got[3]).all()), f"{what} {act}: NaN row not NaN")
+            rest = torch.arange(B, device=dev) != 3
+            _check(torch.equal(got[rest], clean[rest]),
+                   f"{what} {act}: a NaN in row 3 changed other rows")
     finally:
         if prev is None:
             os.environ.pop("DCA_TPU_MATMUL", None)
         else:
             os.environ["DCA_TPU_MATMUL"] = prev
     return max_err, worst
+
+
+def _plan_text(B, K, N):
+    """K4's plan on the card at (B, K) @ (K, N), in words."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_dense as fd
+
+    p = fd.device_plan(B, K, N, torch.device("cuda"))
+    if p.kind == fd.WIDE:
+        return f"whole K in shared memory, {p.bm} x {p.bn} tiles"
+    return f"split-K, {p.bm} x {p.bn} tiles, {p.splits} splits a cluster"
 
 
 def phase_dense_compare(dev):
@@ -625,8 +656,9 @@ def phase_dense_compare(dev):
             max_err, worst = max(max_err, e), max(worst, r)
             n += 1
             print(f"phase 1: K4 {name} {shape}{' bf16' if bf16 else ''}, BN {bn}, sf "
-                  f"{with_sf}, {', '.join(acts)}: agrees (max abs error {e:.3e}, linear "
-                  f"{r:.3f} of its tolerance)")
+                  f"{with_sf}, {', '.join(acts)}, {_plan_text(*shape)}: agrees (max abs "
+                  f"error {e:.3e}, linear {r:.3f} of its tolerance; the same bits twice, for "
+                  "every epilogue, and beside a NaN row)")
     print(f"phase 1: K4: {n} cases agree; worst linear error {worst:.3f} of its tolerance, "
           f"max abs error against the whole plain version {max_err:.3e}")
     return max_err
@@ -643,28 +675,49 @@ K4_TIMED = [  # name, (rows, K, N), BN, epilogue: the denoise path's layers
 
 
 def dense_timings(dev):
-    """K4, its plain version and (linear only) torch.addmm at the denoise
+    """K4, its plain version and (linear, no BN) torch.addmm at the denoise
     path's shapes; {(name, activation): (ms, plain ms, bound ms, bound by,
-    library ms or None)}."""
+    library ms or None, plan)}.  K4 and addmm are timed in turns, K4,
+    addmm, addmm, K4, each a median of graph replays, and each time is the
+    mean of its two medians.  The replays run back to back on the same
+    inputs, so x (37.7 MB at the encoder, the heads' output as large) stays
+    warm in the 50 MB L2 for K4 and addmm alike; the denoise path meets x
+    fresh from its upload."""
     import torch
 
     from dca_tpu_torch.ops import fused_dense as fd
 
+    print("phase 2: K4 and addmm are graph replays on the same inputs: x stays warm in the "
+          "50 MB L2 for both")
     out = {}
     for i, (name, (B, K, N), bn, act) in enumerate(K4_TIMED):
         x, w, b, stats, _ = _on(dev, dense_inputs(B, K, N, 700 + i, bn, nonneg=name == "head"))
-        ms = _device_ms(lambda: fd._kernel(x, w, b, stats, act, None))
+
+        def kernel():
+            return fd._kernel(x, w, b, stats, act, None)
+
         plain_ms = _device_ms(lambda: fd.fused_dense_reference(x, w, b, bn=stats,
                                                                activation=act))
-        lib_ms = (_device_ms(lambda: torch.addmm(b, x, w)) if act == "linear" and not bn
-                  else None)
+        lib_ms = None
+        if act == "linear" and not bn:
+            k1 = _device_ms(kernel)
+            l1 = _device_ms(lambda: torch.addmm(b, x, w))
+            l2 = _device_ms(lambda: torch.addmm(b, x, w))
+            k2 = _device_ms(kernel)
+            ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+            turns = (f" (in turns: K4 {k1 * 1e3:.2f}, addmm {l1 * 1e3:.2f}, "
+                     f"{l2 * 1e3:.2f}, K4 {k2 * 1e3:.2f} us)")
+        else:
+            ms = _device_ms(kernel)
+            turns = ""
         bound, by, n_bytes, n_ops = k4_bound(B, K, N, bn, act)
-        out[(name, act)] = (ms, plain_ms, bound, by, lib_ms)
+        plan = fd.device_plan(B, K, N, dev)
+        out[(name, act)] = (ms, plain_ms, bound, by, lib_ms, plan)
         lib = "no single PyTorch call" if lib_ms is None else f"addmm {lib_ms * 1e3:.2f} us"
-        print(f"phase 2: K4 {name} ({B}, {K}) x ({K}, {N}), BN {bn}, {act}: "
-              f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, {lib}; bound "
-              f"{bound * 1e3:.2f} us by {by}: {n_bytes / 1e6:.1f} MB, "
-              f"{n_ops / 1e9:.3f} GFLOP)")
+        print(f"phase 2: K4 {name} ({B}, {K}) x ({K}, {N}), BN {bn}, {act}, "
+              f"{_plan_text(B, K, N)}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
+              f"{lib}; bound {bound * 1e3:.2f} us by {by}: {n_bytes / 1e6:.1f} MB, "
+              f"{n_ops / 1e9:.3f} GFLOP){turns}")
     return out
 
 
@@ -692,14 +745,16 @@ def phase_timings(dev):
         k2_plain_ms = _device_ms(lambda: fl._bwd_reference(y, mu, th, pi, 0.1, scale))
         # K1 on the validation split, once per epoch on the main path
         k1_val_ms = _device_ms(lambda: fl._fwd_kernel(yv, muv, thv, piv, 0.1))
-        # each input read once, each output written once: the loss and its
-        # count; K2 also reads the scale and writes 2 or 3 (B, G) gradients
-        k1_bound, k1_by = _bound_ms(n_in * 4 * n + 2 * 4, _k1_ops(y, mu, th, with_pi))
+        # each input read once, each output written once: K1's sum, count,
+        # loss and denominator; K2 also reads the scale and writes 2 or 3
+        # (B, G) gradients
+        k1_bound, k1_by = _bound_ms(n_in * 4 * n + 4 * 4, _k1_ops(y, mu, th, with_pi))
         k2_bound, k2_by = _bound_ms(n_in * 4 * n + 4 + (n_in - 1) * 4 * n,
                                     _k2_ops(y, mu, th, with_pi))
-        k1_val_bound, _ = _bound_ms(n_in * 4 * yv.numel() + 2 * 4,
+        k1_val_bound, _ = _bound_ms(n_in * 4 * yv.numel() + 4 * 4,
                                     _k1_ops(yv, muv, thv, with_pi))
-        print(f"phase 2: {fam} K1 {k1_ms * 1e3:.2f} us with its partial sum (plain "
+        print(f"phase 2: {fam} K1 {k1_ms * 1e3:.2f} us, one launch, loss and denominator "
+              f"included (plain "
               f"{k1_plain_ms * 1e3:.2f} us, bound {k1_bound * 1e3:.2f} us by {k1_by}); "
               f"K2 {k2_ms * 1e3:.2f} us (plain {k2_plain_ms * 1e3:.2f} us, bound "
               f"{k2_bound * 1e3:.2f} us by {k2_by}); K1 at (273, {G}) "
@@ -734,9 +789,10 @@ def weighted_timings(dev):
             if kind == "fwd":
                 ms = _device_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1, w))
                 plain_ms = _device_ms(lambda: fl._fwd_reference(y, mu, th, pi, 0.1, w))
-                # the inputs and the weight column read once, the loss and
-                # its total weight written; one more multiply per element
-                bound, by = _bound_ms(n_in * 4 * n + 4 * B + 2 * 4,
+                # the inputs and the weight column read once, the sum, the
+                # total weight, the loss and the denominator written; one
+                # more multiply per element
+                bound, by = _bound_ms(n_in * 4 * n + 4 * B + 4 * 4,
                                       _k1_ops(y, mu, th, with_pi) + n)
             else:
                 scale = torch.full((1,), 1.0 / n, device=dev)
@@ -957,16 +1013,19 @@ def phase_denoise(zinb_net, nb_net):
             fd.reset_launches()
             outs[mode] = zinb_net.forward(x, sf)  # the main path: counted
             res[f"forward_launches_{mode}"] = fd.launches["fused_dense"]
+            res["forward_wide"], res["forward_splitk"] = fd.launches["wide"], fd.launches["splitk"]
             secs = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 zinb_net.forward(x, sf)
                 secs.append(time.perf_counter() - t0)
             res[f"forward_s_{mode}"] = float(np.median(secs))
-        _check(res["forward_launches_0"] == 0 and res["forward_launches_1"] == 4,
+        _check(res["forward_launches_0"] == 0 and res["forward_launches_1"] == 4
+               and (res["forward_splitk"], res["forward_wide"]) == (1, 3),
                f"forward: K4 launches {res['forward_launches_0']} with the switch off "
-               f"and {res['forward_launches_1']} on, expected 0 and 4 (encoder, mean, "
-               "dispersion and pi heads)")
+               f"and {res['forward_launches_1']} on ({res['forward_splitk']} split-K, "
+               f"{res['forward_wide']} whole-K), expected 0 and 4 (the encoder split-K; "
+               "the mean, dispersion and pi heads whole-K)")
         tol = _forward_tolerance(zinb_net, x, sf)
         worst = 0.0
         for key, t in tol.items():
@@ -993,9 +1052,12 @@ def phase_denoise(zinb_net, nb_net):
         zinb_net.write_streaming(ad, out_dir, mode="full", return_info=True, chunk_rows=1024)
         res["stream_s"] = time.perf_counter() - t0
         res["stream_launches"] = fd.launches["fused_dense"]
-        _check(res["stream_launches"] == 12,
-               f"write_streaming: K4 launches {res['stream_launches']}, expected 12 "
-               "(3 blocks x encoder, mean, dispersion, pi)")
+        res["stream_wide"], res["stream_splitk"] = fd.launches["wide"], fd.launches["splitk"]
+        _check(res["stream_launches"] == 12
+               and (res["stream_splitk"], res["stream_wide"]) == (3, 9),
+               f"write_streaming: K4 launches {res['stream_launches']} "
+               f"({res['stream_splitk']} split-K), expected 12 (3 blocks x encoder, mean, "
+               "dispersion, pi; 3 split-K)")
         files = [("mean.tsv", 0, (n_genes, n_cells)), ("dispersion.tsv", None, (n_genes, n_cells)),
                  ("dropout.tsv", None, (n_genes, n_cells)), ("latent.tsv", None, (n_cells, 32))]
         _check(sorted(os.listdir(out_dir)) == sorted(f for f, _, _ in files),
@@ -1026,7 +1088,9 @@ def phase_denoise(zinb_net, nb_net):
         fd.reset_launches()
         nb_net.predict(ad, mode="denoise", return_info=True)
         res["nb_predict_launches"] = fd.launches["fused_dense"]
-        _check(res["nb_predict_launches"] == 4,
+        res["nb_predict_wide"] = fd.launches["wide"]
+        res["nb_predict_splitk"] = fd.launches["splitk"]
+        _check(res["nb_predict_launches"] == 4 and res["nb_predict_splitk"] == 2,
                f"nb-conddisp predict: K4 launches {res['nb_predict_launches']}, expected 4 "
                "(encoder and mean head, then encoder and dispersion head)")
         for name, arr in (("X", ad.X), ("X_dca_dispersion", ad.obsm["X_dca_dispersion"])):
@@ -1337,25 +1401,28 @@ def main():
                     "where only TensorBoard's gradients of a padded run launch it (not ported)")
             kernels.append(entry)
     timings = {f"{name} {act}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms"), t))
+                                          "library_ms"), t[:5]), plan=t[5]._asdict())
                for (name, act), t in dense_times.items()}
-    ms, plain_ms, bound_ms, bound_by, library_ms = dense_times[("head", "linear")]
-    kernels.append({
-        "name": "fused_dense", "route": "cuda", "source": "dca_tpu_torch/csrc/fused_dense.cu",
-        "replaces": "dca_tpu/ops/fused_dense.py:63",
-        "launches": den["forward_launches_1"] + den["stream_launches"],
-        "max_abs_err": dense_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
-        "timed_shape": [2730, 64, 3451], "timed_epilogue": "linear (library: torch.addmm)",
-        "timings": timings,
-        "launches_by_run": {"forward": den["forward_launches_1"],
-                            "write_streaming": den["stream_launches"],
-                            "nb_predict": den["nb_predict_launches"]},
-        "checked_shapes": "; ".join(f"{n} {sh}" for n, sh, *_ in DENSE_CASES),
-        "tolerance": "linear: 2 K 2^-24 (|x|@|W| + |b|) |s| + 4 ulps; activations: 4 ulps "
-                     "of the plain activation of the kernel's linear output",
-        "card": card,
-    })
+    for name, entry, shape, kind in (("fused_dense", "head", [2730, 64, 3451], "wide"),
+                                     ("fused_dense_encoder", "encoder", [2730, 3451, 64],
+                                      "splitk")):
+        ms, plain_ms, bound_ms, bound_by, library_ms, plan = dense_times[(entry, "linear")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "dca_tpu_torch/csrc/fused_dense.cu",
+            "replaces": "dca_tpu/ops/fused_dense.py:63",
+            "launches": den[f"forward_{kind}"] + den[f"stream_{kind}"],
+            "max_abs_err": dense_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "timed_shape": shape, "timed_epilogue": "linear (library: torch.addmm)",
+            "plan": plan._asdict(), "timings": timings,
+            "launches_by_run": {"forward": den[f"forward_{kind}"],
+                                "write_streaming": den[f"stream_{kind}"],
+                                "nb_predict": den[f"nb_predict_{kind}"]},
+            "checked_shapes": "; ".join(f"{n} {sh}" for n, sh, *_ in DENSE_CASES),
+            "tolerance": "linear: 2 K 2^-24 (|x|@|W| + |b|) |s| + 4 ulps; activations: 4 "
+                         "ulps of the plain activation of the kernel's linear output",
+            "card": card,
+        })
     print(f"per-epoch time {per_epoch * 1e3:.1f} ms (dca() 2730 x 3451, zinb-conddisp "
           f"64-32-64, batch 32) on {card}")
     print(f"data-parallel per-epoch time {dp['per_epoch_s'] * 1e3:.1f} ms on rank 0 (the same "

@@ -38,6 +38,9 @@ constexpr int kFwdWarps = kFwdThreads / 32;
 // 256 threads per SM at most, so the summation order, and the loss, are the
 // same on every run.
 constexpr long long kFwdMaxBlocks = 132 * 8;
+// K1's workspace: the (2, kFwdMaxBlocks) per-block partials, then one
+// unsigned ticket counter (the float's bits; 0 between launches).
+constexpr long long kFwdWorkspaceFloats = 2 * kFwdMaxBlocks + 1;
 constexpr int kBwdThreads = 256;
 
 // Broadcast modes of theta and pi; the wrapper (ops/fused_loss.py) passes
@@ -140,19 +143,33 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// K1: per block, the sum of the elementwise NLL and the count for the
-// denominator: non-NaN targets for NB, non-NaN results for ZINB (the JAX
-// losses' _nelem and _reduce_mean_nan).  With WITH_W (K1w), the sum of
-// res * w and the sum of w over the non-NaN targets (losses._apply_weights:
-// a NaN target weighs 0; a non-finite res times a weight of 0 stays NaN, as
-// in JAX).  partials is (2, gridDim.x): row 0 the sums, row 1 the counts.
+// K1: the sum of the elementwise NLL and the count for the denominator:
+// non-NaN targets for NB, non-NaN results for ZINB (the JAX losses' _nelem
+// and _reduce_mean_nan).  With WITH_W (K1w), the sum of res * w and the sum
+// of w over the non-NaN targets (losses._apply_weights: a NaN target weighs
+// 0; a non-finite res times a weight of 0 stays NaN, as in JAX).
+//
+// One launch gives the mean: each block sums its elements (a grid-stride
+// loop, then the warp by shuffles and the block through shared memory) and
+// writes its (sum, count) pair to the workspace; its thread 0 then makes the
+// pair visible (__threadfence) and draws a ticket (atomicAdd on the
+// counter).  The block that draws the last ticket sums the gridDim.x pairs
+// in a fixed order (thread t takes blocks t, t + 256, ..., then the warp and
+// block trees, as above), forms the denominator as the wrapper's
+// _denominator does, max(count, 1), or weighted where(total == 0, 1, total),
+// writes out = (sum, count, sum / denom, denom) and sets the counter back to
+// 0.  This is CUDA's threadfence-reduction pattern: the ticket is the only
+// atomic, and it orders nothing in the sum, so the loss is the same bits on
+// every run.  The workspace is one per device, so two streams of one device
+// must not run K1 at once (the port never does: its data-parallel ranks
+// are separate processes).
 template <bool WITH_PI, bool WITH_W>
 __global__ void __launch_bounds__(kFwdThreads)
 nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
                const float* __restrict__ th, const float* __restrict__ pi,
-               const float* __restrict__ w, float* __restrict__ partials,
-               long long n, long long G, int th_mode, int pi_mode,
-               float ridge) {
+               const float* __restrict__ w, float* work,
+               float* __restrict__ out, long long n, long long G, int th_mode,
+               int pi_mode, float ridge) {
     float s = 0.0f;
     float c = 0.0f;
     const long long stride = (long long)gridDim.x * kFwdThreads;
@@ -177,6 +194,8 @@ nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
 
     __shared__ float ws[kFwdWarps];
     __shared__ float wc[kFwdWarps];
+    __shared__ bool last;
+    unsigned int* ticket = reinterpret_cast<unsigned int*>(work + 2 * kFwdMaxBlocks);
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     if (lane == 0) {
@@ -190,9 +209,43 @@ nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
         s = warp_sum(s);
         c = warp_sum(c);
         if (lane == 0) {
-            partials[blockIdx.x] = s;
-            partials[gridDim.x + blockIdx.x] = c;
+            work[blockIdx.x] = s;
+            work[kFwdMaxBlocks + blockIdx.x] = c;
+            __threadfence();
+            last = atomicAdd(ticket, 1u) == gridDim.x - 1;
         }
+    }
+    __syncthreads();
+    if (!last) return;
+
+    // the last block: every pair is written; read them past the L1
+    __threadfence();
+    s = 0.0f;
+    c = 0.0f;
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += kFwdThreads) {
+        s += __ldcg(work + b);
+        c += __ldcg(work + kFwdMaxBlocks + b);
+    }
+    s = warp_sum(s);
+    c = warp_sum(c);
+    if (lane == 0) {
+        ws[warp] = s;
+        wc[warp] = c;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        s = 0.0f;
+        c = 0.0f;
+        for (int k = 0; k < kFwdWarps; ++k) {
+            s += ws[k];
+            c += wc[k];
+        }
+        const float denom = WITH_W ? (c == 0.0f ? 1.0f : c) : (c < 1.0f ? 1.0f : c);
+        out[0] = s;
+        out[1] = c;
+        out[2] = s / denom;
+        out[3] = denom;
+        *ticket = 0u;
     }
 }
 
@@ -234,11 +287,11 @@ nll_bwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
 
 template <bool WITH_PI, bool WITH_W>
 void launch_fwd(int grid, cudaStream_t st, const float* y, const float* mu,
-                const float* th, const float* pi, const float* w,
-                float* partials, long long n, long long G, int th_mode,
-                int pi_mode, float ridge) {
+                const float* th, const float* pi, const float* w, float* work,
+                float* out, long long n, long long G, int th_mode, int pi_mode,
+                float ridge) {
     nll_fwd_kernel<WITH_PI, WITH_W><<<grid, kFwdThreads, 0, st>>>(
-        y, mu, th, pi, w, partials, n, G, th_mode, pi_mode, ridge);
+        y, mu, th, pi, w, work, out, n, G, th_mode, pi_mode, ridge);
 }
 
 template <bool WITH_PI, bool WITH_W>
@@ -259,24 +312,23 @@ const char* dca_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// Number of blocks K1 uses for n elements: the length of each row of the
-// partials buffer the caller allocates.
-int dca_nll_fwd_grid(long long n) {
-    long long b = (n + kFwdThreads - 1) / kFwdThreads;
-    if (b > kFwdMaxBlocks) b = kFwdMaxBlocks;
-    return (int)(b < 1 ? 1 : b);
-}
+// Floats of K1's workspace, which the caller allocates once per device,
+// zeroed, and passes to every K1 launch on that device.
+long long dca_nll_fwd_workspace_floats() { return kFwdWorkspaceFloats; }
 
-// pi is not read (and may be NULL) unless with_pi, nor w unless with_w.
+// out: 4 floats, (sum, count, loss, denom).  pi is not read (and may be
+// NULL) unless with_pi, nor w unless with_w.
 int dca_nll_fwd(const float* y, const float* mu, const float* th,
-                const float* pi, const float* w, float* partials, long long n,
-                long long G, int th_mode, int pi_mode, float ridge, int with_pi,
-                int with_w, void* stream) {
-    const int grid = dca_nll_fwd_grid(n);
+                const float* pi, const float* w, float* work, float* out,
+                long long n, long long G, int th_mode, int pi_mode, float ridge,
+                int with_pi, int with_w, void* stream) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    long long grid = (n + kFwdThreads - 1) / kFwdThreads;
+    if (grid > kFwdMaxBlocks) grid = kFwdMaxBlocks;
     const cudaStream_t st = (cudaStream_t)stream;
     auto launch = with_pi ? (with_w ? launch_fwd<true, true> : launch_fwd<true, false>)
                           : (with_w ? launch_fwd<false, true> : launch_fwd<false, false>);
-    launch(grid, st, y, mu, th, pi, w, partials, n, G, th_mode, pi_mode, ridge);
+    launch((int)grid, st, y, mu, th, pi, w, work, out, n, G, th_mode, pi_mode, ridge);
     return (int)cudaGetLastError();
 }
 

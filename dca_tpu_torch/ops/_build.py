@@ -34,18 +34,20 @@ _P = ctypes.c_void_p
 _LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dca_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "dca_nll_fwd_grid": ([ctypes.c_longlong], ctypes.c_int),
-    # y, mu, theta, pi, w, partials, n, G, theta mode, pi mode, ridge,
+    "dca_nll_fwd_workspace_floats": ([], ctypes.c_longlong),
+    # y, mu, theta, pi, w, workspace, out, n, G, theta mode, pi mode, ridge,
     # with_pi, with_w, stream
-    "dca_nll_fwd": ([_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _I, _P], _I),
+    "dca_nll_fwd": ([_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _I, _P], _I),
     # y, mu, theta, pi, w, scale, d mu, d theta, d pi, n, G, theta mode,
     # pi mode, ridge, with_pi, with_w, stream
     "dca_nll_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
                      _I, _P], _I),
+    # splits, out: co-resident clusters of that many split-K blocks
+    "dca_fused_dense_max_clusters": ([_I, ctypes.POINTER(ctypes.c_int)], _I),
     # x, w, b, s, t, sf, out, M, K, N, activation, with_bn, with_sf, bf16,
-    # stream
+    # the plan (kind, bm, bn, bk, splits, cluster), stream
     "dca_fused_dense": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P], _I),
+                         _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 

@@ -235,12 +235,24 @@ def _denominator(count, weighted):
     return torch.clamp(count, min=1.0)
 
 
+def _with_quotient(sums, weighted):
+    """(sum, count, sum / denom, denom), a (4,) tensor, from the (sum,
+    count) pair: what the last block of K1 writes, with its formula."""
+    denom = _denominator(sums[1], weighted)
+    return torch.stack([sums[0], sums[1], sums[0] / denom, denom])
+
+
+def _fwd_out_reference(y, mu, theta, pi, ridge, w=None):
+    """Plain version of K1 (NB when ``pi`` is None; K1w with ``w``): its
+    (sum, count, loss, denom) output."""
+    return _with_quotient(_fwd_sums_reference(y, mu, theta, pi, ridge, w), w is not None)
+
+
 def _fwd_reference(y, mu, theta, pi, ridge, w=None):
     """Plain version of K1 and its wrapper (NB when ``pi`` is None;
     weighted with ``w``): (loss, denom)."""
-    sums = _fwd_sums_reference(y, mu, theta, pi, ridge, w)
-    denom = _denominator(sums[1], w is not None)
-    return sums[0] / denom, denom
+    out = _fwd_out_reference(y, mu, theta, pi, ridge, w)
+    return out[2], out[3]
 
 
 def _bwd_reference(y, mu, theta, pi, ridge, scale, w=None):
@@ -331,23 +343,40 @@ def _name(pi, w, kind):
     return f"{'nb' if pi is None else 'zinb'}_nll_{kind}{'' if w is None else '_w'}"
 
 
-def _fwd_sums_kernel(y, mu, theta, pi, ridge, w=None):
-    """Launch K1 (NB when ``pi`` is None; K1w with ``w``); return the
-    (sum, count) pair, a (2,) device tensor.  See ``nb_nll_fwd_kernel``."""
+# K1's workspace on each device: the per-block partials and the ticket
+# counter, zeroed once and never freed (csrc/fused_nll.cu)
+_workspaces = {}
+
+
+def _fwd_workspace(lib, device):
+    """K1's workspace on ``device``, allocated and zeroed at its first call,
+    which must come before any CUDA-graph capture that launches K1."""
+    work = _workspaces.get(device)
+    if work is None:
+        work = torch.zeros(lib.dca_nll_fwd_workspace_floats(), device=device,
+                           dtype=torch.float32)
+        torch.cuda.synchronize(device)  # zeroed before any stream uses it
+        _workspaces[device] = work
+    return work
+
+
+def _fwd_out_kernel(y, mu, theta, pi, ridge, w=None):
+    """Launch K1 (NB when ``pi`` is None; K1w with ``w``); return its (sum,
+    count, loss, denom) output, a (4,) device tensor.  See
+    ``nb_nll_fwd_kernel``."""
     from ._build import library
 
     _check(y, mu, theta, pi, w)
     if not mu.is_cuda:
         raise ValueError("the K1 wrapper needs CUDA tensors")
     lib = library()
-    n, G = mu.numel(), mu.shape[1]
     with torch.cuda.device(mu.device):
-        partials = torch.empty((2, lib.dca_nll_fwd_grid(n)),
-                               device=mu.device, dtype=torch.float32)
+        work = _fwd_workspace(lib, mu.device)
+        out = torch.empty(4, device=mu.device, dtype=torch.float32)
         err = lib.dca_nll_fwd(
             y.data_ptr(), mu.data_ptr(), theta.data_ptr(),
             None if pi is None else pi.data_ptr(), None if w is None else w.data_ptr(),
-            partials.data_ptr(), n, G,
+            work.data_ptr(), out.data_ptr(), mu.numel(), mu.shape[1],
             _mode(theta, mu.shape), 0 if pi is None else _mode(pi, mu.shape),
             float(ridge), pi is not None, w is not None,
             torch.cuda.current_stream(mu.device).cuda_stream,
@@ -355,15 +384,14 @@ def _fwd_sums_kernel(y, mu, theta, pi, ridge, w=None):
     name = _name(pi, w, "fwd")
     _raise_on(lib, err, f"{name} (K1{'' if w is None else 'w'})")
     launches[name] += 1
-    return partials.sum(dim=1)
+    return out
 
 
 def _fwd_kernel(y, mu, theta, pi, ridge, w=None):
     """Launch K1 (K1w with ``w``); return (loss, denom) as device
     scalars."""
-    sums = _fwd_sums_kernel(y, mu, theta, pi, ridge, w)
-    denom = _denominator(sums[1], w is not None)
-    return sums[0] / denom, denom
+    out = _fwd_out_kernel(y, mu, theta, pi, ridge, w)
+    return out[2], out[3]
 
 
 def _bwd_kernel(y, mu, theta, pi, ridge, scale, w=None):
@@ -407,19 +435,24 @@ def nb_nll_fwd_kernel(y, mu, theta):
     """Launch the NB K1; return (loss, denom) as device scalars.
 
     Replaces the Pallas kernel ``dca_tpu/ops/fused_loss.py::_fwd_kernel``
-    (driven by ``_pallas_fwd``) with ``with_pi=False``.  Bound on the H100
-    by memory: it reads y, mu and theta once, 3 x 441,728 B = 1.33 MB at
-    the training step's (32, 3451), at least 0.40 us at 3.35 TB/s (less
-    with a broadcast theta); at these sizes the launch and the accurate
-    ``logf`` of the Stirling recurrence take longer.  Design: one pass, a
-    grid-stride loop over a block count fixed by n, coalesced loads of y
-    and mu, theta read through its broadcast index (never expanded), the
-    elementwise NLL summed in registers, then across the warp by shuffles
-    and across the block through shared memory; each block writes one
-    partial sum and one count of non-NaN targets, and one torch reduction
-    sums the (2, blocks) buffer.  No atomics, so the loss is bit-identical
-    from run to run.  The ragged edge is masked by index (i < n); nothing
-    is padded."""
+    (driven by ``_pallas_fwd``) with ``with_pi=False``, and the host's
+    division after it.  Bound on the H100 by memory: it reads y, mu and
+    theta once, 3 x 441,728 B = 1.33 MB at the training step's (32, 3451),
+    at least 0.40 us at 3.35 TB/s (less with a broadcast theta); at these
+    sizes the launch and the accurate ``logf`` of the Stirling recurrence
+    take longer.  Design: one launch.  A grid-stride loop over a block
+    count fixed by n, coalesced loads of y and mu, theta read through its
+    broadcast index (never expanded), the elementwise NLL summed in
+    registers, then across the warp by shuffles and across the block
+    through shared memory; each block writes its (sum, count) pair to a
+    workspace kept on the device and draws a ticket, and the block that
+    draws the last one sums the pairs in a fixed order, forms the
+    denominator max(count, 1) and writes (sum, count, loss, denom).  The
+    ticket is the only atomic and orders nothing in the sum, so the loss is
+    bit-identical from run to run, and the wrapper launches nothing else
+    (no sum over the partials, no clamp, no division on the host's
+    stream).  The ragged edge is masked by index (i < n); nothing is
+    padded."""
     return _fwd_kernel(y, mu, theta, None, 0.0)
 
 
@@ -473,18 +506,21 @@ class _FusedNLL(torch.autograd.Function):
         _check(y, mu, theta, pi, w, allow_empty=True)
         if mu.numel() == 0:
             # an empty share of the batch: (0, 0), nothing launched
-            sums = torch.zeros(2, device=mu.device)
+            out = _with_quotient(torch.zeros(2, device=mu.device), w is not None)
         else:
-            fwd = _fwd_sums_kernel if mu.is_cuda else _fwd_sums_reference
-            sums = fwd(y, mu, theta, pi, ridge, w)
-        total = sums
-        if group is not None:
-            total = sums.clone()
+            fwd = _fwd_out_kernel if mu.is_cuda else _fwd_out_reference
+            out = fwd(y, mu, theta, pi, ridge, w)
+        if group is None:
+            # one device: K1's own quotient, one launch in all
+            loss, denom = out[2], out[3]
+        else:
+            total = out[:2].clone()
             torch.distributed.all_reduce(total, group=group)
-        denom = _denominator(total[1], w is not None)
+            denom = _denominator(total[1], w is not None)
+            loss = out[0] / denom
         ctx.ridge = ridge
         ctx.save_for_backward(y, mu, theta, pi, w, denom)
-        return sums[0] / denom
+        return loss
 
     @staticmethod
     def backward(ctx, g):

@@ -8,6 +8,8 @@ with numpy, go to both; the tolerances are ``test_pallas.py``'s for the
 same cases (float32 sums in another order).  The model tests bridge the JAX
 package's weights into the port (``bridge.params_from_jax``)."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -157,6 +159,127 @@ def test_switches_read_the_jax_package_names(monkeypatch):
     monkeypatch.setenv("DCA_TPU_MATMUL", "fp32")
     with pytest.raises(ValueError, match="DCA_TPU_MATMUL"):
         config.matmul_dtype()
+
+
+# ---------------------------------------------------------------------------
+# K4's launch plan and its split-K sum order
+# ---------------------------------------------------------------------------
+
+# the main path's layers (the encoder in one block and in write_streaming's
+# blocks of 1024 and 682 rows), the card checks' cases, a large batch, K = 0
+PLAN_SHAPES = [(2730, 3451, 64), (2730, 64, 3451), (2730, 32, 64), (64, 32, 64),
+               (1024, 3451, 64), (682, 3451, 64), (33, 200, 70), (16, 1500, 96),
+               (33, 1000, 70), (17, 200, 5), (100, 65, 64), (40, 20, 300), (300, 64, 200),
+               (17000, 3451, 64), (5, 0, 7)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_covers_every_output_and_k_index_once(shape):
+    """The plan's blocks, as the kernel assigns them: the output tiles
+    cover every (row, column) once, and the K slices of each tile, in
+    cluster rank order, cover 0 .. K - 1 once and in order."""
+    M, K, N = shape
+    p = fd.plan(M, K, N)
+    cover = np.zeros((M, N), np.int64)
+    slices = {}
+    for rows, cols, ks in fd.plan_blocks(p, M, K, N):
+        slices.setdefault((rows, cols), []).append(ks)
+    for (rows, cols), ks in slices.items():
+        cover[rows.start:rows.stop, cols.start:cols.stop] += 1
+        assert len(ks) == p.splits
+        assert [k for r in ks for k in r] == list(range(K))
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_fits_a_hopper_block(shape):
+    """Whole K only up to 64 deep; a cluster of at most 8 blocks, the
+    splits of one tile; at most 227 KB of shared memory a block; at most
+    one split a 32-deep step."""
+    M, K, N = shape
+    p = fd.plan(M, K, N)
+    assert (p.kind == fd.WIDE) == (K <= fd.WIDE_MAX_K)
+    assert fd.smem_bytes(p) <= fd.SMEM_LIMIT == 227 * 1024
+    if p.kind == fd.WIDE:
+        assert (p.bm, p.bn, p.bk, p.splits, p.cluster) == (*fd.WIDE_TILE, K, 1, 1)
+    else:
+        assert (p.bm, p.bn, p.bk) == fd.SPLITK_TILE
+        assert 1 <= p.splits == p.cluster <= fd.MAX_CLUSTER
+        assert p.splits <= -(-K // p.bk)
+
+
+# co-resident clusters of S = 1..8 one-block-an-SM split-K blocks on a card
+# of 132 SMs in 8 GPCs of 18, 18, 18, 18, 16, 16, 14 and 14 SMs: a cluster
+# sits in one GPC
+GPCS = (18, 18, 18, 18, 16, 16, 14, 14)
+CLUSTERS = [sum(g // s for g in GPCS) for s in range(1, 9)]
+
+
+def test_plan_keeps_every_cluster_in_one_wave_at_the_encoder_shape():
+    """The encoder (2730, 3451) -> 64, 22 row tiles: the split with the
+    least work on the busiest SM is 5 (22 clusters of 5, all resident at
+    once, 110 blocks); 6 would fill the 132 SMs but for 22 clusters of 6
+    the card has room for 20, so two would wait for a second wave."""
+    enc = fd.plan(2730, 3451, 64, fd.SMS, CLUSTERS)
+    assert enc.kind == fd.SPLITK and (enc.splits, enc.cluster) == (5, 5)
+    assert len(fd.plan_blocks(enc, 2730, 3451, 64)) == 110
+    assert 22 <= CLUSTERS[4] and 22 > CLUSTERS[5]
+    # without the occupancy table every SM counts: 22 x 6 = 132 blocks
+    assert fd.plan(2730, 3451, 64).splits == 6
+    head = fd.plan(2730, 64, 3451)
+    assert head.kind == fd.WIDE and len(fd.plan_blocks(head, 2730, 64, 3451)) == 22 * 54
+    # many tiles: splitting moves no work off the busiest SM
+    assert fd.plan(1_300_000, 3451, 64, fd.SMS, CLUSTERS).splits == 1
+
+
+def test_plan_depends_on_the_shape_and_device_alone():
+    """The plan sees (M, K, N), the SM count and the cluster occupancy,
+    never the epilogue, BN, size factors or bf16: every epilogue gets the
+    same sum order."""
+    assert list(inspect.signature(fd.plan).parameters) == ["M", "K", "N", "sms", "clusters"]
+    assert fd.plan(33, 200, 70) == fd.plan(33, 200, 70)
+
+
+def _split_k_emulation(x, w, b, bn, activation, p):
+    """K4's split-K sum order in plain float32: for each K slice of a tile
+    (``plan_blocks``) the partial products of its two k-groups (the first
+    and second 16 k of every 32-deep step), the partials added in (cluster
+    rank, group) order, then the plain version's epilogue."""
+    M, K = x.shape
+    N = w.shape[1]
+    z = torch.zeros((M, N))
+    for rows, cols, ks in fd.plan_blocks(p, M, K, N):
+        if rows.start or cols.start:
+            continue
+        for group in (0, 1):
+            idx = [k for k in ks if (k % p.bk) // (p.bk // 2) == group]
+            z = z + x[:, idx] @ w[idx]
+    z = z + b
+    if bn is not None:
+        s, t = fd.fold_bn(bn)
+        z = z * s + t
+    return fd.EPILOGUES[activation](z)
+
+
+@pytest.mark.parametrize("shape,splits", [((33, 1000, 70), 3), ((17, 200, 5), 8)], ids=str)
+@pytest.mark.parametrize("activation", ["linear", "relu"])
+def test_split_k_sum_order_matches_jax(shape, splits, activation):
+    """The split sums against the JAX kernel in interpret mode, with a
+    ragged last slice (1000 = 31 x 32 + 8 in 3 splits; 200 in 8 splits of 7
+    steps, one of them empty), within chip_smoke.py's linear tolerance
+    2 K 2^-24 (|x|@|W| + |b|) |s| + 4 ulps: two float32 sums of K products
+    in different orders."""
+    M, K, N = shape
+    x, w, b, bn, _ = _dense_inputs(M, K, N, seed=9)
+    p = fd.plan(M, K, N)._replace(splits=splits, cluster=splits)
+    t = torch.from_numpy
+    got = _split_k_emulation(t(x), t(w), t(b), tuple(map(t, bn)), activation, p).numpy()
+    want = np.asarray(jfd.fused_dense_block(x, w, b, bn=bn, activation=activation,
+                                            interpret=True))
+    s = 1.0 / np.sqrt(bn[1] + np.float32(fd.BN_EPS))
+    tol = (2 * K * 2.0 ** -24 * (np.abs(x) @ np.abs(w) + np.abs(b)) * np.abs(s)
+           + 4 * np.spacing(np.abs(want)))
+    assert (np.abs(got - want) <= tol).all(), float(np.max(np.abs(got - want) / tol))
 
 
 # ---------------------------------------------------------------------------

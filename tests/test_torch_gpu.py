@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: NB
 and ZINB, with full and broadcast theta/pi, their weighted variants
-K1w/K2w, and the fused dense block K4.
+K1w/K2w, and the fused dense block K4 through both tilings of its plan and
+every split of its split-K tiling; the one-launch K1 the same bits twice
+and under CUDA-graph replay, and one device operation a loss forward.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -13,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs,
-                        check_dense_case, check_weighted_case)
+from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs, _on, _ulps,
+                        _weights, check_dense_case, check_weighted_case, dense_inputs)
 from dca_tpu_torch.ops import fused_dense, fused_loss
 
 
@@ -175,3 +177,67 @@ def test_fused_dense_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="not fusable"):
         fused_dense.fused_dense_block(x, w, b, activation="softplus")
     assert fused_dense.fused_dense_block(x[:0], w, b).shape == (0, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("shape", [(33, 1000, 70), (17, 200, 5), (130, 3451, 64)], ids=str)
+def test_fused_dense_every_split_matches_plain_version_on_card(cuda, shape, splits):
+    """The split-K tiling under every cluster size, whatever the plan would
+    pick: ragged last slices, empty slices (200 is 7 steps), ragged rows
+    and columns; the linear output within chip_smoke.py's tolerance, the
+    same bits twice."""
+    from dca_tpu_torch.ops.fused_dense import plan
+
+    B, K, N = shape
+    x, w, b, stats, _ = _on(cuda, dense_inputs(B, K, N, 40 + splits, bn=True))
+    p = plan(B, K, N)._replace(splits=splits, cluster=splits)
+    got = fused_dense._kernel(x, w, b, stats, "linear", None, p)
+    assert torch.equal(fused_dense._kernel(x, w, b, stats, "linear", None, p), got)
+    want = fused_dense.fused_dense_reference(x, w, b, bn=stats, activation="linear")
+    tol = (2 * K * 2.0 ** -24 * (x.abs() @ w.abs() + b.abs()) * fused_dense.fold_bn(stats)[0].abs()
+           + _ulps(want))
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,weighted", [("nb", False), ("zinb", False), ("nb", True),
+                                             ("zinb", True)])
+def test_one_launch_k1_same_bits_in_graphs_and_one_device_op(cuda, family, weighted):
+    """K1's (sum, count, loss, denom) against its plain version, the same
+    bits on a second launch and on CUDA-graph replays; one device operation
+    a loss forward through _FusedNLL without a group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(cuda)
+                     for a in _loss_inputs(32, 3451, 7, pi_shape=(32, 3451)
+                                           if family == "zinb" else None))
+    w = torch.from_numpy(_weights(32, "fractional", 7)).to(cuda) if weighted else None
+    first = fused_loss._fwd_out_kernel(y, mu, th, pi, 0.1, w).clone()
+    ref = fused_loss._fwd_out_reference(y, mu, th, pi, 0.1, w)
+    assert abs(first[2].item() - ref[2].item()) <= 1e-5 * abs(ref[2].item())
+    if not weighted:
+        assert first[1].item() == ref[1].item() and first[3].item() == ref[3].item()
+    assert torch.equal(first[2], first[0] / first[3])
+    assert torch.equal(fused_loss._fwd_out_kernel(y, mu, th, pi, 0.1, w), first)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_loss._fwd_out_kernel(y, mu, th, pi, 0.1, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_loss._fwd_out_kernel(y, mu, th, pi, 0.1, w)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fused_loss._FusedNLL.apply(y, mu, th, pi, w, 0.1, None)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in ops) == 5, [(e.key, e.count) for e in ops]

@@ -252,3 +252,64 @@ def test_likelihood_loss_routes_sample_weights_like_jax():
         assert abs(got - ref) <= 1e-4 * abs(ref), (got, refs)
     with pytest.raises(ValueError, match="one weight per row"):
         net.likelihood_loss(out, _t(t), sample_weights=_t(w[:5]))
+
+
+def _weight_case(kind, B, seed=15):
+    """None, or a (B,) weight vector: ``padding`` ones with the last row 0,
+    ``fractional`` in [0.2, 2) with two rows 0, ``tiny`` 1e-4 everywhere (a
+    total below 1), ``zero`` all 0."""
+    if kind is None:
+        return None
+    w = np.ones((B,), np.float32)
+    if kind == "padding":
+        w[-1] = 0.0
+    elif kind == "fractional":
+        w = np.random.RandomState(seed).uniform(0.2, 2.0, size=(B,)).astype(np.float32)
+        w[[0, B // 2]] = 0.0
+    elif kind == "tiny":
+        w[:] = 1e-4
+    else:
+        w[:] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("family", ["nb", "zinb"])
+@pytest.mark.parametrize("weights", [None, "padding", "fractional", "tiny", "zero"])
+def test_one_launch_quotient_matches_jax_losses(family, weights):
+    """What the last block of the one-launch K1 writes, (sum, count, sum /
+    denom, denom), formed by ``_with_quotient`` with the kernel's formula:
+    the denominator max(count, 1) unweighted and where(total == 0, 1,
+    total) weighted (a total below 1 divides as it is, an all-zero one is
+    1), the loss one float32 division of the two, and that loss the JAX
+    package's ``losses.nb_nll``/``zinb_nll`` (masking, sample weights) at
+    rtol 1e-5 (float32 sums in another order)."""
+    B, G = 9, 40
+    y, mu, th, pi = _data(B, G, seed=14)
+    y[2, :7] = np.nan
+    pi = pi if family == "zinb" else None
+    w = _weight_case(weights, B)
+    args = (_t(y), _t(mu), _t(th), None if pi is None else _t(pi), 0.05,
+            None if w is None else _t(w.reshape(-1, 1)))
+    out = fused_loss._fwd_out_reference(*args)
+    s, c = fused_loss._fwd_sums_reference(*args)
+    assert torch.equal(out[:2], torch.stack([s, c]))
+    if w is None:
+        # NB leaves the NaN targets out; ZINB only NaN results, and a NaN
+        # target takes the NB case at y = 0
+        assert c.item() == (B * G - 7 if pi is None else B * G)
+        assert out[3].item() == max(c.item(), 1.0)
+    else:
+        valid = ~np.isnan(y)
+        np.testing.assert_allclose(c.item(), (w[:, None] * valid).sum(), rtol=1e-6)
+        assert out[3].item() == (1.0 if weights == "zero" else c.item())
+    assert torch.equal(out[2], out[0] / out[3])
+    yj = jnp.asarray(y)
+    kw = {} if w is None else {"sample_weights": jnp.asarray(w)}
+    if pi is None:
+        want = float(jlosses.nb_nll(yj, jnp.asarray(mu), jnp.asarray(th), masking=True, **kw))
+    else:
+        want = float(jlosses.zinb_nll(yj, jnp.asarray(mu), jnp.asarray(th), jnp.asarray(pi),
+                                      ridge_lambda=0.05, masking=True, **kw))
+    assert abs(out[2].item() - want) <= 1e-5 * abs(want), (out[2].item(), want)
+    if weights == "zero":
+        assert out[2].item() == 0.0 == want
