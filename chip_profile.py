@@ -2,7 +2,7 @@
 """Where the port's time goes on one NVIDIA GPU: a profile of one training
 epoch of the main path, and the loss kernels' own device time.
 
-    python3 chip_profile.py [ae_type]
+    python3 chip_profile.py [ae_type] [--parent DIR] [--k2]
 
 1. One epoch of ``train()`` on the 2730 x 3451 Paul15-shaped matrix,
    ``ae_type`` (default zinb-conddisp, the slice's main path) 64-32-64,
@@ -11,11 +11,19 @@ epoch of the main path, and the loss kernels' own device time.
    share, the kernel launches per step, and the kernels that take the most
    device time.  The profiler's own cost lengthens the wall time.  The
    whole table goes to ``chiprun_out/profile.txt``.
-2. K1, K1w and K2 alone at the training step's (32, 3451), NB and ZINB:
-   the kernels' mean device time from torch.profiler's trace, and the
-   device operations one loss forward through ``_FusedNLL`` makes without
-   a process group (1: K1 writes the loss itself).  Then K4 at the encoder
-   shape under every split of its split-K tiling, against torch.addmm.
+2. K1, K1w, K2 and K2w alone at the training step's (32, 3451), NB and
+   ZINB: the kernels' mean device time from torch.profiler's trace, and
+   the device operations one loss forward and one loss backward through
+   ``_FusedNLL`` make without a process group (1 each: K1 writes the loss
+   itself, K2 divides g by the denominator itself).  With ``--parent DIR``
+   (an earlier commit unpacked at DIR, ``chip_smoke.load_parent``) the
+   parent's K2 and K2w in turns with this one's, and its operations per
+   loss backward.  Then K2's code: the registers of each instantiation
+   (the parent's too), and its SASS instructions per element against the
+   time they take to issue (``profile_k2_code``; listings in
+   ``chiprun_out/k2_sass_*.txt``).  Then K4 at the encoder shape under
+   every split of its split-K tiling, against torch.addmm.  ``--k2`` runs
+   the loss kernels and K2's code alone.
 3. The denoise forward: ``forward`` of ``ae_type`` over the 2730 x 3451
    matrix in one block, with the fused dense kernel K4 off and on
    (DCA_TPU_FUSED_DENSE), after a warm-up, under torch.profiler: wall
@@ -30,10 +38,14 @@ or the JAX package.
 from __future__ import annotations
 
 import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 
-from chip_smoke import REPO, _card, _device_ms, _loss_inputs, make_paul15_like
+from chip_smoke import (G_BWD, REPO, _card, _device_ms, _loss_inputs, load_parent,
+                        make_paul15_like)
 
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 N_PROFILED = 50
@@ -110,36 +122,170 @@ def _device_ops(fn, n=N_PROFILED):
     return sum(e.count for e in items) / n, sorted({e.key[:60] for e in items})
 
 
-def profile_kernels():
-    """K1 and K2 at (32, 3451): each kernel's own device time, and the
-    device operations of one loss forward through ``_FusedNLL`` without a
-    group (the single-device training step's path), NB and ZINB, unweighted
-    and weighted."""
+def _backward_ops(impl, y, mu, th, pi, w, g):
+    """Device operations per loss backward through ``impl._FusedNLL``
+    without a group: ``torch.autograd.grad`` of a loss whose forward ran
+    before the trace, with the incoming gradient ``g`` given (so autograd
+    fills no seed)."""
+    import torch
+
+    ops = [t.detach().requires_grad_(True) for t in (mu, th, pi) if t is not None]
+    args = (y, ops[0], ops[1], None if pi is None else ops[2], w, 0.1, None)
+    loss = impl._FusedNLL.apply(*args)
+    torch.autograd.grad(loss, ops, g, retain_graph=True)
+    return _device_ops(lambda: torch.autograd.grad(loss, ops, g, retain_graph=True))
+
+
+def profile_kernels(parent=None):
+    """K1, K1w, K2 and K2w at (32, 3451), NB and ZINB: each kernel's own
+    device time, the device operations of one loss forward and of one loss
+    backward through ``_FusedNLL`` without a group (the single-device
+    training step's path), unweighted and weighted.  With ``parent``
+    (``chip_smoke.load_parent``), the parent's K2 and K2w in turns with
+    this one's (parent, change, change, parent) on the same inputs, and
+    the parent's device operations per loss backward."""
     import torch
 
     from dca_tpu_torch.ops import fused_loss as fl
 
     dev = torch.device("cuda")
+    g = torch.tensor(G_BWD, device=dev)
     for fam, seed in (("nb", 11), ("zinb", 13)):
         y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(dev)
                          for a in _loss_inputs(32, 3451, seed,
                                                pi_shape=(32, 3451) if fam == "zinb" else None))
         w = torch.ones((32, 1), device=dev)
-        scale = torch.full((1,), 1.0 / y.numel(), device=dev)
-        # the kernels are templates: nll_fwd_kernel<WITH_PI, WITH_W>
+        _, denom = fl._fwd_kernel(y, mu, th, pi, 0.1)
+        _, denom_w = fl._fwd_kernel(y, mu, th, pi, 0.1, w)
+        # the kernels are templates: nll_fwd_kernel<WITH_PI, WITH_W>,
+        # nll_bwd_kernel<WITH_PI, WITH_W>
         tag = "true" if pi is not None else "false"
         k1 = _profiled_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1),
                           f"nll_fwd_kernel<{tag}, false>")
         k1w = _profiled_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1, w),
                            f"nll_fwd_kernel<{tag}, true>")
-        k2 = _profiled_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, scale),
+        k2 = _profiled_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom),
                           f"nll_bwd_kernel<{tag}, false>")
+        k2w = _profiled_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom_w, w),
+                           f"nll_bwd_kernel<{tag}, true>")
         with torch.no_grad():
             ops, names = _device_ops(lambda: fl._FusedNLL.apply(y, mu, th, pi, None, 0.1, None))
             ops_w, names_w = _device_ops(lambda: fl._FusedNLL.apply(y, mu, th, pi, w, 0.1, None))
+        bops, bnames = _backward_ops(fl, y, mu, th, pi, None, g)
+        bops_w, bnames_w = _backward_ops(fl, y, mu, th, pi, w, g)
         print(f"{fam} (32, 3451) by torch.profiler: K1 kernel {k1} ms, K1w kernel {k1w} ms, "
-              f"K2 kernel {k2} ms; device operations per loss forward without a group: "
-              f"{ops:g} ({', '.join(names)}), weighted {ops_w:g} ({', '.join(names_w)})")
+              f"K2 kernel {k2} ms, K2w kernel {k2w} ms; device operations per loss forward "
+              f"without a group: {ops:g} ({', '.join(names)}), weighted {ops_w:g} "
+              f"({', '.join(names_w)}); per loss backward: {bops:g} ({', '.join(bnames)}), "
+              f"weighted {bops_w:g} ({', '.join(bnames_w)})")
+        if parent is None:
+            continue
+        scale = (g / denom).reshape(1)
+        scale_w = (g / denom_w).reshape(1)
+        for what, p_fn, c_fn, weighted in (
+                ("K2", lambda: parent._bwd_kernel(y, mu, th, pi, 0.1, scale),
+                 lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom), "false"),
+                ("K2w", lambda: parent._bwd_kernel(y, mu, th, pi, 0.1, scale_w, w),
+                 lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom_w, w), "true")):
+            name = f"nll_bwd_kernel<{tag}, {weighted}>"
+            t = [_profiled_ms(p_fn, name), _profiled_ms(c_fn, name),
+                 _profiled_ms(c_fn, name), _profiled_ms(p_fn, name)]
+            print(f"{fam} (32, 3451) {what} kernel alone, in turns: parent {t[0]} ms, change "
+                  f"{t[1]} ms, change {t[2]} ms, parent {t[3]} ms")
+        pops, pnames = _backward_ops(parent, y, mu, th, pi, None, g)
+        print(f"{fam} (32, 3451) the parent's device operations per loss backward without a "
+              f"group: {pops:g} ({', '.join(pnames)})")
+
+
+def _ptxas_registers(build_log):
+    """{kernel: (registers, bytes of spill stores and loads)} of the
+    nll_bwd kernels in a build's log (ptxas -v)."""
+    regs, name, spill = {}, None, 0
+    with open(build_log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name and "nll_bwd_kernel" in name:
+                regs[name] = (int(m.group(1)), spill)
+    return regs
+
+
+def _sass_counts(lib_path, out_name):
+    """Per nll_bwd kernel of the library: its SASS instructions up to the
+    main body's last EXIT (the out-of-line slow paths of the IEEE
+    divisions follow it), and the MUFU and CALL instructions among them;
+    the listing goes to chiprun_out/<out_name>.  None where the toolkit has
+    no cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "nll_bwd_kernel" in m.group(1) else None
+            if name:
+                funcs[name] = []
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            funcs[name].append(line.strip())
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
+        for name, lines in funcs.items():
+            f.write(f"Function : {name}\n" + "\n".join(lines) + "\n\n")
+    counts = {}
+    for name, lines in funcs.items():
+        first_ret = next((i for i, s in enumerate(lines) if " RET" in s), len(lines))
+        exits = [i for i, s in enumerate(lines[:first_ret]) if "EXIT" in s]
+        body = lines[:exits[-1] + 1] if exits else lines
+        counts[name] = {"body": len(body), "all": len(lines),
+                        "mufu": sum("MUFU" in s for s in body),
+                        "call": sum("CALL" in s for s in body)}
+    return counts
+
+
+def _max_sm_clock_hz():
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60)
+    return float(proc.stdout.split()[0]) * 1e6
+
+
+def profile_k2_code(parent=None):
+    """K2's code on the card: the registers each kernel uses (ptxas, from
+    the build logs, the parent's too with ``parent``); and, where the
+    toolkit has cuobjdump, the SASS instructions of each kernel's main
+    body, per element, with the time they take to issue at one instruction
+    a cycle on each of the 4 schedulers of the 132 SMs at the card's
+    highest clock, beside the byte bound."""
+    from dca_tpu_torch.ops import _build
+
+    libs = [("change", _build.build())]
+    if parent is not None:
+        import importlib
+
+        libs.append(("parent", importlib.import_module("dca_parent.ops._build").build()))
+    clock = _max_sm_clock_hz()
+    n = 32 * 3451
+    for who, lib in libs:
+        regs = _ptxas_registers(os.path.join(os.path.dirname(lib), "build.log"))
+        print(f"{who}: ptxas (registers, spill bytes) of the nll_bwd kernels: {regs}")
+        counts = _sass_counts(lib, f"k2_sass_{who}.txt")
+        if counts is None:
+            print(f"{who}: no cuobjdump in this toolkit: SASS not read")
+            continue
+        for name, c in counts.items():
+            per_elem = c["body"]  # one element a thread
+            issue_us = n * per_elem / 32 / (132 * 4 * clock) * 1e6
+            print(f"{who}: {name[:90]}: {c['body']} SASS instructions in the main body "
+                  f"({c['all']} with the slow paths; {c['mufu']} MUFU, {c['call']} CALL), "
+                  f"{per_elem:.0f} an element: {issue_us:.2f} us to issue at (32, 3451) at "
+                  f"{clock / 1e6:.0f} MHz")
 
 
 def profile_dense_plans():
@@ -222,14 +368,26 @@ def main():
         print("chip_profile: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Where the port's time goes on the GPU")
+    parser.add_argument("ae_type", nargs="?", default="zinb-conddisp")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="an earlier commit unpacked at DIR: its K2 timed in turns")
+    parser.add_argument("--k2", action="store_true",
+                        help="only the loss kernels and K2's code (section 2 without K4)")
+    args = parser.parse_args()
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
     print(_card())
-    ae_type = sys.argv[1] if len(sys.argv) > 1 else "zinb-conddisp"
-    profile_epoch(ae_type)
-    profile_kernels()
-    profile_dense_plans()
-    profile_forward(ae_type)
+    parent = None if args.parent is None else load_parent(args.parent)
+    if not args.k2:
+        profile_epoch(args.ae_type)
+    profile_kernels(parent)
+    profile_k2_code(parent)
+    if not args.k2:
+        profile_dense_plans()
+        profile_forward(args.ae_type)
     return 0
 
 

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``dca_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR``: an earlier commit of the repo unpacked at DIR
+(``git archive``), whose whole loss backward phase 2 then times in turns
+with this one's (``load_parent``).
 
 Phases, each of which must pass:
 
@@ -14,9 +18,11 @@ Phases, each of which must pass:
    at ridge 0 and 0.1, and the broadcast pairs (1, G)/(B, G), (B, 1)/(B, 1),
    (1, G)/(1, G), (B, 1)/(1, G) at ridge 0.1.  Tolerances: loss relative
    error <= 1e-5 (the kernel sums in another order than torch.sum) and the
-   denominator's count exact; gradients elementwise, stated on the
-   unscaled gradient (the path's gradients carry g / denom, about 1e-6 at
-   (273, 3451)): rtol 1e-4, atol 1e-6 plus 4 float32 ulps of the sum of the
+   denominator's count exact; gradients, taken with an incoming gradient
+   g = 0.37 (``G_BWD``) that K2 divides by the denominator itself,
+   elementwise, stated on the unscaled gradient (the path's gradients
+   carry g / denom, about 1e-6 at (273, 3451)): rtol 1e-4, atol 1e-6 plus
+   4 float32 ulps of the sum of the
    magnitudes of the terms the formula adds
    (``fused_loss.grad_term_magnitudes``), since both sides round those
    terms in float32 and, where they cancel, the result is far smaller.  A
@@ -56,6 +62,8 @@ Phases, each of which must pass:
    events (see ``_device_ms``); beside them the plain version's time and
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s float32).  K1 also at the validation split (273, 3451).
+   One whole loss backward (``_FusedNLL.backward``: K2 alone), and with
+   ``--parent`` the parent's (its division, then its K2), in turns.
    K1w at (137, 3451) and K2w at (32, 3451), NB and ZINB, likewise.
    K4 at the encoder and head shapes, with its plan, its bound, the plain
    version's time and, for the ``linear`` epilogue, ``torch.addmm``'s,
@@ -117,6 +125,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -131,6 +140,9 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # on the unscaled gradient
 GRAD_ULPS = 4  # float32 ulps of the gradient's summed term magnitudes
 F32_EPS = 2.0 ** -23
 N_TIMED = 50
+# the incoming gradient of the loss in the checks of K2: not 1, so that a
+# kernel that dropped g would fail them
+G_BWD = 0.37
 
 
 class SmokeFailure(Exception):
@@ -362,12 +374,13 @@ def phase_compare(dev):
                 loss = fl.zinb_nll_fused(y, mu, th, pi, ridge)
                 again = fl.zinb_nll_fused(y, mu, th, pi, ridge)
                 _, denom = fl.zinb_nll_fwd_kernel(y, mu, th, pi, ridge)
-            grads = torch.autograd.grad(loss, ops)  # K2
+            g = torch.tensor(G_BWD, device=dev)
+            grads = torch.autograd.grad(loss, ops, g)  # K2
             _check(torch.equal(loss, again), f"{what}: K1 is not deterministic")
             with torch.no_grad():
                 ref, rdenom = fl._fwd_reference(y, mu, th, pi, ridge)
-                scale = 1.0 / rdenom  # what the path multiplies the gradients by
-                refs = fl._bwd_reference(y, mu, th, pi, ridge, scale.reshape(1))
+                scale = g / rdenom  # what the path multiplies the gradients by
+                refs = fl._bwd_reference(y, mu, th, pi, ridge, g, rdenom)
                 fulls = fl._elem_grads(y, mu, th, pi, ridge)
                 mags = fl.grad_term_magnitudes(y, mu, th, pi, ridge)
             _check(torch.equal(denom, rdenom),
@@ -444,13 +457,14 @@ def check_weighted_case(dev, B, G, nan_frac, n_clipped, th_shape, pi_shape, ridg
     else:
         loss = fl.zinb_nll_fused_w(y, mu, th, pi, w, ridge)
         again = fl.zinb_nll_fused_w(y, mu, th, pi, w, ridge)
-    grads = torch.autograd.grad(loss, ops)
+    g = torch.tensor(G_BWD, device=dev)
+    grads = torch.autograd.grad(loss, ops, g)
     _, denom = fl._fwd_kernel(y, mu, th, pi, ridge, w)
     _check(torch.equal(loss, again), f"{what}: K1w is not deterministic")
     with torch.no_grad():
         ref, rdenom = fl._fwd_reference(y, mu, th, pi, ridge, w)
-        scale = 1.0 / rdenom
-        refs = fl._bwd_reference(y, mu, th, pi, ridge, scale.reshape(1), w)
+        scale = g / rdenom
+        refs = fl._bwd_reference(y, mu, th, pi, ridge, g, rdenom, w)
         w_eff = torch.where(torch.isnan(y), 0.0, w)  # what each element weighs
         fulls = [g * w_eff for g in fl._elem_grads(y, mu, th, pi, ridge) if g is not None]
         mags = [m * w_eff for m in fl.grad_term_magnitudes(y, mu, th, pi, ridge)
@@ -721,14 +735,41 @@ def dense_timings(dev):
     return out
 
 
-def phase_timings(dev):
+def load_parent(path, name="dca_parent"):
+    """``dca_tpu_torch/ops/fused_loss.py`` of another checkout of the repo
+    at ``path`` (an earlier commit, unpacked), imported as the package
+    ``name`` beside this checkout's, so that the two are timed in one
+    process on the same inputs; its kernels build into its own tree."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(path), "dca_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.ops.fused_loss")
+
+
+def backward_ctx(y, mu, th, pi, w, ridge, denom):
+    """What ``_FusedNLL.forward`` saves, so that its backward, one whole
+    loss backward, can be called (and graph-captured) alone."""
+    return types.SimpleNamespace(saved_tensors=(y, mu, th, pi, w, denom), ridge=ridge)
+
+
+def phase_timings(dev, parent=None):
+    """K1 and K2 at the step shape, NB and ZINB, and one whole loss
+    backward (``_FusedNLL.backward``: K2 and whatever its wrapper
+    launches); with ``parent`` (``load_parent``), the parent's whole
+    backward too, in turns with this one: parent, change, change, parent."""
     import torch
 
     from dca_tpu_torch.ops import fused_loss as fl
 
     B, G = 32, 3451
     n = B * G
-    scale = torch.full((1,), 1.0 / n, device=dev)
+    g = torch.tensor(G_BWD, device=dev)
     out = {}
     for fam, seed in (("nb", 11), ("zinb", 13)):
         y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(dev)
@@ -739,30 +780,46 @@ def phase_timings(dev):
                                                    pi_shape=(273, G) if fam == "zinb" else None))
         with_pi = pi is not None
         n_in = 4 if with_pi else 3  # y, mu, theta and pi, each read once
+        _, denom = fl._fwd_kernel(y, mu, th, pi, 0.1)
         k1_ms = _device_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.1))
         k1_plain_ms = _device_ms(lambda: fl._fwd_reference(y, mu, th, pi, 0.1))
-        k2_ms = _device_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, scale))
-        k2_plain_ms = _device_ms(lambda: fl._bwd_reference(y, mu, th, pi, 0.1, scale))
+        k2_ms = _device_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom))
+        k2_plain_ms = _device_ms(lambda: fl._bwd_reference(y, mu, th, pi, 0.1, g, denom))
+        ctx = backward_ctx(y, mu, th, pi, None, 0.1, denom)
+        back = [lambda: fl._FusedNLL.backward(ctx, g)]
+        if parent is not None:
+            back = [lambda: parent._FusedNLL.backward(ctx, g)] + back * 2 + \
+                [lambda: parent._FusedNLL.backward(ctx, g)]
+        turns = [_device_ms(fn) for fn in back]
+        back_ms = float(np.mean(turns[1:3] if parent is not None else turns))
+        parent_back_ms = None if parent is None else (turns[0] + turns[3]) / 2
         # K1 on the validation split, once per epoch on the main path
         k1_val_ms = _device_ms(lambda: fl._fwd_kernel(yv, muv, thv, piv, 0.1))
         # each input read once, each output written once: K1's sum, count,
-        # loss and denominator; K2 also reads the scale and writes 2 or 3
-        # (B, G) gradients
+        # loss and denominator; K2 also reads g and the denominator and
+        # writes 2 or 3 (B, G) gradients
         k1_bound, k1_by = _bound_ms(n_in * 4 * n + 4 * 4, _k1_ops(y, mu, th, with_pi))
-        k2_bound, k2_by = _bound_ms(n_in * 4 * n + 4 + (n_in - 1) * 4 * n,
+        k2_bound, k2_by = _bound_ms(n_in * 4 * n + 2 * 4 + (n_in - 1) * 4 * n,
                                     _k2_ops(y, mu, th, with_pi))
         k1_val_bound, _ = _bound_ms(n_in * 4 * yv.numel() + 4 * 4,
                                     _k1_ops(yv, muv, thv, with_pi))
+        vs_parent = "" if parent is None else (
+            f", the parent's (its division, then its K2) {parent_back_ms * 1e3:.2f} us (in "
+            f"turns: parent {turns[0] * 1e3:.2f}, change {turns[1] * 1e3:.2f}, "
+            f"{turns[2] * 1e3:.2f}, parent {turns[3] * 1e3:.2f} us)")
         print(f"phase 2: {fam} K1 {k1_ms * 1e3:.2f} us, one launch, loss and denominator "
               f"included (plain "
               f"{k1_plain_ms * 1e3:.2f} us, bound {k1_bound * 1e3:.2f} us by {k1_by}); "
               f"K2 {k2_ms * 1e3:.2f} us (plain {k2_plain_ms * 1e3:.2f} us, bound "
-              f"{k2_bound * 1e3:.2f} us by {k2_by}); K1 at (273, {G}) "
+              f"{k2_bound * 1e3:.2f} us by {k2_by}); one whole loss backward "
+              f"{back_ms * 1e3:.2f} us{vs_parent}; K1 at (273, {G}) "
               f"{k1_val_ms * 1e3:.2f} us (bound {k1_val_bound * 1e3:.2f} us); no single "
               "PyTorch call computes either function")
         out[f"{fam}_fwd"] = (k1_ms, k1_plain_ms, k1_bound, k1_by,
                              {"val_ms": k1_val_ms, "val_bound_ms": k1_val_bound})
-        out[f"{fam}_bwd"] = (k2_ms, k2_plain_ms, k2_bound, k2_by, {})
+        out[f"{fam}_bwd"] = (k2_ms, k2_plain_ms, k2_bound, k2_by,
+                             {"whole_backward_ms": back_ms,
+                              "parent_whole_backward_ms": parent_back_ms})
     return out
 
 
@@ -795,12 +852,14 @@ def weighted_timings(dev):
                 bound, by = _bound_ms(n_in * 4 * n + 4 * B + 4 * 4,
                                       _k1_ops(y, mu, th, with_pi) + n)
             else:
-                scale = torch.full((1,), 1.0 / n, device=dev)
-                ms = _device_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, scale, w))
-                plain_ms = _device_ms(lambda: fl._bwd_reference(y, mu, th, pi, 0.1, scale, w))
-                # also the scale read and 2 or 3 (B, G) gradients written;
-                # w * scale once more per element
-                bound, by = _bound_ms(n_in * 4 * n + 4 * B + 4 + (n_in - 1) * 4 * n,
+                g = torch.tensor(G_BWD, device=dev)
+                _, denom = fl._fwd_kernel(y, mu, th, pi, 0.1, w)
+                ms = _device_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom, w))
+                plain_ms = _device_ms(
+                    lambda: fl._bwd_reference(y, mu, th, pi, 0.1, g, denom, w))
+                # also g and the denominator read and 2 or 3 (B, G)
+                # gradients written; w * scale once more per element
+                bound, by = _bound_ms(n_in * 4 * n + 4 * B + 2 * 4 + (n_in - 1) * 4 * n,
                                       _k2_ops(y, mu, th, with_pi) + n)
             out[f"{fam}_{kind}_w"] = (ms, plain_ms, bound, by, {"timed_shape": [B, G]})
             print(f"phase 2: {fam} K{1 if kind == 'fwd' else 2}w at {(B, G)}: "
@@ -1322,6 +1381,12 @@ def main():
     sys.path.insert(0, REPO)
     import dca_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    parent = None
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        parent = load_parent(sys.argv[2])
+    elif len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device("cuda")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1331,7 +1396,7 @@ def main():
         worst = phase_compare(dev)
         worst_w = phase_weighted_compare(dev)
         dense_err = phase_dense_compare(dev)
-        times = phase_timings(dev)
+        times = phase_timings(dev, parent)
         times.update(weighted_timings(dev))
         dense_times = dense_timings(dev)
         phase_zoo()

@@ -41,7 +41,9 @@ constexpr long long kFwdMaxBlocks = 132 * 8;
 // K1's workspace: the (2, kFwdMaxBlocks) per-block partials, then one
 // unsigned ticket counter (the float's bits; 0 between launches).
 constexpr long long kFwdWorkspaceFloats = 2 * kFwdMaxBlocks + 1;
-constexpr int kBwdThreads = 256;
+// K2: one element a thread, 128 threads a block (the fastest of 64, 128
+// and 256 on the H100 at the training step, PERF.md)
+constexpr int kBwdThreads = 128;
 
 // Broadcast modes of theta and pi; the wrapper (ops/fused_loss.py) passes
 // the same numbers.
@@ -109,26 +111,39 @@ __device__ __forceinline__ void nll_grads(float y, float m, float th_raw,
     const float th_e = t + DCA_EPS;
     const float mu_e = m + DCA_EPS;
     const float thmu = th_e + m;
+    // the divisions of the plain _elem_grads, each the bits of the IEEE
+    // division, but without its branch to the slow path (dca_div_normal),
+    // and each denominator's reciprocal taken once.  The denominators are
+    // at least 1e-10 for theta, mu >= 0 and 0 <= pi <= 1; only a numerator
+    // below 2^-100 (the ZINB zero case where z underflows) may round one
+    // bit apart.
+    const float r_th = dca_rcp_normal(th_e);
+    const float r_thmu = dca_rcp_normal(thmu);
+    const float r_mu = dca_rcp_normal(mu_e);
 
-    float dmu = (t + y0) / thmu - y0 / mu_e;
-    float dth = dca_digamma(th_e) - dca_digamma(y0 + th_e) + log1pf(m / th_e) +
-                (t + y0) * (1.0f / thmu - 1.0f / th_e) + y0 / th_e;
+    float dmu = dca_div_normal(t + y0, thmu, r_thmu) - dca_div_normal(y0, mu_e, r_mu);
+    float dth = dca_digamma(th_e) - dca_digamma(y0 + th_e) +
+                log1pf(dca_div_normal(m, th_e, r_th)) + (t + y0) * (r_thmu - r_th) +
+                dca_div_normal(y0, th_e, r_th);
     if (WITH_PI) {
         const float safe_th = floor_theta(t);
         const float tme = t + m + DCA_EPS;
         const float z =
             t > 0.0f ? expf(t * (logf(safe_th) - logf(tme))) : 1.0f;
         const float denom = pi + (1.0f - pi) * z + DCA_EPS;
+        const float r_den = dca_rcp_normal(denom);
+        const float r_tme = dca_rcp_normal(tme);
         const bool is_zero = y < DCA_ZERO_THRESHOLD;
-        if (is_zero) {
-            const float dz_dmu = -z * t / tme;
-            const float dz_dth =
-                z * (logf(safe_th) - logf(tme) + 1.0f - t / tme);
-            dmu = -(1.0f - pi) * dz_dmu / denom;
-            dth = -(1.0f - pi) * dz_dth / denom;
-        }
-        const float dpi = is_zero ? -(1.0f - z) / denom
-                                  : 1.0f / (1.0f - pi + DCA_EPS);
+        // both cases computed, one selected: straight-line code
+        const float dz_dmu = dca_div_normal(-z * t, tme, r_tme);
+        const float dz_dth =
+            z * (logf(safe_th) - logf(tme) + 1.0f - dca_div_normal(t, tme, r_tme));
+        const float dmu_zero = dca_div_normal(-(1.0f - pi) * dz_dmu, denom, r_den);
+        const float dth_zero = dca_div_normal(-(1.0f - pi) * dz_dth, denom, r_den);
+        dmu = is_zero ? dmu_zero : dmu;
+        dth = is_zero ? dth_zero : dth;
+        const float dpi = is_zero ? dca_div_normal(-(1.0f - z), denom, r_den)
+                                  : dca_rcp_normal(1.0f - pi + DCA_EPS);
         *gpi = dpi + 2.0f * ridge * pi;
     }
     *gmu = dmu;
@@ -250,20 +265,27 @@ nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
 }
 
 // K2: the full (B, G) d loss / d mu, d theta and (WITH_PI) d pi, each times
-// *scale (= g / denom, read from device memory).  d theta is 0 where theta
-// was clipped.  With WITH_W (K2w), each times w * scale, formed in that
-// order, where the target is not NaN, and exactly 0 where it is: a
-// zero-weight (padding) row gets a gradient of exactly 0, and a NaN target
-// no y = 0 gradient, unlike the unweighted K2.  A broadcast operand's
-// gradient is summed to its shape by the wrapper.
+// scale = g / denom, which every thread forms from the incoming gradient g
+// and K1's denominator, both read from device memory, with one division
+// rounded as PyTorch's g / denom is: the wrapper launches nothing else.
+// d theta is 0 where theta was clipped.  With WITH_W (K2w), each times
+// w * scale, formed in that order, where the target is not NaN, and exactly
+// 0 where it is: a zero-weight (padding) row gets a gradient of exactly 0,
+// and a NaN target no y = 0 gradient, unlike the unweighted K2.  A broadcast
+// operand's gradient is summed to its shape by the wrapper.
+//
+// The element's chain (nll_grads, dca_digamma) holds no IEEE division: its
+// divisions and reciprocals are the IEEE ones' own fast paths without the
+// branch to the slow path (dca_div_normal, dca_rcp_normal), so the chain is
+// straight-line code; g / denom is one IEEE division a thread.
 template <bool WITH_PI, bool WITH_W>
 __global__ void __launch_bounds__(kBwdThreads)
 nll_bwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
                const float* __restrict__ th, const float* __restrict__ pi,
-               const float* __restrict__ w, const float* __restrict__ scale,
-               float* __restrict__ dmu, float* __restrict__ dth,
-               float* __restrict__ dpi, long long n, long long G, int th_mode,
-               int pi_mode, float ridge) {
+               const float* __restrict__ w, const float* __restrict__ g,
+               const float* __restrict__ denom, float* __restrict__ dmu,
+               float* __restrict__ dth, float* __restrict__ dpi, long long n,
+               long long G, int th_mode, int pi_mode, float ridge) {
     const long long i = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
     if (i >= n) return;
     const float yv = y[i];
@@ -271,18 +293,18 @@ nll_bwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
     float gmu, gth, gpi;
     nll_grads<WITH_PI>(yv, mu[i], th[bcast_index(i, G, th_mode)], piv, ridge,
                        &gmu, &gth, &gpi);
+    const float scale = __fdiv_rn(*g, *denom);
     if (WITH_W) {
         const bool sel = !isnan(yv);
-        const float f = w[i / G] * *scale;
+        const float f = w[i / G] * scale;
         dmu[i] = sel ? gmu * f : 0.0f;
         dth[i] = sel ? gth * f : 0.0f;
         if (WITH_PI) dpi[i] = sel ? gpi * f : 0.0f;
         return;
     }
-    const float s = *scale;
-    dmu[i] = gmu * s;
-    dth[i] = gth * s;
-    if (WITH_PI) dpi[i] = gpi * s;
+    dmu[i] = gmu * scale;
+    dth[i] = gth * scale;
+    if (WITH_PI) dpi[i] = gpi * scale;
 }
 
 template <bool WITH_PI, bool WITH_W>
@@ -297,11 +319,12 @@ void launch_fwd(int grid, cudaStream_t st, const float* y, const float* mu,
 template <bool WITH_PI, bool WITH_W>
 void launch_bwd(unsigned int grid, cudaStream_t st, const float* y,
                 const float* mu, const float* th, const float* pi,
-                const float* w, const float* scale, float* dmu, float* dth,
-                float* dpi, long long n, long long G, int th_mode, int pi_mode,
-                float ridge) {
+                const float* w, const float* g, const float* denom, float* dmu,
+                float* dth, float* dpi, long long n, long long G, int th_mode,
+                int pi_mode, float ridge) {
     nll_bwd_kernel<WITH_PI, WITH_W><<<grid, kBwdThreads, 0, st>>>(
-        y, mu, th, pi, w, scale, dmu, dth, dpi, n, G, th_mode, pi_mode, ridge);
+        y, mu, th, pi, w, g, denom, dmu, dth, dpi, n, G, th_mode, pi_mode,
+        ridge);
 }
 
 }  // namespace
@@ -332,19 +355,21 @@ int dca_nll_fwd(const float* y, const float* mu, const float* th,
     return (int)cudaGetLastError();
 }
 
+// g and denom: one float each, the incoming gradient and K1's denominator.
 // pi and dpi are not touched (and may be NULL) unless with_pi, nor w unless
 // with_w.
 int dca_nll_bwd(const float* y, const float* mu, const float* th,
-                const float* pi, const float* w, const float* scale, float* dmu,
-                float* dth, float* dpi, long long n, long long G, int th_mode,
-                int pi_mode, float ridge, int with_pi, int with_w,
-                void* stream) {
+                const float* pi, const float* w, const float* g,
+                const float* denom, float* dmu, float* dth, float* dpi,
+                long long n, long long G, int th_mode, int pi_mode,
+                float ridge, int with_pi, int with_w, void* stream) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
     const unsigned int grid =
         (unsigned int)((n + kBwdThreads - 1) / kBwdThreads);
     const cudaStream_t st = (cudaStream_t)stream;
     auto launch = with_pi ? (with_w ? launch_bwd<true, true> : launch_bwd<true, false>)
                           : (with_w ? launch_bwd<false, true> : launch_bwd<false, false>);
-    launch(grid, st, y, mu, th, pi, w, scale, dmu, dth, dpi, n, G, th_mode,
+    launch(grid, st, y, mu, th, pi, w, g, denom, dmu, dth, dpi, n, G, th_mode,
            pi_mode, ridge);
     return (int)cudaGetLastError();
 }

@@ -38,10 +38,9 @@ _SIGNATURES = {
     # y, mu, theta, pi, w, workspace, out, n, G, theta mode, pi mode, ridge,
     # with_pi, with_w, stream
     "dca_nll_fwd": ([_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _I, _P], _I),
-    # y, mu, theta, pi, w, scale, d mu, d theta, d pi, n, G, theta mode,
+    # y, mu, theta, pi, w, g, denom, d mu, d theta, d pi, n, G, theta mode,
     # pi mode, ridge, with_pi, with_w, stream
-    "dca_nll_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
-                     _I, _P], _I),
+    "dca_nll_bwd": ([_P] * 10 + [_LL, _LL, _I, _I, _F, _I, _I, _P], _I),
     # splits, out: co-resident clusters of that many split-K blocks
     "dca_fused_dense_max_clusters": ([_I, ctypes.POINTER(ctypes.c_int)], _I),
     # x, w, b, s, t, sf, out, M, K, N, activation, with_bn, with_sf, bf16,

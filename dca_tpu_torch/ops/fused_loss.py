@@ -11,7 +11,8 @@ denominator counts the non-NaN results.  y and mu are (B, G) float32;
 theta and pi may each be (B, G), (1, G) (constant dispersion), (B, 1) (the
 ``*-shared`` heads) or (1, 1), the shapes the JAX package's ``_bcastable``
 accepts.  Each is a ``torch.autograd.Function`` whose forward launches K1
-and whose backward launches K2 (``csrc/fused_nll.cu``), with the Stirling
+and whose backward launches K2 (``csrc/fused_nll.cu``), one launch each
+and nothing else where theta and pi are (B, G), with the Stirling
 ``lgamma``/``digamma`` of ``csrc/special.cuh`` inlined in both; a broadcast
 operand is read in place by the kernels, and its gradient is K2's full
 (B, G) cotangent summed over the broadcast axes, as the JAX package's
@@ -255,10 +256,12 @@ def _fwd_reference(y, mu, theta, pi, ridge, w=None):
     return out[2], out[3]
 
 
-def _bwd_reference(y, mu, theta, pi, ridge, scale, w=None):
-    """Plain version of K2 and its wrapper: the gradients times ``scale``
-    (weighted: times ``w * scale``, and exactly 0 at NaN targets), each
-    summed to its operand's shape."""
+def _bwd_reference(y, mu, theta, pi, ridge, g, denom, w=None):
+    """Plain version of K2 and its wrapper: the gradients times scale =
+    ``g / denom``, one float32 division as K2 forms it (weighted: times
+    ``w * scale``, and exactly 0 at NaN targets), each summed to its
+    operand's shape."""
+    scale = g / denom
     grads = _elem_grads(y, mu, theta, pi, ridge)
     if w is None:
         grads = [None if d is None else d * scale for d in grads]
@@ -278,10 +281,10 @@ def nb_nll_fwd_reference(y, mu, theta):
     return _fwd_reference(y, mu, theta, None, 0.0)
 
 
-def nb_nll_bwd_reference(y, mu, theta, scale):
+def nb_nll_bwd_reference(y, mu, theta, g, denom):
     """Plain version of the NB K2 and its wrapper: (d mu, d theta), each
-    times ``scale`` and of its operand's shape."""
-    return _bwd_reference(y, mu, theta, None, 0.0, scale)
+    times ``g / denom`` and of its operand's shape."""
+    return _bwd_reference(y, mu, theta, None, 0.0, g, denom)
 
 
 def zinb_nll_fwd_reference(y, mu, theta, pi, ridge=0.0):
@@ -294,10 +297,11 @@ def nb_nll_fwd_w_reference(y, mu, theta, w):
     return _fwd_reference(y, mu, theta, None, 0.0, w)
 
 
-def nb_nll_bwd_w_reference(y, mu, theta, w, scale):
+def nb_nll_bwd_w_reference(y, mu, theta, w, g, denom):
     """Plain version of the NB K2w and its wrapper: (d mu, d theta), each
-    times ``w * scale``, 0 at NaN targets, and of its operand's shape."""
-    return _bwd_reference(y, mu, theta, None, 0.0, scale, w)
+    times ``w * (g / denom)``, 0 at NaN targets, and of its operand's
+    shape."""
+    return _bwd_reference(y, mu, theta, None, 0.0, g, denom, w)
 
 
 def zinb_nll_fwd_w_reference(y, mu, theta, pi, w, ridge=0.0):
@@ -394,7 +398,7 @@ def _fwd_kernel(y, mu, theta, pi, ridge, w=None):
     return out[2], out[3]
 
 
-def _bwd_kernel(y, mu, theta, pi, ridge, scale, w=None):
+def _bwd_kernel(y, mu, theta, pi, ridge, g, denom, w=None):
     """Launch K2 (NB when ``pi`` is None; K2w with ``w``); see
     ``nb_nll_bwd_kernel``."""
     from ._build import library
@@ -402,9 +406,9 @@ def _bwd_kernel(y, mu, theta, pi, ridge, scale, w=None):
     _check(y, mu, theta, pi, w)
     if not mu.is_cuda:
         raise ValueError("the K2 wrapper needs CUDA tensors")
-    if (scale.dtype != torch.float32 or scale.numel() != 1
-            or scale.device != mu.device):
-        raise ValueError("the K2 wrapper: scale must be one float32 on mu's device")
+    for what, t in (("g", g), ("denom", denom)):
+        if t.dtype != torch.float32 or t.numel() != 1 or t.device != mu.device:
+            raise ValueError(f"the K2 wrapper: {what} must be one float32 on mu's device")
     lib = library()
     dmu = torch.empty_like(mu)
     dth = torch.empty_like(mu)
@@ -413,10 +417,10 @@ def _bwd_kernel(y, mu, theta, pi, ridge, scale, w=None):
         err = lib.dca_nll_bwd(
             y.data_ptr(), mu.data_ptr(), theta.data_ptr(),
             None if pi is None else pi.data_ptr(), None if w is None else w.data_ptr(),
-            scale.data_ptr(),
+            g.data_ptr(), denom.data_ptr(),
             dmu.data_ptr(), dth.data_ptr(), None if dpi is None else dpi.data_ptr(),
-            mu.numel(), mu.shape[1],
-            _mode(theta, mu.shape), 0 if pi is None else _mode(pi, mu.shape),
+            mu.numel(), mu.shape[1], _mode(theta, mu.shape),
+            0 if pi is None else _mode(pi, mu.shape),
             float(ridge), pi is not None, w is not None,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
@@ -456,20 +460,29 @@ def nb_nll_fwd_kernel(y, mu, theta):
     return _fwd_kernel(y, mu, theta, None, 0.0)
 
 
-def nb_nll_bwd_kernel(y, mu, theta, scale):
-    """Launch the NB K2; return (d mu, d theta), each times ``scale``.
+def nb_nll_bwd_kernel(y, mu, theta, g, denom):
+    """Launch the NB K2; return (d mu, d theta), each times g / denom.
 
-    ``scale`` is a one-element float32 tensor on the device (g / denom),
-    passed by pointer as the JAX package passes it in SMEM: nothing is read
-    back to the host.  Replaces the Pallas kernel
+    ``g`` (the incoming gradient) and ``denom`` (K1's denominator) are
+    one-element float32 tensors on the device, passed by pointer as the JAX
+    package passes its scale in SMEM: nothing is read back to the host, and
+    the kernel forms g / denom itself, so a loss backward is this one
+    launch.  Replaces the Pallas kernel
     ``dca_tpu/ops/fused_loss.py::_bwd_kernel`` (driven by ``_pallas_bwd``)
-    with ``with_pi=False``, which writes no d pi.  Bound on the H100 by
-    memory: it reads y, mu, theta and writes two (B, G) outputs, 5 x
-    441,728 B = 2.21 MB at (32, 3451), at least 0.66 us at 3.35 TB/s.
-    Design: one thread per element, coalesced loads and stores, the
-    analytic gradients in registers; a broadcast theta's (B, G) cotangent
-    is summed to its shape by one torch reduction."""
-    return _bwd_kernel(y, mu, theta, None, 0.0, scale)
+    with ``with_pi=False``, which writes no d pi, and the division before
+    it.  Its byte bound on the H100: it reads y, mu, theta and writes two
+    (B, G) outputs, 5 x 441,728 B = 2.21 MB at (32, 3451), at least 0.66 us
+    at 3.35 TB/s.  It is held back instead by the instructions each
+    element issues (two digamma recurrences of up to 8 reciprocals,
+    log1p, the products) and the launch.  Design: no IEEE division or
+    reciprocal on the element's chain, so no branch to a slow path: the
+    recurrence steps are selects, and each division and reciprocal of
+    ``_elem_grads`` is the IEEE one's own fast path (the same bits, but
+    for numerators below 2^-100), each denominator's reciprocal taken
+    once; g / denom is one IEEE division a thread.  One element a thread,
+    128 threads a block.  A broadcast theta's (B, G) cotangent is summed
+    to its shape by one torch reduction."""
+    return _bwd_kernel(y, mu, theta, None, 0.0, g, denom)
 
 
 def zinb_nll_fwd_kernel(y, mu, theta, pi, ridge=0.0):
@@ -484,16 +497,17 @@ def zinb_nll_fwd_kernel(y, mu, theta, pi, ridge=0.0):
     return _fwd_kernel(y, mu, theta, pi, ridge)
 
 
-def zinb_nll_bwd_kernel(y, mu, theta, pi, ridge, scale):
+def zinb_nll_bwd_kernel(y, mu, theta, pi, ridge, g, denom):
     """Launch the ZINB K2; return (d mu, d theta, d pi), each times
-    ``scale`` and summed to its operand's shape.
+    g / denom and summed to its operand's shape.
 
     Replaces ``dca_tpu/ops/fused_loss.py::_bwd_kernel`` with
-    ``with_pi=True``: one thread per element, writing the full (B, G)
-    d mu, d theta and d pi.  Bound on the H100 by memory: it reads 4 and
-    writes 3 (B, G) arrays, 7 x 441,728 B = 3.09 MB at (32, 3451), at
-    least 0.92 us at 3.35 TB/s."""
-    return _bwd_kernel(y, mu, theta, pi, ridge, scale)
+    ``with_pi=True``: the design of the NB K2, templated on WITH_PI,
+    writing the full (B, G) d mu, d theta and d pi.  Its byte bound: it
+    reads 4 and writes 3 (B, G) arrays, 7 x 441,728 B = 3.09 MB at (32,
+    3451), at least 0.92 us at 3.35 TB/s; the zero case adds three logf,
+    an expf and three reciprocals to each chain."""
+    return _bwd_kernel(y, mu, theta, pi, ridge, g, denom)
 
 
 class _FusedNLL(torch.autograd.Function):
@@ -528,9 +542,9 @@ class _FusedNLL(torch.autograd.Function):
         if mu.numel() == 0:
             grads = [torch.zeros_like(t) for t in (mu, theta, pi) if t is not None]
         else:
-            scale = (g / denom).to(torch.float32).reshape(1)
+            # K2 divides g by the denominator itself: one launch in all
             bwd = _bwd_kernel if mu.is_cuda else _bwd_reference
-            grads = bwd(y, mu, theta, pi, ctx.ridge, scale, w)
+            grads = bwd(y, mu, theta, pi, ctx.ridge, g, denom, w)
         dpi = grads[2] if pi is not None else None
         return None, grads[0], grads[1], dpi, None, None, None
 

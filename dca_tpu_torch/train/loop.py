@@ -36,7 +36,10 @@ decisions.
 
 The streaming trainer, the whole-fit-as-one-program path,
 checkpoint/resume, TensorBoard, saved weights and gene-dim model
-parallelism wait for later slices (ROADMAP.md, Queue 1).
+parallelism wait for later slices (ROADMAP.md, Queue 1): ``train`` takes
+the JAX package's keywords for them and raises ``NotImplementedError``
+where the JAX package would run one of those paths, before anything is
+densified or copied to the device.
 """
 
 from __future__ import annotations
@@ -146,11 +149,27 @@ def train(
     verbose=True,
     threads=None,
     seed=42,
+    compiled="auto",
+    checkpoint_every=0,
+    resume=False,
+    max_device_cells=None,
     devices=None,
     model_parallel=1,
+    **kwds,
 ):
     """Fit ``network`` (built) on ``adata``, on the network's device.
     Returns a History.
+
+    The keywords are the JAX package's ``train``'s, in its order; unknown
+    ones are accepted and ignored, as there.  ``compiled`` "auto" or False
+    runs this eager loop (the JAX package's "auto" takes its whole-fit
+    program only on a TPU); True raises, unless the network is in
+    ``debug`` mode, where the JAX package runs its eager loop too.
+    ``checkpoint_every > 0`` and ``resume`` raise.  The size gate of the
+    JAX package: an input of more than ``max_device_cells`` cells, or
+    without it one whose input and target, n_cells * n_genes * 4 * 2
+    bytes, exceed DCA_TPU_DEVICE_BYTES (default 6e9), would take its
+    streaming trainer, and raises here.
 
     ``devices``/``model_parallel`` as the JAX package's: None for one
     device; ``"all"``, an int or a list for data parallelism over the
@@ -162,6 +181,18 @@ def train(
         raise _not_ported("save_weights (weights.hdf5)")
     if tensorboard:
         raise _not_ported("TensorBoard logging")
+    if checkpoint_every or resume:
+        raise _not_ported("checkpoint/resume (checkpoint_every, resume)")
+    if compiled != "auto" and compiled and not network.definition.debug:
+        raise _not_ported("the whole-fit compiled program (train/compiled.py)")
+    n_cells, n_genes = adata.n_obs, adata.n_vars
+    if max_device_cells is not None:
+        stream = n_cells > max_device_cells
+    else:
+        stream = n_cells * n_genes * 4 * 2 > int(os.environ.get("DCA_TPU_DEVICE_BYTES",
+                                                                6_000_000_000))
+    if stream:
+        raise _not_ported("the streaming trainer for inputs above the device budget")
     if threads:
         torch.set_num_threads(threads)
     if output_dir is not None:

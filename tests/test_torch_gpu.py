@@ -2,7 +2,11 @@
 and ZINB, with full and broadcast theta/pi, their weighted variants
 K1w/K2w, and the fused dense block K4 through both tilings of its plan and
 every split of its split-K tiling; the one-launch K1 the same bits twice
-and under CUDA-graph replay, and one device operation a loss forward.
+and under CUDA-graph replay, and one device operation a loss forward; K2
+with a non-unit incoming gradient, on fresh tensors and on views at an
+odd address, the same bits twice and under CUDA-graph replay, and one
+device operation a loss backward; and the reciprocal and division of
+``csrc/special.cuh`` the same bits as CUDA's IEEE ones.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -11,13 +15,17 @@ machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -q
 """
 
+import ctypes
+import os
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs, _on, _ulps,
                         _weights, check_dense_case, check_weighted_case, dense_inputs)
-from dca_tpu_torch.ops import fused_dense, fused_loss
+from dca_tpu_torch.ops import _build, fused_dense, fused_loss
 
 
 def _data(B, G, seed=0, nan_frac=0.0):
@@ -57,7 +65,7 @@ def test_kernels_match_plain_version_on_card(cuda, shape, nan_frac):
     with torch.no_grad():
         ref, denom = fused_loss.nb_nll_fwd_reference(y, mu, th)
         scale = 1.0 / denom
-        rmu, rth = fused_loss.nb_nll_bwd_reference(y, mu, th, scale)
+        rmu, rth = fused_loss.nb_nll_bwd_reference(y, mu, th, torch.ones_like(denom), denom)
         mags = fused_loss.grad_term_magnitudes(y, mu, th)
     # the tolerances chip_smoke.py states; the gradients' on the unscaled
     # values, since the path scales them by 1 / denom
@@ -108,7 +116,7 @@ def test_zinb_and_broadcast_kernels_match_plain_version_on_card(cuda, shape_inde
     with torch.no_grad():
         ref, denom = fused_loss._fwd_reference(y, mu, th, pi, ridge)
         scale = 1.0 / denom
-        refs = fused_loss._bwd_reference(y, mu, th, pi, ridge, scale.reshape(1))
+        refs = fused_loss._bwd_reference(y, mu, th, pi, ridge, torch.ones_like(denom), denom)
         fulls = fused_loss._elem_grads(y, mu, th, pi, ridge)
         mags = fused_loss.grad_term_magnitudes(y, mu, th, pi, ridge)
     assert abs(loss.item() - ref.item()) / abs(ref.item()) <= 1e-5
@@ -241,3 +249,255 @@ def test_one_launch_k1_same_bits_in_graphs_and_one_device_op(cuda, family, weigh
         torch.cuda.synchronize()
     ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     assert sum(e.count for e in ops) == 5, [(e.key, e.count) for e in ops]
+
+
+def _placed(a, dev, aligned):
+    """``a`` on the card: a fresh tensor (aligned as PyTorch's allocator
+    aligns it), or a contiguous view one float past an aligned address."""
+    t = torch.from_numpy(a).to(dev)
+    if aligned:
+        return t
+    view = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True], ids=["K2", "K2w"])
+@pytest.mark.parametrize("family", ["nb", "zinb"])
+@pytest.mark.parametrize("shape,nan_frac,n_clipped,aligned", [
+    ((32, 3451), 0.0, 0, True), ((25, 3451), 0.0, 0, True), ((7, 50), 0.1, 3, True),
+    ((32, 3451), 0.0, 0, False), ((7, 50), 0.1, 3, False)], ids=str)
+def test_k2_matches_plain_version_same_bits_in_graphs(cuda, shape, nan_frac, n_clipped,
+                                                      aligned, family, weighted):
+    """K2/K2w against the plain version with a non-unit incoming gradient,
+    at the step shape, the trailing step and a ragged (7, 50) with NaN
+    targets and clipped theta, on fresh tensors and on views one float
+    past an aligned address; the same bits on a second launch and on
+    CUDA-graph replays."""
+    B, G = shape
+    y, mu, th, pi = (None if a is None else _placed(a, cuda, aligned)
+                     for a in _loss_inputs(B, G, 31, nan_frac, n_clipped,
+                                           pi_shape=(B, G) if family == "zinb" else None))
+    w = torch.from_numpy(_weights(B, "fractional", 31)).to(cuda) if weighted else None
+    g = torch.tensor(0.37, device=cuda)
+    _, denom = fused_loss._fwd_kernel(y, mu, th, pi, 0.1, w)
+
+    def k2():
+        return fused_loss._bwd_kernel(y, mu, th, pi, 0.1, g, denom, w)
+
+    name = fused_loss._name(pi, w, "bwd")
+    before = fused_loss.launches[name]
+    got = [t.clone() for t in k2()]
+    assert fused_loss.launches[name] == before + 1
+    with torch.no_grad():
+        refs = fused_loss._bwd_reference(y, mu, th, pi, 0.1, g, denom, w)
+        w_eff = 1.0 if w is None else torch.where(torch.isnan(y), 0.0, w)
+        fulls = [d * w_eff for d in fused_loss._elem_grads(y, mu, th, pi, 0.1) if d is not None]
+        mags = [m * w_eff for m in fused_loss.grad_term_magnitudes(y, mu, th, pi, 0.1)
+                if m is not None]
+    for name, a, want, full, mag in zip(("mu", "theta", "pi"), got, refs, fulls, mags):
+        _grad_check(name, a, want, full, mag, g / denom)
+        if weighted:
+            assert bool((a[(w_eff == 0.0).expand(B, G)] == 0.0).all()), name
+    assert all(torch.equal(a, b) for a, b in zip(got, k2()))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k2()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k2()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,weighted", [("nb", False), ("zinb", False), ("nb", True),
+                                             ("zinb", True)])
+def test_one_device_op_per_loss_backward(cuda, family, weighted):
+    """A loss backward through _FusedNLL without a group is K2 alone: the
+    kernel divides the incoming gradient by the denominator itself."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(cuda)
+                     for a in _loss_inputs(32, 3451, 9, pi_shape=(32, 3451)
+                                           if family == "zinb" else None))
+    w = torch.from_numpy(_weights(32, "padding", 9)).to(cuda) if weighted else None
+    ops = [t.requires_grad_(True) for t in (mu, th, pi) if t is not None]
+    loss = fused_loss._FusedNLL.apply(y, mu, th, pi, w, 0.1, None)
+    g = torch.tensor(0.37, device=cuda)
+    torch.autograd.grad(loss, ops, g, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            torch.autograd.grad(loss, ops, g, retain_graph=True)
+        torch.cuda.synchronize()
+    items = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in items) == 5, [(e.key, e.count) for e in items]
+    assert all("nll_bwd_kernel" in e.key for e in items), [e.key for e in items]
+
+
+@pytest.mark.gpu
+def test_k2_refuses_what_it_does_not_take(cuda):
+    y, mu, th = (_t(a).to(cuda) for a in _data(8, 16, seed=14))
+    denom = torch.tensor(100.0, device=cuda)
+    for g in (torch.ones((), dtype=torch.float64, device=cuda), torch.ones(()),
+              torch.ones(2, device=cuda)):
+        with pytest.raises(ValueError, match="g must be"):
+            fused_loss.nb_nll_bwd_kernel(y, mu, th, g, denom)
+
+
+# dca_rcp_normal and dca_div_normal against CUDA's IEEE __frcp_rn and
+# __fdiv_rn, compared bit for bit on the card.  Each kernel counts the
+# operands it tested and those that differ, and keeps the bits of one
+# that differs (a << 32 | b).
+_SPECIAL_PROBE = r"""
+#include <cuda_runtime.h>
+#include "special.cuh"
+
+__device__ unsigned long long mix(unsigned long long x) {  // splitmix64
+    x += 0x9e3779b97f4a7c15ull;
+    x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ull;
+    x = (x ^ (x >> 27)) * 0x94d049bb133111ebull;
+    return x ^ (x >> 31);
+}
+
+__device__ void tally(unsigned long long* out, unsigned long long tested,
+                      unsigned long long bad, unsigned long long example) {
+    atomicAdd(out, tested);
+    if (bad) {
+        atomicAdd(out + 1, bad);
+        atomicExch(out + 2, example);
+    }
+}
+
+// every float z with lo <= bits(|z|) <= hi, both signs
+__global__ void rcp_sweep(unsigned lo, unsigned hi, unsigned long long* out) {
+    unsigned long long tested = 0, bad = 0, example = 0;
+    const unsigned long long count = (unsigned long long)(hi - lo) + 1;
+    for (unsigned long long k = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+         k < count; k += (unsigned long long)gridDim.x * blockDim.x) {
+        for (int sign = 0; sign < 2; ++sign) {
+            const unsigned bits = (lo + (unsigned)k) | (sign ? 0x80000000u : 0u);
+            const float z = __uint_as_float(bits);
+            ++tested;
+            if (__float_as_uint(dca_rcp_normal(z)) != __float_as_uint(__frcp_rn(z))) {
+                ++bad;
+                example = bits;
+            }
+        }
+    }
+    tally(out, tested, bad, example);
+}
+
+// n pairs (a, b), bits(|a|) uniform in [a_lo, a_hi], bits(|b|) in [b_lo,
+// b_hi], each sign at random (a = +0 where a_hi == 0); only the pairs whose
+// exact quotient is a normal float (or 0, for a = +0) are tested
+__global__ void div_sample(unsigned a_lo, unsigned a_hi, unsigned b_lo, unsigned b_hi,
+                           unsigned long long n, unsigned long long seed,
+                           unsigned long long* out) {
+    unsigned long long tested = 0, bad = 0, example = 0;
+    for (unsigned long long k = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+         k < n; k += (unsigned long long)gridDim.x * blockDim.x) {
+        const unsigned long long h = mix(seed ^ mix(k));
+        const unsigned long long s = mix(h);
+        unsigned ab = a_lo + (unsigned)((h & 0xffffffffull) % ((unsigned long long)(a_hi - a_lo) + 1));
+        unsigned bb = b_lo + (unsigned)((h >> 32) % ((unsigned long long)(b_hi - b_lo) + 1));
+        if (a_hi != 0 && (s & 1)) ab |= 0x80000000u;
+        if (s & 2) bb |= 0x80000000u;
+        const float a = __uint_as_float(ab);
+        const float b = __uint_as_float(bb);
+        const double q = fabs((double)a / (double)b);
+        if (a_hi != 0 && (q < 0x1p-126 || q >= 0x1.fffffep127)) continue;
+        ++tested;
+        const float got = dca_div_normal(a, b, dca_rcp_normal(b));
+        if (__float_as_uint(got) != __float_as_uint(__fdiv_rn(a, b))) {
+            ++bad;
+            example = ((unsigned long long)ab << 32) | bb;
+        }
+    }
+    tally(out, tested, bad, example);
+}
+
+extern "C" int probe_rcp(unsigned lo, unsigned hi, unsigned long long* out) {
+    rcp_sweep<<<132 * 16, 256>>>(lo, hi, out);
+    return (int)cudaDeviceSynchronize();
+}
+
+extern "C" int probe_div(unsigned a_lo, unsigned a_hi, unsigned b_lo, unsigned b_hi,
+                         unsigned long long n, unsigned long long seed,
+                         unsigned long long* out) {
+    div_sample<<<132 * 16, 256>>>(a_lo, a_hi, b_lo, b_hi, n, seed, out);
+    return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def special_probe(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the probe runs on the card")
+    work = tmp_path_factory.mktemp("special_probe")
+    src, lib = work / "probe.cu", work / "probe.so"
+    src.write_text(_SPECIAL_PROBE)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", _build.CSRC_DIR,
+                    "-o", str(lib), str(src)], check=True, capture_output=True, text=True)
+    probe = ctypes.CDLL(str(lib))
+    u32, u64, ptr = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p
+    probe.probe_rcp.argtypes = [u32, u32, ptr]
+    probe.probe_div.argtypes = [u32, u32, u32, u32, u64, u64, ptr]
+    return probe
+
+
+def _bits(x):
+    return int(np.float32(x).view(np.uint32))
+
+
+def _probe_result(run):
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    assert run(out.data_ptr()) == 0
+    tested, bad, example = (int(v) & (2 ** 64 - 1) for v in out.tolist())
+    return tested, bad, f"{example >> 32:#010x} / {example & 0xffffffff:#010x}"
+
+
+@pytest.mark.gpu
+def test_rcp_normal_same_bits_as_ieee_reciprocal(cuda, special_probe):
+    """dca_rcp_normal(z) and __frcp_rn(z) are the same bits for every float
+    of magnitude in [2^-125, 2^125], of either sign: the range its comment
+    states, which holds every denominator of the loss (1e-10 and up)."""
+    tested, bad, example = _probe_result(
+        lambda out: special_probe.probe_rcp(_bits(2.0 ** -125), _bits(2.0 ** 125), out))
+    assert tested == 2 * (_bits(2.0 ** 125) - _bits(2.0 ** -125) + 1)
+    assert bad == 0, f"{bad} of {tested} differ, e.g. z bits {example}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_range,b_range", [
+    # the loss's operands: numerators up to counts and theta near the
+    # clip, denominators from 1e-10 (theta + eps, mu + eps, 1 - pi + eps)
+    # to theta + mu near 1e7
+    ((2.0 ** -100, 1e7), (1e-10, 1e7)),
+    # the domain the comment states
+    ((2.0 ** -100, 2.0 ** 100), (2.0 ** -100, 2.0 ** 100)),
+    # a = +0 (dz/dmu where z underflowed), over every denominator
+    # dca_rcp_normal takes
+    ((0.0, 0.0), (2.0 ** -125, 2.0 ** 125))], ids=["loss", "wide", "zero"])
+def test_div_normal_same_bits_as_ieee_division(cuda, special_probe, a_range, b_range):
+    """dca_div_normal(a, b, dca_rcp_normal(b)) and __fdiv_rn(a, b) are the
+    same bits over 2^28 pairs of each range whose quotient is normal (or
+    a = +0), the signs at random: the domain its comment states.  (With
+    |a| log-uniform from 2^-126 instead, one pair in 500 rounds a bit
+    apart: the remainder underflows.)"""
+    a_lo, a_hi = (_bits(v) for v in a_range)
+    b_lo, b_hi = (_bits(v) for v in b_range)
+    tested, bad, example = _probe_result(
+        lambda out: special_probe.probe_div(a_lo, a_hi, b_lo, b_hi, 2 ** 28, 2024, out))
+    assert tested > 2 ** 26, tested
+    assert bad == 0, f"{bad} of {tested} differ, e.g. a / b bits {example}"

@@ -202,7 +202,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_loss.nb_nll_fwd_kernel(y, mu, th)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_loss.nb_nll_bwd_kernel(y, mu, th, torch.ones(1))
+        fused_loss.nb_nll_bwd_kernel(y, mu, th, torch.ones(()), torch.ones(()))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -400,6 +400,6 @@ def test_zinb_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_loss.zinb_nll_fwd_kernel(y, mu, th, pi, 0.0)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_loss.zinb_nll_bwd_kernel(y, mu, th, pi, 0.0, torch.ones(1))
+        fused_loss.zinb_nll_bwd_kernel(y, mu, th, pi, 0.0, torch.ones(()), torch.ones(()))
     with pytest.raises(ValueError, match="pi"):
         fused_loss.zinb_nll_fused(y, mu, th, pi[:, :3].contiguous())

@@ -183,6 +183,66 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, input_t
         train(adata, NBAutoencoder(input_size=10).build(), epochs=1)
 
 
+@pytest.mark.parametrize("kwds", [{"compiled": True}, {"checkpoint_every": 2},
+                                  {"resume": True}, {"checkpoint_every": 1, "compiled": True}],
+                         ids=str)
+def test_train_refuses_paths_not_ported_by_name(kwds):
+    """The JAX package's train keywords for paths the port lacks raise
+    NotImplementedError naming ROADMAP.md, where they used to be a
+    TypeError; through dca(training_kwds=...) too."""
+    adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
+    net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train(adata, net, epochs=1, verbose=False, **kwds)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        dca_tpu_torch.dca(AnnData(make_counts(40, 10, seed=3)), epochs=1, device="cpu",
+                          hidden_size=(8, 4, 8), training_kwds=kwds)
+
+
+@pytest.mark.parametrize("gate", ["device_bytes", "max_device_cells"])
+def test_train_refuses_inputs_the_jax_package_would_stream(monkeypatch, gate):
+    """The JAX package's size gate: above DCA_TPU_DEVICE_BYTES (input and
+    target, n_cells * n_genes * 4 * 2 bytes) or above max_device_cells it
+    takes its streaming trainer, which the port refuses by name before
+    densifying anything; at the limit it fits."""
+    adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
+    n = adata.n_obs * adata.n_vars * 8
+    net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
+    if gate == "device_bytes":
+        monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", str(n - 1))
+        over, at = {}, None
+    else:
+        over, at = {"max_device_cells": adata.n_obs - 1}, {"max_device_cells": adata.n_obs}
+    with pytest.raises(NotImplementedError, match="streaming trainer.*ROADMAP.md"):
+        train(adata, net, epochs=1, verbose=False, **over)
+    if gate == "device_bytes":
+        monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", str(n))
+        at = {}
+    assert len(train(adata, net, epochs=1, verbose=False, **at).history["loss"]) == 1
+
+
+@pytest.mark.parametrize("kwds", [{"compiled": "auto"}, {"compiled": False},
+                                  {"not_a_keyword": 3, "compiled": "auto"}], ids=str)
+def test_train_takes_the_eager_loop_and_ignores_unknown_keywords(kwds):
+    """compiled "auto" and False run the eager loop, as the JAX package
+    does off the TPU, and unknown keywords pass, as there: the same
+    history as a plain call."""
+    def fit(**kw):
+        adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
+        net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
+        return train(adata, net, epochs=2, verbose=False, seed=5, **kw).history
+
+    assert fit(**kwds) == fit()
+
+
+def test_train_compiled_true_in_debug_runs_the_eager_loop():
+    """In debug mode the JAX package leaves its compiled program for the
+    eager loop whatever ``compiled`` says; so does the port."""
+    adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
+    net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), debug=True, device="cpu").build()
+    assert len(train(adata, net, epochs=1, verbose=False, compiled=True).history["loss"]) == 1
+
+
 def _port_files():
     pkg = os.path.join(REPO, "dca_tpu_torch")
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_profile.py", "chip_dp.py")]
