@@ -5,8 +5,10 @@ host, one rank per card over NCCL.
     python3 chip_dp.py [n_cards]     # default: every visible card
 
 Trains zinb-conddisp (64-32-64, batch 32) on ``chip_smoke.py``'s 2730 x
-3451 Paul15-shaped matrix on one card in this process, 2 epochs timed as
-``chip_smoke.py``'s phase 4 times them, then runs its phase 7 with
+3451 Paul15-shaped matrix on one card in this process, 2 epochs through
+``chip_smoke.py``'s phase 4 (the steps replayed from CUDA graphs, and
+eagerly), times the one-card epoch both ways as phase 4 does
+(``epoch_timings``, 2-epoch fits), then runs its phase 7 with
 ``n_cards`` spawned ranks, one per card, over NCCL: zinb-conddisp 2 epochs
 and nb-conddisp 1, the histories the same on every rank, the loss within
 rtol 1e-3 of the one-card fit and val_loss within rtol 1e-2, the per-rank
@@ -46,7 +48,8 @@ def main():
         return 1
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     try:
-        _, one_s, _, hist = cs.phase_api("zinb-conddisp", 2, timed=True)
+        _, _, hist, _ = cs.phase_api("zinb-conddisp", 2)
+        one = cs.epoch_timings(epochs=2)
         dp = cs.phase_data_parallel(hist, n, "nccl", val_rtol=1e-2)
     except cs.SmokeFailure as e:
         print(f"chip_dp: FAILED: {e}", file=sys.stderr)
@@ -54,8 +57,9 @@ def main():
     cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True, text=True,
                            timeout=60).stdout.strip().splitlines()
-    print(f"zinb-conddisp 2730 x 3451 epoch: {one_s * 1e3:.1f} ms on one card, "
-          f"{dp['per_epoch_s'] * 1e3:.1f} ms data parallel on {n} cards over NCCL; "
+    print(f"zinb-conddisp 2730 x 3451 epoch: on one card {min(one['graph']):.1f} ms from "
+          f"CUDA graphs, {min(one['eager']):.1f} ms eager (the best of 3 fits each); "
+          f"{dp['per_epoch_s'] * 1e3:.1f} ms data parallel on {n} cards over NCCL (eager); "
           f"cards: {'; '.join(cards[:n])}")
     return 0
 

@@ -2,15 +2,21 @@
 """Where the port's time goes on one NVIDIA GPU: a profile of one training
 epoch of the main path, and the loss kernels' own device time.
 
-    python3 chip_profile.py [ae_type] [--parent DIR] [--k2]
+    python3 chip_profile.py [ae_type] [--parent DIR] [--k2 | --epoch]
 
-1. One epoch of ``train()`` on the 2730 x 3451 Paul15-shaped matrix,
-   ``ae_type`` (default zinb-conddisp, the slice's main path) 64-32-64,
-   batch 32, after a warm-up epoch, under torch.profiler: the wall time,
-   the device's busy time (the sum of its kernels' durations) and idle
-   share, the kernel launches per step, and the kernels that take the most
-   device time.  The profiler's own cost lengthens the wall time.  The
-   whole table goes to ``chiprun_out/profile.txt``.
+1. The training epoch of ``train()`` on the 2730 x 3451 Paul15-shaped
+   matrix, ``ae_type`` (default zinb-conddisp, the slice's main path)
+   64-32-64, batch 32, eager (``_graphs=False``) and replayed from CUDA
+   graphs (the default on the card, ``train/graphs.py``): after a warm-up
+   fit, each path's per-epoch wall and the graph path's capture time, then
+   a 3-epoch fit under torch.profiler, started after the capture: the wall
+   time, the device's busy time (the sum of its kernels' and copies'
+   durations) and idle share, the device operations per step, for the
+   graph path the device operations one replay of the full step makes,
+   and the kernels that take the most device time.  The profiler's own
+   cost lengthens the wall time.  The whole tables go to
+   ``chiprun_out/profile_eager.txt`` and ``profile_graph.txt``.
+   ``--epoch`` runs this section alone.
 2. K1, K1w, K2 and K2w alone at the training step's (32, 3451), NB and
    ZINB: the kernels' mean device time from torch.profiler's trace, and
    the device operations one loss forward and one loss backward through
@@ -69,10 +75,51 @@ def _profiled_ms(fn, name, n=N_PROFILED):
     return None
 
 
-def profile_epoch(ae_type):
+def _fit_profiled(adata, ae_type, graphs, epochs):
+    """One ``train()`` of ``epochs`` epochs with torch.profiler started once
+    the epoch runner exists (after the graph path's warm-up and capture)
+    and stopped after the fit; returns (the profile, its wall seconds, the
+    runner)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.train import loop
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    made = {}
+    base = loop.GraphEpoch if graphs else loop.EagerEpoch
+
+    class Profiled(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made["runner"] = self
+            torch.cuda.synchronize()
+            prof.start()
+            made["t0"] = time.perf_counter()
+
+    name = "GraphEpoch" if graphs else "EagerEpoch"
+    setattr(loop, name, Profiled)
+    try:
+        net = get_ae_type(ae_type)(input_size=adata.n_vars, device="cuda").build()
+        loop.train(adata, net, epochs=epochs, verbose=False, _graphs=graphs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - made["t0"]
+        prof.stop()
+    finally:
+        setattr(loop, name, base)
+    return prof, wall, made["runner"]
+
+
+def profile_epoch(ae_type, epochs=3):
+    """Section 1: the epoch eager and from CUDA graphs, each after a warm-up
+    fit: the unprofiled per-epoch wall (``History.epoch_s``) and capture
+    time, then a profiled fit: wall, device busy and idle share, device
+    operations a step, and, for the graph path, the device operations one
+    replay of the full step's graph makes (its nodes) and the top
+    kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from dca_tpu_torch.data import io
     from dca_tpu_torch.data.adata import AnnData
@@ -80,31 +127,41 @@ def profile_epoch(ae_type):
     from dca_tpu_torch.train.loop import train
 
     adata = io.normalize(io.read_dataset(AnnData(make_paul15_like())))
-    net = get_ae_type(ae_type)(input_size=adata.n_vars, device="cuda").build()
-    train(adata, net, epochs=1, verbose=False)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    train(adata, net, epochs=1, verbose=False)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train(adata, net, epochs=1, verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    table = prof.key_averages()
-    kernels = [e for e in table if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kernels) / 1e6
-    launches = sum(e.count for e in kernels)
     steps = -(-int(adata.n_obs * 0.9) // 32)
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
-        f.write(table.table(sort_by="device_time_total", row_limit=40))
-    print(f"{ae_type}: epoch without the profiler: wall {plain_wall * 1e3:.1f} ms")
-    print(f"profiled epoch: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, "
-          f"idle share {1 - busy / wall:.3f}, {launches} kernel launches "
-          f"({launches / steps:.0f} per step)")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:6]:
-        print(f"  {e.device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    for graphs in (False, True):
+        path = "graph" if graphs else "eager"
+        walls, captures = [], []
+        for _ in range(2):  # the first fit is the warm-up
+            net = get_ae_type(ae_type)(input_size=adata.n_vars, device="cuda").build()
+            hist = train(adata, net, epochs=epochs, verbose=False, _graphs=graphs)
+            walls, captures = hist.epoch_s, hist.capture_s
+        prof, wall, runner = _fit_profiled(adata, ae_type, graphs, epochs)
+        table = prof.key_averages()
+        items = [e for e in table if e.device_type == DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in items) / 1e6
+        ops = sum(e.count for e in items)
+        with open(os.path.join(OUT_DIR, f"profile_{path}.txt"), "w") as f:
+            f.write(table.table(sort_by="device_time_total", row_limit=40))
+        print(f"{ae_type} {path}: epochs without the profiler "
+              f"{[round(t * 1e3, 2) for t in walls]} ms"
+              + (f", capture {captures * 1e3:.1f} ms" if graphs else ""))
+        print(f"  profiled, {epochs} epochs: wall {wall * 1e3:.1f} ms "
+              f"({wall / epochs * 1e3:.1f} an epoch), device busy {busy * 1e3:.1f} ms, idle "
+              f"share {1 - busy / wall:.3f}, {ops} device operations "
+              f"({ops / (epochs * steps):.0f} per step, validation included)")
+        if graphs:
+            full, step_i = runner.graphs[False], runner.bufs.step_i
+
+            def replay():
+                step_i.zero_()  # one device operation; keeps the step's row in range
+                full.replay()
+
+            ops_each, _ = _device_ops(replay)
+            print(f"  replays an epoch: {runner.bufs.n_full} of the full step's graph and "
+                  f"{len(runner.graphs) - 1} of the trailing step's; device operations a "
+                  f"replay of the full step: {ops_each - 1:.0f}")
+        for e in sorted(items, key=lambda e: -e.device_time_total)[:6]:
+            print(f"  {e.device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
 def _device_ops(fn, n=N_PROFILED):
@@ -376,6 +433,7 @@ def main():
                         help="an earlier commit unpacked at DIR: its K2 timed in turns")
     parser.add_argument("--k2", action="store_true",
                         help="only the loss kernels and K2's code (section 2 without K4)")
+    parser.add_argument("--epoch", action="store_true", help="only the training epoch (section 1)")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -383,6 +441,8 @@ def main():
     parent = None if args.parent is None else load_parent(args.parent)
     if not args.k2:
         profile_epoch(args.ae_type)
+    if args.epoch:
+        return 0
     profile_kernels(parent)
     profile_k2_code(parent)
     if not args.k2:

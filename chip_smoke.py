@@ -71,16 +71,25 @@ Phases, each of which must pass:
    both).
 3. Zoo: every architecture of ``AE_types``, and zinb-elempi with
    sharedpi, trains 2 epochs at 200 cells x 60 genes, (16, 8, 16), on the
-   CPU and on the card from the same weights; the losses must agree epoch
-   by epoch within rtol 1e-3 (matrix products and sums run in another order
-   on the two devices, and the difference grows over the RMSprop steps),
-   and the card run must launch the kernel family of its likelihood and no
-   other (normal and poisson launch none).
+   CPU (the eager loop) and on the card (the steps replayed from CUDA
+   graphs, ``train/graphs.py``) from the same weights; the losses must
+   agree epoch by epoch within rtol 1e-3 (matrix products and sums run in
+   another order on the two devices, and the difference grows over the
+   RMSprop steps), and the card run must launch the kernel family of its
+   likelihood and no other (normal and poisson launch none), its warm-up
+   steps included.
 4. API runs: ``dca_tpu_torch.dca`` on a 2730 x 3451 Paul15-shaped matrix,
    64-32-64, batch 32, on the card: zinb-conddisp for 5 epochs (the main
-   path; its per-epoch time is printed), then nb-conddisp for 2; outputs
-   finite and of the right shapes, and the kernels' launch counters, set
-   to 0 just before each run, equal to what that run must launch.
+   path), after a 1-epoch latent-mode run, then nb-conddisp for 2; each
+   through the CUDA-graph path and then eagerly on the card
+   (``training_kwds={"_graphs": False}``): outputs finite and of the right
+   shapes, the kernels' launch counters, set to 0 just before each run,
+   equal to what that run must launch (the graph run's two warm-up steps
+   included), and the two histories equal within rtol 1e-6 (whether they
+   are the same bits is printed).  Then the per-epoch wall time of
+   ``train()`` zinb-conddisp, eager and graph, three 3-epoch fits each in
+   turns, and the graph fits' capture times; the graph epoch must be the
+   faster (``epoch_timings``).
 5. CLI runs: ``python -m dca_tpu_torch counts.tsv out/ -e 2`` on the card
    with the default nb-conddisp, ``--type zinb-conddisp`` and ``--type
    zinb``, and the output contract (mean, mean_norm, latent, reduced,
@@ -882,15 +891,17 @@ LAUNCH_NAMES = [f"{fam}_nll_{kind}{w}" for fam in ("nb", "zinb") for kind in ("f
                 for w in ("", "_w")]
 
 
-def _want_launches(likelihood, epochs, steps):
+def _want_launches(likelihood, epochs, steps, warmups=0):
     """What train() on one device launches: per epoch one K1 per step and
     one for the validation split, one K2 per step (train/loop.py), of the
     likelihood's kernel family, and no weighted kernel; normal and poisson
-    launch none."""
+    launch none.  ``warmups``: the steps the CUDA-graph path runs eagerly
+    before capturing (one for each captured step, train/graphs.py), real
+    launches that move nothing of the fit."""
     want = dict.fromkeys(LAUNCH_NAMES, 0)
     if likelihood in ("nb", "zinb"):
-        want[f"{likelihood}_nll_fwd"] = epochs * (steps + 1)
-        want[f"{likelihood}_nll_bwd"] = epochs * steps
+        want[f"{likelihood}_nll_fwd"] = epochs * (steps + 1) + warmups
+        want[f"{likelihood}_nll_bwd"] = epochs * steps + warmups
     return want
 
 
@@ -899,13 +910,21 @@ def _steps(n_cells, batch=32, val_split=0.1):
     return n_full + (rem > 0)
 
 
+def _warmups(n_cells, batch=32, val_split=0.1):
+    """The graph path's warm-up steps: one for each of the full and the
+    trailing step that the split has."""
+    n_full, rem = divmod(int(n_cells * (1.0 - val_split)), batch)
+    return (n_full > 0) + (rem > 0)
+
+
 ZOO = ["normal", "poisson", "nb", "nb-conddisp", "nb-shared", "nb-fork", "zinb",
        "zinb-conddisp", "zinb-shared", "zinb-fork", "zinb-elempi", "zinb-elempi/sharedpi"]
 
 
 def phase_zoo():
     """Every architecture: a small fit on the CPU (the kernels' plain
-    versions) and on the card (the kernels) from the same weights."""
+    versions, the eager loop) and on the card (the kernels, the steps
+    replayed from CUDA graphs) from the same weights."""
     from dca_tpu_torch.data import io
     from dca_tpu_torch.data.adata import AnnData
     from dca_tpu_torch.models import core
@@ -928,9 +947,12 @@ def phase_zoo():
             else:
                 net.model.load_state_dict(state)
             fl.reset_launches()
-            hist[dev] = train(adata, net, epochs=epochs, verbose=False).history
+            fit = train(adata, net, epochs=epochs, verbose=False)
+            hist[dev] = fit.history
+        _check(fit.capture_s is not None, f"zoo {arch}: the card fit replayed no graph")
         launches = dict(fl.launches)
-        want = _want_launches(core.LIKELIHOODS[name], epochs, _steps(n_cells))
+        want = _want_launches(core.LIKELIHOODS[name], epochs, _steps(n_cells),
+                              _warmups(n_cells))
         _check(launches == want, f"zoo {arch}: launches {launches}, expected {want}")
         for key in ("loss", "val_loss"):
             _check(np.allclose(hist["cuda"][key], hist["cpu"][key], rtol=1e-3, atol=0.0),
@@ -940,9 +962,13 @@ def phase_zoo():
               f"{hist['cpu']['loss']}; launches {launches}")
 
 
-def phase_api(ae_type, epochs, timed):
-    """One dca() run of ``ae_type`` at 2730 x 3451; returns (launches,
-    per-epoch seconds or None, the trained network, its loss history)."""
+def phase_api(ae_type, epochs):
+    """``dca()`` of ``ae_type`` at 2730 x 3451, ``epochs`` epochs, through
+    the CUDA-graph path (the main path), then the same fit eagerly on the
+    card (``training_kwds={"_graphs": False}``); the two histories must be
+    equal within rtol 1e-6, and each run's launches exact.  Returns (the
+    graph run's launches, the trained network, its loss history, whether
+    the two histories are the same bits)."""
     import torch
 
     import dca_tpu_torch
@@ -954,47 +980,89 @@ def phase_api(ae_type, epochs, timed):
     n_cells, n_genes = counts.shape
     kw = dict(ae_type=ae_type, hidden_size=(64, 32, 64), batch_size=32, copy=True,
               return_info=True)
-    t_zero = None
-    if timed:
-        # warm-up, in latent mode: the denoise run below computes no latent
+    if core.LIKELIHOODS[ae_type] == "zinb":
         lat = dca_tpu_torch.dca(AnnData(counts.copy()), mode="latent", epochs=1, **kw)
         _check(lat.obsm["X_dca"].shape == (n_cells, 32),
                f"X_dca has shape {lat.obsm['X_dca'].shape}, not {(n_cells, 32)}")
         _check(bool(np.isfinite(lat.obsm["X_dca"]).all()), "X_dca is not finite")
-        t0 = time.perf_counter()
-        dca_tpu_torch.dca(AnnData(counts.copy()), epochs=0, **kw)
-        torch.cuda.synchronize()
-        t_zero = time.perf_counter() - t0
-
-    fl.reset_launches()
-    t0 = time.perf_counter()
-    ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), epochs=epochs, verbose=True,
-                                 return_model=True, **kw)
-    torch.cuda.synchronize()
-    t_run = time.perf_counter() - t0
-    launches = dict(fl.launches)
-
-    hist = ret.uns["dca_loss_history"]
-    _check(len(hist["loss"]) == epochs, f"ran {len(hist['loss'])} epochs, not {epochs}")
-    _check(np.all(np.isfinite(hist["loss"])) and np.all(np.isfinite(hist["val_loss"])),
-           f"loss history not finite: {hist}")
-    outputs = [("X", ret.X), ("X_dca_dispersion", ret.obsm["X_dca_dispersion"])]
-    if core.LIKELIHOODS[ae_type] == "zinb":
-        outputs.append(("X_dca_dropout", ret.obsm["X_dca_dropout"]))
-    for name, arr in outputs:
-        _check(arr.shape == (n_cells, n_genes),
-               f"{ae_type} {name} has shape {arr.shape}, not {(n_cells, n_genes)}")
-        _check(bool(np.isfinite(arr).all()), f"{ae_type} {name} is not finite")
 
     steps = _steps(n_cells)
-    want = _want_launches(core.LIKELIHOODS[ae_type], epochs, steps)
-    _check(launches == want, f"{ae_type}: kernel launches {launches}, expected {want}")
-    per_epoch = None if t_zero is None else (t_run - t_zero) / epochs
-    timing = "" if per_epoch is None else (
-        f" (predict-only run {t_zero:.3f} s): {per_epoch * 1e3:.1f} ms per epoch")
-    print(f"phase 4: dca() {ae_type} {n_cells} x {n_genes}, {epochs} epochs in "
-          f"{t_run:.3f} s{timing}, {steps} steps each; launches {launches}")
-    return launches, per_epoch, net, hist
+    runs = {}
+    for graphs in (True, False):
+        fl.reset_launches()
+        t0 = time.perf_counter()
+        ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), epochs=epochs, verbose=graphs,
+                                     return_model=True, training_kwds={"_graphs": graphs}, **kw)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = dict(fl.launches)
+        path = "graph" if graphs else "eager"
+
+        hist = ret.uns["dca_loss_history"]
+        _check(len(hist["loss"]) == epochs, f"ran {len(hist['loss'])} epochs, not {epochs}")
+        _check(np.all(np.isfinite(hist["loss"])) and np.all(np.isfinite(hist["val_loss"])),
+               f"loss history not finite: {hist}")
+        outputs = [("X", ret.X), ("X_dca_dispersion", ret.obsm["X_dca_dispersion"])]
+        if core.LIKELIHOODS[ae_type] == "zinb":
+            outputs.append(("X_dca_dropout", ret.obsm["X_dca_dropout"]))
+        for name, arr in outputs:
+            _check(arr.shape == (n_cells, n_genes),
+                   f"{ae_type} {name} has shape {arr.shape}, not {(n_cells, n_genes)}")
+            _check(bool(np.isfinite(arr).all()), f"{ae_type} {name} is not finite")
+        want = _want_launches(core.LIKELIHOODS[ae_type], epochs, steps,
+                              _warmups(n_cells) if graphs else 0)
+        _check(launches == want,
+               f"{ae_type} ({path}): kernel launches {launches}, expected {want}")
+        print(f"phase 4: dca() {ae_type} {n_cells} x {n_genes} ({path}), {epochs} epochs in "
+              f"{t_run:.3f} s, {steps} steps each; launches {launches}")
+        runs[graphs] = (launches, net, hist)
+
+    graph_hist, eager_hist = runs[True][2], runs[False][2]
+    for key in ("loss", "val_loss"):
+        _check(np.allclose(graph_hist[key], eager_hist[key], rtol=1e-6, atol=0.0),
+               f"{ae_type}: {key} of the graph fit {graph_hist[key]} vs the eager fit "
+               f"{eager_hist[key]}, beyond rtol 1e-6")
+    _check(graph_hist["lr"] == eager_hist["lr"], f"{ae_type}: lr histories differ")
+    same_bits = all(graph_hist[k] == eager_hist[k] for k in ("loss", "val_loss"))
+    print(f"phase 4: {ae_type} graph fit against the eager fit: within rtol 1e-6; "
+          f"{'the same bits' if same_bits else 'not the same bits'}: loss "
+          f"{graph_hist['loss']} vs {eager_hist['loss']}")
+    launches, net, hist = runs[True]
+    return launches, net, hist, same_bits
+
+
+EPOCH_TIMING_ORDER = (False, True, True, False, False, True)  # eager, graph, in turns
+
+
+def epoch_timings(ae_type="zinb-conddisp", epochs=3):
+    """The per-epoch wall time of ``train()`` on the 2730 x 3451 matrix,
+    64-32-64, batch 32, eager and from CUDA graphs, three fits each, in
+    turns (``EPOCH_TIMING_ORDER``), each fit from the same initial weights;
+    the epoch time of a fit is the mean of its epochs' walls
+    (``History.epoch_s``: steps, validation and the losses' read-back),
+    and a graph fit's capture time (warm-up and capture, before its first
+    epoch) is printed apart.  Returns {"eager": [ms, ...], "graph": [ms,
+    ...], "capture": [s, ...]}."""
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.train.loop import train
+
+    adata = _prepped_paul15()
+    out = {"eager": [], "graph": [], "capture": []}
+    for graphs in EPOCH_TIMING_ORDER:
+        net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                   device="cuda").build()
+        hist = train(adata, net, epochs=epochs, verbose=False, _graphs=graphs)
+        ms = float(np.mean(hist.epoch_s)) * 1e3
+        out["graph" if graphs else "eager"].append(ms)
+        if graphs:
+            out["capture"].append(hist.capture_s)
+        print(f"phase 4: {ae_type} {'graph' if graphs else 'eager'} fit: epochs "
+              f"{[round(t * 1e3, 2) for t in hist.epoch_s]} ms, mean {ms:.2f} ms"
+              + (f"; capture {hist.capture_s * 1e3:.1f} ms" if graphs else ""))
+    _check(np.median(out["graph"]) < np.median(out["eager"]),
+           f"the graph epoch ({out['graph']} ms) is not faster than the eager one "
+           f"({out['eager']} ms)")
+    return out
 
 
 def _prepped_paul15():
@@ -1400,8 +1468,9 @@ def main():
         times.update(weighted_timings(dev))
         dense_times = dense_timings(dev)
         phase_zoo()
-        launches, per_epoch, zinb_net, zinb_hist = phase_api("zinb-conddisp", 5, timed=True)
-        nb_launches, _, nb_net, _ = phase_api("nb-conddisp", 2, timed=False)
+        launches, zinb_net, zinb_hist, zinb_bits = phase_api("zinb-conddisp", 5)
+        nb_launches, nb_net, _, nb_bits = phase_api("nb-conddisp", 2)
+        epochs = epoch_timings()
         launches.update({k: v for k, v in nb_launches.items() if k.startswith("nb_")})
         phase_cli()
         den = phase_denoise(zinb_net, nb_net)
@@ -1432,6 +1501,9 @@ def main():
                 "launches": launches[name], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "timed_shape": [32, 3451],
+                "main_path": "phase 4: dca() zinb-conddisp 5 epochs, nb-conddisp 2, the steps "
+                             "replayed from CUDA graphs (each replay's launches counted, and "
+                             "the 2 warm-up steps of each fit)",
                 "checked_shapes": f"{shapes}; {cases}", "tolerance": tol, "card": card,
                 **extra,
             })
@@ -1488,8 +1560,11 @@ def main():
                          "ulps of the plain activation of the kernel's linear output",
             "card": card,
         })
-    print(f"per-epoch time {per_epoch * 1e3:.1f} ms (dca() 2730 x 3451, zinb-conddisp "
-          f"64-32-64, batch 32) on {card}")
+    print(f"per-epoch time (train() 2730 x 3451, zinb-conddisp 64-32-64, batch 32, 3 fits "
+          f"of 3 epochs each, in turns) on {card}: graph {epochs['graph']} ms, eager "
+          f"{epochs['eager']} ms, medians {np.median(epochs['graph']):.2f} against "
+          f"{np.median(epochs['eager']):.2f} ms; capture {epochs['capture']} s; graph "
+          f"histories the same bits as eager: zinb-conddisp {zinb_bits}, nb-conddisp {nb_bits}")
     print(f"data-parallel per-epoch time {dp['per_epoch_s'] * 1e3:.1f} ms on rank 0 (the same "
           f"fit on {DP_RANKS} ranks sharing the one card through gloo: no scaling measured) "
           f"on {card}")

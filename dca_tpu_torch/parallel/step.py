@@ -14,6 +14,12 @@ what the global batch needs over the ranks:
 The ranks start from rank 0's parameters (``place_train_state``) and apply
 the same summed gradients, so they hold the same parameters after every
 step.
+
+On every path the step takes its rows, its step index and its learning
+rate from device buffers and writes its loss there (``StepBuffers``), so
+one CUDA device can capture it in a graph and replay it
+(``train/graphs.py``); the data-parallel step runs the same body from
+Python, its collectives outside any graph.
 """
 
 from __future__ import annotations
@@ -59,17 +65,69 @@ def place_train_state(network, group):
         dist.broadcast(t.detach(), src=0, group=group)
 
 
+@dataclasses.dataclass(frozen=True)
+class StepBuffers:
+    """The device tensors a training step reads and writes besides the
+    model and the optimizer state, each at a fixed address, so that a
+    captured step replays on them (``train/graphs.py``):
+
+      * ``perm`` (n_train,) int64: the epoch's row order, copied in once an
+        epoch;
+      * ``step_i`` (1,) int64: the full step the next one is, zeroed once an
+        epoch and advanced by each full step;
+      * ``losses`` (n_full + 1,) float32: each full step's loss at its
+        ``step_i``, then the trailing step's (0 while there is none);
+      * ``lr`` () float32: the learning rate, which ReduceLROnPlateau
+        rewrites between epochs.
+
+    They are what ``lax.scan`` feeds the JAX package's ``epoch_fn`` body:
+    its ``(idx, step_i)`` inputs, its stacked losses and ``lr_arr``."""
+
+    perm: torch.Tensor
+    step_i: torch.Tensor
+    losses: torch.Tensor
+    lr: torch.Tensor
+    batch: int
+
+    @classmethod
+    def create(cls, n_train, batch, lr, device):
+        return cls(perm=torch.zeros(n_train, dtype=torch.int64, device=device),
+                   step_i=torch.zeros(1, dtype=torch.int64, device=device),
+                   losses=torch.zeros(n_train // batch + 1, device=device),
+                   lr=torch.tensor(lr, dtype=torch.float32, device=device),
+                   batch=batch)
+
+    @property
+    def n_full(self):
+        return self.losses.numel() - 1
+
+    def rows(self, trailing):
+        """The rows of the next step: the ``step_i``-th batch of ``perm``
+        read on the device, or the trailing rows after the full batches."""
+        end = self.n_full * self.batch
+        if trailing:
+            return self.perm[end:]
+        return self.perm[:end].view(self.n_full, self.batch).index_select(
+            0, self.step_i).view(-1)
+
+
 def make_sharded_train_step(network, opt, group=None):
-    """One training step: ``step(X, T, SF, idx, opt_state, lr, generator)``
-    fits ``network`` on the batch of rows ``idx`` of the staged split
-    (X, T, SF), updates its parameters, optimizer state and BN state in
-    place and returns the loss (detached).  With a process ``group`` this
-    rank computes its block of the batch and the loss it returns is its
-    share; without one the step is the single-device step."""
+    """One training step: ``step(X, T, SF, bufs, opt_state, generator,
+    trailing=False)`` fits ``network`` on the next batch of rows of the
+    staged split (X, T, SF), chosen through ``bufs`` (a ``StepBuffers``),
+    at the learning rate ``bufs.lr``; it updates the parameters, the
+    optimizer state and the BN state in place and writes the loss into
+    ``bufs.losses``.  A full step takes the ``bufs.step_i``-th batch and
+    advances ``step_i``; the trailing step takes the rows after the full
+    batches.  Nothing is read back to the host, so the step can be
+    captured in a CUDA graph.  With a process ``group`` this rank computes
+    its block of the batch and the loss it writes is its share; without
+    one the step is the single-device step."""
     params = list(network.model.parameters())
     sizes = [p.numel() for p in params]
 
-    def step(X, T, SF, idx, opt_state, lr, generator):
+    def step(X, T, SF, bufs, opt_state, generator, trailing=False):
+        idx = bufs.rows(trailing)
         shard = None
         if group is not None:
             shard = batch_shard(group, len(idx))
@@ -81,8 +139,13 @@ def make_sharded_train_step(network, opt, group=None):
             flat = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat, group=group)
             grads = [g.view_as(p) for g, p in zip(flat.split(sizes), params)]
-        opt.update(grads, opt_state, params, lr)
+        opt.update(grads, opt_state, params, bufs.lr)
         network.model.load_bn_state(new_state)
-        return loss.detach()
+        loss = loss.detach().view(1)
+        if trailing:
+            bufs.losses[bufs.n_full:].copy_(loss)
+        else:
+            bufs.losses.index_copy_(0, bufs.step_i, loss)
+            bufs.step_i.add_(1)
 
     return step

@@ -1,0 +1,142 @@
+"""A training epoch's steps, run one op at a time or replayed from CUDA
+graphs.
+
+The counterpart of the JAX package's compiled epoch (``dca_tpu/train/
+loop.py``: ``epoch_fn``, one jitted ``lax.scan`` over the full steps, and
+``rem_step_fn``, one jitted step for the trailing batch).  Both runners
+take the step of ``parallel/step.py``, which reads its rows, its step
+index and its learning rate from a ``StepBuffers`` and writes its loss
+there, and run one epoch for a permutation of the train rows:
+
+  * ``EagerEpoch`` calls the step from Python, once a step: the CPU fit,
+    the ``debug`` fit (its sanitizer reads values back) and the
+    data-parallel fit (its collectives are not captured);
+  * ``GraphEpoch`` captures the full step and the trailing step once, as
+    two CUDA graphs, and replays the full one n_full times and the
+    trailing one once an epoch, after one host-to-device copy of the
+    permutation.  Before capturing, it runs each step once eagerly on a
+    side stream, which builds the kernel library, allocates and zeroes K1's
+    workspace (a synchronizing first call) and creates cuBLAS's handle, and
+    then restores in place every tensor the steps wrote and the dropout
+    generator's state, so the warm-up moves nothing of the fit.  The fit's
+    generator is registered with each graph, so a replay draws the dropout
+    masks an eager step would.  Capture once per fit; a failure raises,
+    and nothing falls back to the eager runner.
+
+The kernels' launch counters (``ops/fused_loss.launches``,
+``ops/fused_dense.launches``) count launches on the card: a wrapper counts
+when it enqueues its kernel, which under capture enqueues it into the graph
+and launches nothing, so ``GraphEpoch`` takes each graph's counts off the
+counters after its capture and adds them back at every replay.  The
+warm-up's launches are real and stay counted.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..ops import fused_dense, fused_loss
+
+_COUNTERS = (fused_loss.launches, fused_dense.launches)
+
+
+def _counts():
+    return [dict(c) for c in _COUNTERS]
+
+
+def _take_since(before):
+    """Take the launches counted since ``before`` off the counters and
+    return them."""
+    delta = []
+    for counter, was in zip(_COUNTERS, before):
+        delta.append({k: counter[k] - was[k] for k in counter})
+        counter.update(was)
+    return delta
+
+
+def _add(delta, times):
+    for counter, d in zip(_COUNTERS, delta):
+        for k, v in d.items():
+            counter[k] += v * times
+
+
+class EagerEpoch:
+    """Runs an epoch's steps from Python: ``step(trailing=False)`` n_full
+    times, then ``step(trailing=True)`` if there are trailing rows."""
+
+    def __init__(self, step, bufs, rem):
+        self.step = step
+        self.bufs = bufs
+        self.rem = rem
+
+    def start(self, perm):
+        """Load the epoch's permutation (a host int64 array) and zero the
+        step counter."""
+        self.bufs.perm.copy_(torch.from_numpy(perm))
+        self.bufs.step_i.zero_()
+
+    def __call__(self, perm):
+        self.start(perm)
+        for _ in range(self.bufs.n_full):
+            self.step()
+        if self.rem:
+            self.step(trailing=True)
+
+
+class GraphEpoch(EagerEpoch):
+    """Replays an epoch's steps from two CUDA graphs captured at
+    construction.  ``state`` lists every tensor the steps write besides
+    ``bufs`` (parameters, optimizer state, BN statistics); ``generator``
+    is the fit's dropout generator.  ``capture_s`` is the wall time of the
+    warm-up and the captures."""
+
+    def __init__(self, step, bufs, rem, state, generator):
+        super().__init__(step, bufs, rem)
+        device = bufs.perm.device
+        t0 = time.perf_counter()
+        kinds = ([False] if bufs.n_full else []) + ([True] if rem else [])
+        self._warm_up(kinds, list(state) + [bufs.step_i, bufs.losses], generator, device)
+        self.graphs = {}
+        self.launches = {}
+        pool = None
+        for trailing in kinds:
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(generator)
+            before = _counts()
+            try:
+                with torch.cuda.graph(graph, pool=pool):
+                    step(trailing=trailing)
+            finally:
+                self.launches[trailing] = _take_since(before)
+            self.graphs[trailing] = graph
+            pool = graph.pool()
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+
+    def _warm_up(self, kinds, state, generator, device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            saved = [t.detach().clone() for t in state]
+            rng = generator.get_state()
+            for trailing in kinds:
+                self.step(trailing=trailing)
+            with torch.no_grad():
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+            generator.set_state(rng)
+        torch.cuda.current_stream(device).wait_stream(side)
+
+    def __call__(self, perm):
+        self.start(perm)
+        full = self.graphs.get(False)
+        for _ in range(self.bufs.n_full):
+            full.replay()
+        if full is not None:
+            _add(self.launches[False], self.bufs.n_full)
+        trailing = self.graphs.get(True)
+        if trailing is not None:
+            trailing.replay()
+            _add(self.launches[True], 1)

@@ -1,18 +1,33 @@
 """Training loop with Keras-parity callbacks, and the CLI's run.
 
-A port of the JAX package's Python-epoch fit (``dca_tpu/train/loop.py``,
-the path it takes on every backend but the TPU):
+A port of the JAX package's fit on every backend but the TPU
+(``dca_tpu/train/loop.py::_train_inner``), whose epoch is one jitted
+``epoch_fn`` (a ``lax.scan`` over the full steps) and one jitted
+``rem_step_fn`` for the trailing batch:
 
   * the train split lives on the device, and each minibatch is gathered
     there from a per-epoch permutation drawn from
     ``np.random.RandomState(seed)``, the same stream the JAX loop draws;
+    the step reads its rows, its step index and its learning rate from
+    device buffers and writes its loss there (``parallel/step.py``,
+    ``StepBuffers``), so nothing of an epoch's steps goes through the host;
+  * on one CUDA device, outside ``debug``, the full step and the trailing
+    step are captured once a fit as two CUDA graphs and replayed, n_full
+    times and once an epoch: the counterpart of ``epoch_fn`` and
+    ``rem_step_fn`` (``train/graphs.py``).  A failed capture raises; it
+    never falls back to the eager loop.  The CPU fit, the ``debug`` fit
+    (its sanitizer reads values back, and the JAX package leaves jit there
+    too) and the data-parallel fit call the same step from Python;
   * the trailing partial batch keeps its own shape (no padding);
   * validation follows Keras ``validation_split``: the last fraction of the
-    rows is held out before any shuffling;
+    rows is held out before any shuffling, and is evaluated eagerly once
+    an epoch;
   * the per-step losses stay on the device and are read once per epoch;
   * ReduceLROnPlateau (factor 0.1, min_delta 1e-4) and EarlyStopping
-    (min_delta 0) are plain Python state between epochs; as in the JAX
-    package, the final weights are kept (no restore of the best ones).
+    (min_delta 0) are plain Python state between epochs, and the learning
+    rate reaches the step as a device scalar rewritten between epochs; as
+    in the JAX package, the final weights are kept (no restore of the best
+    ones).
 
 A deferred z-scale (``normalize(lazy_scale=True)``) is applied when the
 host arrays are assembled.  The CLI's run writes its outputs from the
@@ -34,12 +49,12 @@ The per-step and validation losses are summed over the ranks once per
 epoch, so every rank sees the same history and takes the same callback
 decisions.
 
-The streaming trainer, the whole-fit-as-one-program path,
-checkpoint/resume, TensorBoard, saved weights and gene-dim model
-parallelism wait for later slices (ROADMAP.md, Queue 1): ``train`` takes
-the JAX package's keywords for them and raises ``NotImplementedError``
-where the JAX package would run one of those paths, before anything is
-densified or copied to the device.
+The streaming trainer, the whole-fit-as-one-program path
+(``dca_tpu/train/compiled.py``), checkpoint/resume, TensorBoard, saved
+weights and gene-dim model parallelism wait for later slices (ROADMAP.md,
+Queue 1): ``train`` takes the JAX package's keywords for them and raises
+``NotImplementedError`` where the JAX package would run one of those
+paths, before anything is densified or copied to the device.
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ from __future__ import annotations
 import math
 import os
 import random
+import time
 
 import numpy as np
 import torch
@@ -56,8 +72,9 @@ from ..data.io import densify, scale_stats, size_factors
 from ..device import resolve_device
 from ..parallel.mesh import resolve_mesh
 from ..parallel.multihost import initialize, is_primary
-from ..parallel.step import (batch_shard, make_sharded_train_step, place_train_state,
-                             shard_train_data)
+from ..parallel.step import (StepBuffers, batch_shard, make_sharded_train_step,
+                             place_train_state, shard_train_data)
+from .graphs import EagerEpoch, GraphEpoch
 from .optim import get_optimizer
 
 
@@ -67,10 +84,16 @@ def _not_ported(what):
 
 
 class History:
-    """Keras-style history object (.history dict of per-epoch lists)."""
+    """Keras-style history object (.history dict of per-epoch lists).
+    ``epoch_s``: each epoch's wall time, the steps, the validation and the
+    read-back of its losses; ``capture_s``: the wall time of the CUDA
+    graphs' warm-up and capture before the first epoch, None for an eager
+    fit."""
 
     def __init__(self):
         self.history = {}
+        self.epoch_s = []
+        self.capture_s = None
 
     def append(self, key, value):
         self.history.setdefault(key, []).append(float(value))
@@ -155,6 +178,7 @@ def train(
     max_device_cells=None,
     devices=None,
     model_parallel=1,
+    _graphs=True,
     **kwds,
 ):
     """Fit ``network`` (built) on ``adata``, on the network's device.
@@ -162,7 +186,8 @@ def train(
 
     The keywords are the JAX package's ``train``'s, in its order; unknown
     ones are accepted and ignored, as there.  ``compiled`` "auto" or False
-    runs this eager loop (the JAX package's "auto" takes its whole-fit
+    runs this loop, whose steps are jitted in the JAX package and replayed
+    from CUDA graphs here (the JAX package's "auto" takes its whole-fit
     program only on a TPU); True raises, unless the network is in
     ``debug`` mode, where the JAX package runs its eager loop too.
     ``checkpoint_every > 0`` and ``resume`` raise.  The size gate of the
@@ -175,7 +200,11 @@ def train(
     device; ``"all"``, an int or a list for data parallelism over the
     ranks of the initialized process group (``parallel.mesh.resolve_mesh``;
     every rank calls ``train`` with the same data and seed).
-    ``model_parallel > 1`` raises (ROADMAP.md)."""
+    ``model_parallel > 1`` raises (ROADMAP.md).
+
+    On one CUDA device, outside ``debug``, the steps are replayed from
+    CUDA graphs captured at the start of the fit (``train/graphs.py``);
+    ``_graphs=False``, for the tests, calls them from Python there too."""
     assert network.model is not None, "network.build() must be called before train()"
     if save_weights:
         raise _not_ported("save_weights (weights.hdf5)")
@@ -251,27 +280,32 @@ def train(
     params = list(network.model.parameters())
     opt_state = opt.init(params)
     generator = torch.Generator(device=device).manual_seed(seed)
+    bufs = StepBuffers.create(n_train, bs, lr, device)
     train_step = make_sharded_train_step(network, opt, group)
 
-    def step(idx, lr_now):
-        return train_step(X_tr, T_tr, sf_tr, idx, opt_state, lr_now, generator)
+    def step(trailing=False):
+        train_step(X_tr, T_tr, sf_tr, bufs, opt_state, generator, trailing)
 
     rng_np = np.random.RandomState(seed)
     hist = History()
     cbs = _FitCallbacks(lr, reduce_lr, early_stop, verbose,
                         "val_loss" if has_val else "loss")
+    if (_graphs and epochs > 0 and device.type == "cuda" and group is None
+            and not network.definition.debug):
+        written = params + list(network.model.buffers()) + [
+            t for ts in opt_state.values() for t in ts]
+        run_epoch = GraphEpoch(step, bufs, rem, written, generator)
+        hist.capture_s = run_epoch.capture_s
+    else:
+        run_epoch = EagerEpoch(step, bufs, rem)
 
     for epoch in range(epochs):
-        perm = torch.from_numpy(rng_np.permutation(n_train)).to(device)
-        lr_now = cbs.lr
-        full_losses = torch.zeros(n_full, device=device)
-        for i in range(n_full):
-            full_losses[i] = step(perm[i * bs:(i + 1) * bs], lr_now)
-        rem_loss = step(perm[n_full * bs:], lr_now) if rem > 0 else \
-            torch.zeros((), device=device)
+        t0 = time.perf_counter()
+        bufs.lr.fill_(cbs.lr)
+        run_epoch(rng_np.permutation(n_train))
 
         with torch.no_grad():
-            sums = [full_losses.sum(), rem_loss]
+            sums = [bufs.losses[:n_full].sum(), bufs.losses[n_full]]
             if has_val:
                 sums.append(network.loss_fn(X_val, sf_val, T_val, False, sample_weights=w_val,
                                             shard=val_shard)[0])
@@ -280,6 +314,7 @@ def train(
                 # each rank's losses are its shares: their sums are the means
                 dist.all_reduce(sums, group=group)
             sums = sums.tolist()  # the epoch's one read-back
+        hist.epoch_s.append(time.perf_counter() - t0)
         train_loss = (sums[0] * bs + sums[1] * rem) / max(n_train, 1)
         hist.append("loss", train_loss)
         hist.append("lr", cbs.lr)

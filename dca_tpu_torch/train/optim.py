@@ -3,8 +3,13 @@
 The port of the JAX package's ``train/optim.py:rmsprop``: rho 0.9, epsilon
 1e-7 added outside the square root (``p -= lr * g / (sqrt(a) + eps)``), and
 elementwise ``clipvalue`` clipping of the gradient before the update, not a
-global norm.  The learning rate is an argument of ``update``, so
-ReduceLROnPlateau changes it between epochs and nothing is rebuilt.
+global norm.  The learning rate is an argument of ``update``: the trainer
+passes a 0-d float32 tensor on the parameters' device, the counterpart of
+the JAX package's ``lr_arr = jnp.float32(cbs.lr)``, which ReduceLROnPlateau
+rewrites in place between epochs, so a CUDA graph that captured the step
+reads the new rate at its next replay (``train/graphs.py``).  Its product
+with the gradient is the float32 product a Python float gives, which
+``update`` also takes; ``clipvalue`` stays a constant.
 
 Unlike the JAX transform, ``update`` writes the new parameters and
 accumulators in place (under ``torch.no_grad``), so a step allocates no
@@ -23,8 +28,9 @@ class Optimizer(NamedTuple):
     name: str
     default_lr: float
     init: Callable[[Any], Any]
-    # update(grads, opt_state, params, lr): updates params and opt_state in place
-    update: Callable[[Any, Any, Any, float], None]
+    # update(grads, opt_state, params, lr): updates params and opt_state in
+    # place; lr a 0-d float32 tensor on the params' device, or a float
+    update: Callable[[Any, Any, Any, Any], None]
 
 
 def rmsprop(clipvalue=None, rho=0.9, eps=1e-7):

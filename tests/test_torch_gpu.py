@@ -5,8 +5,11 @@ every split of its split-K tiling; the one-launch K1 the same bits twice
 and under CUDA-graph replay, and one device operation a loss forward; K2
 with a non-unit incoming gradient, on fresh tensors and on views at an
 odd address, the same bits twice and under CUDA-graph replay, and one
-device operation a loss backward; and the reciprocal and division of
-``csrc/special.cuh`` the same bits as CUDA's IEEE ones.
+device operation a loss backward; the reciprocal and division of
+``csrc/special.cuh`` the same bits as CUDA's IEEE ones; and the training
+step replayed from CUDA graphs (``train/graphs.py``) against the eager
+loop on the card (``_graphs=False``), its launch counts, and a capture
+that fails raising.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -23,9 +26,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs, _on, _ulps,
-                        _weights, check_dense_case, check_weighted_case, dense_inputs)
+from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs, _on,
+                        _small_counts, _ulps, _weights, check_dense_case, check_weighted_case,
+                        dense_inputs)
+from dca_tpu_torch.data import io
+from dca_tpu_torch.data.adata import AnnData
+from dca_tpu_torch.models.network import get_ae_type
 from dca_tpu_torch.ops import _build, fused_dense, fused_loss
+from dca_tpu_torch.parallel.step import StepBuffers, make_sharded_train_step
+from dca_tpu_torch.train import optim
+from dca_tpu_torch.train.graphs import EagerEpoch, GraphEpoch
+from dca_tpu_torch.train.loop import train
 
 
 def _data(B, G, seed=0, nan_frac=0.0):
@@ -501,3 +512,129 @@ def test_div_normal_same_bits_as_ieee_division(cuda, special_probe, a_range, b_r
         lambda out: special_probe.probe_div(a_lo, a_hi, b_lo, b_hi, 2 ** 28, 2024, out))
     assert tested > 2 ** 26, tested
     assert bad == 0, f"{bad} of {tested} differ, e.g. a / b bits {example}"
+
+
+# ---------------------------------------------------------------------------
+# the training step replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _fit(cuda, ae_type, graphs, state=None, epochs=3, dropout=0.0, **kw):
+    """A (64, 32, 64) fit on 400 cells x 300 genes; returns (history, the
+    loss kernels' launches, the network's initial state)."""
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(400, 300, 5))))
+    net = get_ae_type(ae_type)(input_size=300, hidden_size=(64, 32, 64),
+                               hidden_dropout=dropout, device=cuda).build()
+    if state is None:
+        state = {k: v.clone() for k, v in net.model.state_dict().items()}
+    net.model.load_state_dict(state)
+    fused_loss.reset_launches()
+    hist = train(adata, net, epochs=epochs, verbose=False, _graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    return hist, dict(fused_loss.launches), state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("validation_split,n_full,rem", [(0.1, 11, 8), (0.2, 10, 0)])
+@pytest.mark.parametrize("ae_type", ["nb-conddisp", "zinb-conddisp"])
+def test_graph_fit_matches_eager_fit_on_card(cuda, ae_type, validation_split, n_full, rem,
+                                             dropout):
+    """The fit replayed from CUDA graphs and the eager fit on the card, from
+    the same weights and seed: the same histories within rtol 1e-6 (the
+    same kernels on the same data; with dropout the registered generator
+    draws the eager masks at each replay, and the warm-up restores it); the
+    launches those of the eager fit plus one warm-up of each captured step
+    (two with a trailing step, one without)."""
+    epochs = 3
+    graph, graph_launches, state = _fit(cuda, ae_type, True, epochs=epochs, dropout=dropout,
+                                        validation_split=validation_split)
+    eager, eager_launches, _ = _fit(cuda, ae_type, False, state, epochs=epochs,
+                                    dropout=dropout, validation_split=validation_split)
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose(graph.history[key], eager.history[key], rtol=1e-6,
+                                   err_msg=key)
+    assert graph.history["lr"] == eager.history["lr"]
+    assert graph.capture_s is not None and eager.capture_s is None
+    family = "zinb" if ae_type.startswith("zinb") else "nb"
+    warm = 1 + (rem > 0)
+    steps = n_full + (rem > 0)
+    want = dict.fromkeys(fused_loss.launches, 0)
+    want[f"{family}_nll_fwd"] = epochs * (steps + 1)  # a K1 a step, one for validation
+    want[f"{family}_nll_bwd"] = epochs * steps
+    assert eager_launches == want
+    want[f"{family}_nll_fwd"] += warm
+    want[f"{family}_nll_bwd"] += warm
+    assert graph_launches == want
+
+
+@pytest.mark.gpu
+def test_graph_epoch_with_only_a_trailing_step(cuda):
+    """A batch longer than the split: no full step, only the trailing graph
+    (``train`` cuts the batch to the split and never forms this).  Its
+    replays give the eager epoch's losses and parameters, bit for bit."""
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(40, 300, 6))))
+    X = torch.from_numpy(np.array(adata.X, np.float32)).to(cuda)
+    T = torch.from_numpy(np.array(adata.raw.X, np.float32)).to(cuda)
+    SF = torch.from_numpy(np.array(adata.obs.size_factors, np.float32)).to(cuda)
+    opt = optim.get_optimizer("RMSprop", clipvalue=5.0)
+    results = []
+    state = None
+    for graphs in (True, False):
+        net = get_ae_type("zinb-conddisp")(input_size=300, hidden_size=(64, 32, 64),
+                                           device=cuda).build()
+        if state is None:
+            state = {k: v.clone() for k, v in net.model.state_dict().items()}
+        net.model.load_state_dict(state)
+        params = list(net.model.parameters())
+        opt_state = opt.init(params)
+        bufs = StepBuffers.create(40, 64, 1e-3, cuda)
+        train_step = make_sharded_train_step(net, opt)
+
+        def step(trailing=False):
+            train_step(X, T, SF, bufs, opt_state, None, trailing)
+
+        if graphs:
+            written = params + list(net.model.buffers()) + opt_state["a"]
+            run = GraphEpoch(step, bufs, 40, written, torch.Generator(device=cuda))
+            assert list(run.graphs) == [True]
+        else:
+            run = EagerEpoch(step, bufs, 40)
+        for seed in (1, 2):
+            run(np.random.RandomState(seed).permutation(40))
+        torch.cuda.synchronize()
+        results.append((bufs.losses.clone(), bufs.step_i.clone(),
+                        [p.detach().clone() for p in params]))
+    (lg, ig, pg), (le, ie, pe) = results
+    assert ig.tolist() == ie.tolist() == [0]
+    assert torch.equal(lg, le)
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+
+
+@pytest.mark.gpu
+def test_failing_capture_raises_and_does_not_fit_eagerly(cuda, monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    fit raises the CUDA error, it does not fall back to the eager loop.  The
+    warm-ups ran and were undone: the weights are the initial ones, and
+    nothing but the two warm-up steps was launched."""
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(400, 300, 5))))
+    net = get_ae_type("nb-conddisp")(input_size=300, hidden_size=(64, 32, 64),
+                                     device=cuda).build()
+    before = {k: v.clone() for k, v in net.model.state_dict().items()}
+    loss_fn = net.loss_fn
+
+    def reads_back(*args, **kwargs):
+        loss, new_state = loss_fn(*args, **kwargs)
+        loss.item()  # a device-to-host copy and a synchronization
+        return loss, new_state
+
+    monkeypatch.setattr(net, "loss_fn", reads_back)
+    fused_loss.reset_launches()
+    with pytest.raises(RuntimeError):
+        train(adata, net, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    assert fused_loss.launches["nb_nll_fwd"] == 2 and fused_loss.launches["nb_nll_bwd"] == 2
+    for k, v in net.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    # the card is usable after the failed capture
+    assert torch.ones(3, device=cuda).sum().item() == 3.0
