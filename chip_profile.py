@@ -2,7 +2,7 @@
 """Where the port's time goes on one NVIDIA GPU: a profile of one training
 epoch of the main path, and the loss kernels' own device time.
 
-    python3 chip_profile.py [ae_type] [--parent DIR] [--k2 | --epoch]
+    python3 chip_profile.py [ae_type] [--parent DIR] [--k2 | --epoch | --forward]
 
 1. The training epoch of ``train()`` on the 2730 x 3451 Paul15-shaped
    matrix, ``ae_type`` (default zinb-conddisp, the slice's main path)
@@ -36,6 +36,9 @@ epoch of the main path, and the loss kernels' own device time.
    time, device busy time and idle share, the host-device copies' share,
    and the device items that take the most time; the tables go to
    ``chiprun_out/profile_forward_0.txt`` (off) and ``_1.txt`` (on).
+   The outputs cross to the host as the main path fetches them, through
+   a page-locked ring (``network.fetch_to_host``).  ``--forward`` runs
+   this section alone.
 
 Prints the card's name and power limit first.  Nothing here imports JAX
 or the JAX package.
@@ -434,11 +437,16 @@ def main():
     parser.add_argument("--k2", action="store_true",
                         help="only the loss kernels and K2's code (section 2 without K4)")
     parser.add_argument("--epoch", action="store_true", help="only the training epoch (section 1)")
+    parser.add_argument("--forward", action="store_true",
+                        help="only the denoise forward (section 3)")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
     print(_card())
     parent = None if args.parent is None else load_parent(args.parent)
+    if args.forward:
+        profile_forward(args.ae_type)
+        return 0
     if not args.k2:
         profile_epoch(args.ae_type)
     if args.epoch:

@@ -97,16 +97,23 @@ Phases, each of which must pass:
    values finite); then zinb-conddisp again through the streaming write
    (DCA_TPU_HOST_DENSE_BYTES=1) with K4 on (DCA_TPU_FUSED_DENSE=1).
 6. The denoise tier on phase 4's trained zinb-conddisp network at
-   2730 x 3451: ``forward`` with K4 off and on (outputs within the error
-   bound propagated through the layers, ``_forward_tolerance``; 4 K4
-   launches: encoder, mean, dispersion and pi heads; both times printed),
-   then ``write_streaming(mode="full", return_info=True,
-   chunk_rows=1024)`` with DCA_TPU_WRITE_ALIASES=0 in 3 blocks (12 K4
-   launches; file shapes; the first genes of mean.tsv equal to the
-   in-memory output of the same blocks printed to 6 decimals; its time);
-   and phase 4's nb-conddisp network's ``predict(return_info=True)``
-   (4 K4 launches: encoder and mean head for the denoise, encoder and
-   dispersion head for the dispersion after it).
+   2730 x 3451: the forward's 7 outputs fetched through the page-locked
+   ring (``network.fetch_to_host``, the main path) the same bits as
+   pageable copies, into pageable arrays, both fetches timed in turns; the
+   page-locked memory of the block forward at 32768-row blocks (nothing
+   beyond the ring), and the resident memory;
+   ``forward`` with K4 off and on
+   (outputs within the error bound propagated through the layers,
+   ``_forward_tolerance``; 4 K4 launches: encoder, mean, dispersion and pi
+   heads; both timed in turns), then ``write_streaming(mode="full",
+   return_info=True, chunk_rows=1024)`` with DCA_TPU_WRITE_ALIASES=0 in 3
+   blocks, formatted by the native tier (12 K4 launches; every block
+   format native; file shapes; the first genes of mean.tsv equal to the
+   in-memory output of the same blocks printed to 6 decimals; its time),
+   and again through pandas (DCA_TPU_NO_NATIVE=1: the same bytes in every
+   file; its time); and phase 4's nb-conddisp network's
+   ``predict(return_info=True)`` (4 K4 launches: encoder and mean head for
+   the denoise, encoder and dispersion head for the dispersion after it).
 7. The data-parallel fit: 2 ranks, spawned, both on the one card over
    gloo (asked for explicitly; NCCL refuses ranks that share a device),
    each running ``dca(devices="all")`` on phase 4's matrix and seed:
@@ -120,7 +127,26 @@ Phases, each of which must pass:
    limit fails the phase.  The data-parallel epoch time is printed: two
    ranks sharing one card measure no scaling.
 
-Prints the card's name and power limit, then one ``{"kernels": [...]}``
+8. The native IO tier (``dca_tpu_torch/native``, g++ at first use) must
+   build on the card's host; ``read_text`` of the 3451 x 2730 gene x cell
+   count TSV through it and through pandas gives the same matrix and
+   names, and the %.6f format of a 3451 x 2730 float matrix the bytes of
+   pandas ``to_csv``; each timed.
+9. The fit's options: each of the seven optimizers (SGD, RMSprop, Adam,
+   Adamax, Nadam, Adagrad, Adadelta), and PReLU with RMSprop and with
+   Adam, in a zinb-conddisp (16, 8, 16) fit of 200 x 60 for 2 epochs on
+   the CPU, on the card through the CUDA graphs and on the card eagerly,
+   from the same weights: the graph history the eager one's bits, the
+   step count of Adam, Adamax and Nadam the steps taken, the K1/K2
+   launches exact (warm-ups included), the card within rtol 1e-3 of the
+   CPU.  Then ``dca()`` zinb-conddisp 64-32-64 with PReLU and Adam at
+   2730 x 3451 for 2 epochs through the graphs (launches exact, step count,
+   outputs finite, the alphas trained), and the graph epoch of
+   ``train()`` with RMSprop and with Adam, three 3-epoch fits each in
+   turns.
+
+The phases run in the order 1-4, 9, 8, 5-7.  Prints the card's name and
+power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
 non-zero, with no result line, when there is no CUDA device or a phase
 fails.  Nothing here imports JAX or the JAX package.
@@ -128,6 +154,7 @@ fails.  Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -1031,13 +1058,13 @@ def phase_api(ae_type, epochs):
     return launches, net, hist, same_bits
 
 
-EPOCH_TIMING_ORDER = (False, True, True, False, False, True)  # eager, graph, in turns
+IN_TURNS = (False, True, True, False, False, True)  # A, B, B, A, A, B: two ways timed in turns
 
 
 def epoch_timings(ae_type="zinb-conddisp", epochs=3):
     """The per-epoch wall time of ``train()`` on the 2730 x 3451 matrix,
     64-32-64, batch 32, eager and from CUDA graphs, three fits each, in
-    turns (``EPOCH_TIMING_ORDER``), each fit from the same initial weights;
+    turns (``IN_TURNS``), each fit from the same initial weights;
     the epoch time of a fit is the mean of its epochs' walls
     (``History.epoch_s``: steps, validation and the losses' read-back),
     and a graph fit's capture time (warm-up and capture, before its first
@@ -1048,7 +1075,7 @@ def epoch_timings(ae_type="zinb-conddisp", epochs=3):
 
     adata = _prepped_paul15()
     out = {"eager": [], "graph": [], "capture": []}
-    for graphs in EPOCH_TIMING_ORDER:
+    for graphs in IN_TURNS:
         net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
                                    device="cuda").build()
         hist = train(adata, net, epochs=epochs, verbose=False, _graphs=graphs)
@@ -1118,6 +1145,129 @@ def _forward_tolerance(net, x, sf):
     return {k: t.cpu().numpy() for k, t in tol.items()}
 
 
+@contextlib.contextmanager
+def _counting(module, name):
+    """Counts the calls of ``module.name`` while the block runs: yields
+    [calls, calls that returned something other than None]."""
+    real = getattr(module, name)
+    counts = [0, 0]
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        counts[0] += 1
+        counts[1] += out is not None
+        return out
+
+    setattr(module, name, counted)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, real)
+
+
+def _rss_bytes():
+    """This process's resident memory (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _pinned_fetch(net, x, sf):
+    """The forward's outputs on the card fetched as the main path fetches
+    them, through the page-locked ring (``network.fetch_to_host``), and by
+    pageable copies (``.cpu()``): the same bits, in pageable arrays; both
+    fetches timed in turns (pageable, ring, ring, pageable, pageable,
+    ring)."""
+    import torch
+
+    from dca_tpu_torch.models.network import fetch_to_host
+
+    with torch.no_grad():
+        out, _ = net.apply(torch.tensor(x, device=net.device),
+                           torch.tensor(sf, device=net.device))
+    out = {k: v for k, v in out.items() if v is not None}
+    fetched = fetch_to_host(out)
+    pageable = {k: v.cpu().numpy() for k, v in out.items()}
+    for k, v in pageable.items():
+        _check(fetched[k].dtype == v.dtype == np.float32 and fetched[k].shape == v.shape
+               and np.array_equal(fetched[k].view(np.uint32), v.view(np.uint32)),
+               f"fetch: {k} fetched through page-locked memory differs from the pageable copy")
+        _check(not torch.from_numpy(fetched[k]).is_pinned(),
+               f"fetch: {k} handed out in page-locked memory")
+    del fetched, pageable
+    secs = {True: [], False: []}
+    for ring in IN_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if ring:
+            fetch_to_host(out)
+        else:
+            {k: v.cpu().numpy() for k, v in out.items()}
+        secs[ring].append(time.perf_counter() - t0)
+    n_bytes = sum(v.numel() * v.element_size() for v in out.values())
+    res = {"fetch_pinned_s": float(np.median(secs[True])),
+           "fetch_pageable_s": float(np.median(secs[False])),
+           "fetch_bytes": n_bytes, "fetch_copies": len(out),
+           "fetch_threads": torch.get_num_threads()}
+    print(f"phase 6: fetch of the forward's {len(out)} outputs ({n_bytes / 1e6:.1f} MB): "
+          f"through the page-locked ring the same bits as pageable; ring "
+          f"{res['fetch_pinned_s'] * 1e3:.2f} ms ({[round(t * 1e3, 2) for t in secs[True]]}), "
+          f"pageable {res['fetch_pageable_s'] * 1e3:.2f} ms "
+          f"({[round(t * 1e3, 2) for t in secs[False]]}), in turns; {res['fetch_threads']} "
+          "torch threads")
+    return res
+
+
+def _pinned_memory(net, rows=32768, n_blocks=2):
+    """The host memory of the pipelined block forward at its largest block,
+    ``rows`` rows (the most ``_auto_chunk_rows`` gives), over ``n_blocks``
+    blocks of random input, each block's arrays dropped once read, as the
+    streaming writer drops them: torch's host allocator holds no more
+    page-locked bytes at the peak and after than before (the fetch ring,
+    made at the first fetch); and the resident memory at each block against
+    before."""
+    import torch
+
+    from dca_tpu_torch.models import network
+
+    x = np.random.default_rng(7).random((rows * n_blocks, net.input_size),
+                                        dtype=np.float32)
+    sf = np.ones((rows * n_blocks,), np.float32)
+    torch.cuda.reset_peak_host_memory_stats()
+    base = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    ring_bytes = sum(c.numel() for c in network._ring(network.FETCH_CHUNK_BYTES))
+    rss0 = _rss_bytes()
+    rss_peak, block_bytes = rss0, 0
+    t0 = time.perf_counter()
+    for lo, hi, out in net.iter_forward_blocks(x, sf, chunk_rows=rows):
+        arrays = [a for a in out.values() if a is not None]
+        _check(all(np.isfinite(a).all() and not torch.from_numpy(a).is_pinned()
+                   for a in arrays), f"block forward [{lo}, {hi}): outputs not finite "
+               "or page-locked")
+        block_bytes = max(block_bytes, sum(a.nbytes for a in arrays))
+        rss_peak = max(rss_peak, _rss_bytes())
+        del out, arrays
+    secs = time.perf_counter() - t0
+    stats = torch.cuda.host_memory_stats()
+    res = {"pin_rows": rows, "pin_blocks": n_blocks, "pin_s": secs,
+           "pin_block_bytes": block_bytes, "pin_ring_bytes": ring_bytes,
+           "pin_base_bytes": base, "pin_peak_bytes": stats["allocated_bytes.peak"],
+           "pin_after_bytes": stats["allocated_bytes.current"],
+           "pin_rss_before_bytes": rss0, "pin_rss_peak_bytes": rss_peak,
+           "pin_input_bytes": x.nbytes}
+    _check(res["pin_peak_bytes"] == res["pin_after_bytes"] == base,
+           f"block forward at {rows} rows: {res['pin_peak_bytes']} bytes page-locked at the "
+           f"peak and {res['pin_after_bytes']} after, {base} before")
+    print(f"phase 6: block forward over {n_blocks} blocks of {rows} x {net.input_size} in "
+          f"{secs:.2f} s: page-locked {base / 2**20:.1f} MiB before, at the peak and after "
+          f"(the ring {ring_bytes / 2**20:.1f} MiB; one block's outputs "
+          f"{block_bytes / 2**20:.1f} MiB); resident {rss0 / 2**20:.1f} MiB before, "
+          f"{rss_peak / 2**20:.1f} MiB at the peak block (input {x.nbytes / 2**20:.1f} MiB)")
+    return res
+
+
 def phase_denoise(zinb_net, nb_net):
     """The denoise tier at 2730 x 3451 (module docstring, phase 6)."""
     import pandas as pd
@@ -1126,7 +1276,10 @@ def phase_denoise(zinb_net, nb_net):
     from dca_tpu_torch.data import io
     from dca_tpu_torch.ops import fused_dense as fd
 
-    saved = {k: os.environ.get(k) for k in ("DCA_TPU_FUSED_DENSE", "DCA_TPU_WRITE_ALIASES")}
+    from dca_tpu_torch import native
+
+    saved = {k: os.environ.get(k) for k in ("DCA_TPU_FUSED_DENSE", "DCA_TPU_WRITE_ALIASES",
+                                            "DCA_TPU_NO_NATIVE")}
     res = {}
     try:
         adata = _prepped_paul15()
@@ -1141,18 +1294,25 @@ def phase_denoise(zinb_net, nb_net):
             outs[mode] = zinb_net.forward(x, sf)  # the main path: counted
             res[f"forward_launches_{mode}"] = fd.launches["fused_dense"]
             res["forward_wide"], res["forward_splitk"] = fd.launches["wide"], fd.launches["splitk"]
-            secs = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                zinb_net.forward(x, sf)
-                secs.append(time.perf_counter() - t0)
-            res[f"forward_s_{mode}"] = float(np.median(secs))
+        secs = {"0": [], "1": []}
+        for k4 in IN_TURNS:  # off, on, on, off, off, on
+            mode = "1" if k4 else "0"
+            os.environ["DCA_TPU_FUSED_DENSE"] = mode
+            t0 = time.perf_counter()
+            zinb_net.forward(x, sf)
+            secs[mode].append(time.perf_counter() - t0)
+        for mode, t in secs.items():
+            res[f"forward_s_{mode}"] = float(np.median(t))
+            res[f"forward_all_s_{mode}"] = t
         _check(res["forward_launches_0"] == 0 and res["forward_launches_1"] == 4
                and (res["forward_splitk"], res["forward_wide"]) == (1, 3),
                f"forward: K4 launches {res['forward_launches_0']} with the switch off "
                f"and {res['forward_launches_1']} on ({res['forward_splitk']} split-K, "
                f"{res['forward_wide']} whole-K), expected 0 and 4 (the encoder split-K; "
                "the mean, dispersion and pi heads whole-K)")
+        os.environ["DCA_TPU_FUSED_DENSE"] = "0"  # the default path
+        res.update(_pinned_fetch(zinb_net, x, sf))
+        res.update(_pinned_memory(zinb_net))
         tol = _forward_tolerance(zinb_net, x, sf)
         worst = 0.0
         for key, t in tol.items():
@@ -1164,22 +1324,50 @@ def phase_denoise(zinb_net, nb_net):
                    f"{(err / t).max():.3f} of the propagated tolerance")
             worst = max(worst, float((err / t).max()))
         res["forward_worst"] = worst
-        print(f"phase 6: forward zinb-conddisp {n_cells} x {n_genes}: K4 off "
-              f"{res['forward_s_0'] * 1e3:.1f} ms, on {res['forward_s_1'] * 1e3:.1f} ms "
-              f"(median of 3); K4 launches {res['forward_launches_1']}; outputs agree, worst "
-              f"{worst:.3f} of the propagated tolerance")
+        print(f"phase 6: forward zinb-conddisp {n_cells} x {n_genes}, outputs fetched through "
+              f"the page-locked ring: K4 off {res['forward_s_0'] * 1e3:.1f} ms, on "
+              f"{res['forward_s_1'] * 1e3:.1f} ms (median of 3, each run "
+              f"{IN_TURNS.count(True)} times in turns with the other); K4 launches "
+              f"{res['forward_launches_1']}; outputs agree, worst {worst:.3f} of the "
+              "propagated tolerance")
 
-        # the streaming write, in 3 blocks of at most 1024 rows, with K4
+        # the streaming write, in 3 blocks of at most 1024 rows, with K4,
+        # formatted by the native tier (the main path), then by pandas
+        os.environ["DCA_TPU_FUSED_DENSE"] = "1"
         os.environ["DCA_TPU_WRITE_ALIASES"] = "0"
         out_dir = os.path.join(OUT_DIR, "stream")
-        shutil.rmtree(out_dir, ignore_errors=True)
+        pandas_dir = os.path.join(OUT_DIR, "stream_pandas")
+        for d in (out_dir, pandas_dir):
+            shutil.rmtree(d, ignore_errors=True)
         ad = _prepped_paul15()
         fd.reset_launches()
-        t0 = time.perf_counter()
-        zinb_net.write_streaming(ad, out_dir, mode="full", return_info=True, chunk_rows=1024)
-        res["stream_s"] = time.perf_counter() - t0
+        with _counting(native, "format_matrix") as formats:
+            t0 = time.perf_counter()
+            zinb_net.write_streaming(ad, out_dir, mode="full", return_info=True,
+                                     chunk_rows=1024)
+            res["stream_s"] = time.perf_counter() - t0
         res["stream_launches"] = fd.launches["fused_dense"]
         res["stream_wide"], res["stream_splitk"] = fd.launches["wide"], fd.launches["splitk"]
+        _check(formats[0] > 0 and formats[1] == formats[0],
+               f"write_streaming: {formats[1]} of {formats[0]} block formats went through "
+               "the native tier")
+        os.environ["DCA_TPU_NO_NATIVE"] = "1"
+        t0 = time.perf_counter()
+        zinb_net.write_streaming(_prepped_paul15(), pandas_dir, mode="full", return_info=True,
+                                 chunk_rows=1024)
+        res["stream_pandas_s"] = time.perf_counter() - t0
+        os.environ.pop("DCA_TPU_NO_NATIVE")
+        for fname in sorted(os.listdir(out_dir)):
+            with open(os.path.join(out_dir, fname), "rb") as a, \
+                    open(os.path.join(pandas_dir, fname), "rb") as b:
+                _check(a.read() == b.read(),
+                       f"write_streaming {fname}: the native and the pandas bytes differ")
+        _check(sorted(os.listdir(out_dir)) == sorted(os.listdir(pandas_dir)),
+               "write_streaming: the native and the pandas runs wrote other files")
+        shutil.rmtree(pandas_dir)
+        print(f"phase 6: write_streaming native {res['stream_s']:.2f} s ({formats[1]} block "
+              f"formats through the native tier), pandas {res['stream_pandas_s']:.2f} s; "
+              "the same bytes in every file")
         _check(res["stream_launches"] == 12
                and (res["stream_splitk"], res["stream_wide"]) == (3, 9),
                f"write_streaming: K4 launches {res['stream_launches']} "
@@ -1276,6 +1464,246 @@ def phase_cli():
         print(f"phase 5: CLI {label}{' ' + str(extra) if extra else ''} on the card wrote "
               f"{', '.join(f for f, _, _ in files)} and model.pickle, all finite")
     shutil.rmtree(work)
+
+
+def phase_native():
+    """Phase 8: the native IO tier on the card machine, at 2730 x 3451.  It
+    must build there (``native.available()``); the CLI's read of the gene
+    x cell count TSV (``io.read_text``) through it and through pandas
+    (DCA_TPU_NO_NATIVE=1) gives the same matrix and names, and the %.6f
+    format of a (3451, 2730) float matrix with row and column names the
+    same bytes as pandas ``to_csv``; each timed once, native first."""
+    import io
+
+    import pandas as pd
+
+    from dca_tpu_torch import native
+    from dca_tpu_torch.data.io import read_text
+
+    _check(native.available(), "the native IO tier did not build or load (g++ -fopenmp)")
+    work = os.path.join(OUT_DIR, "native")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counts = make_paul15_like()
+    n_cells, n_genes = counts.shape
+    genes = [f"gene{i}" for i in range(n_genes)]
+    cells = [f"cell{i}" for i in range(n_cells)]
+    tsv = os.path.join(work, "counts.tsv")
+    pd.DataFrame(counts.T.astype(int), index=genes, columns=cells).to_csv(tsv, sep="\t")
+    res = {"threads": native.n_threads()}
+    reads = {}
+    for mode in ("native", "pandas"):
+        if mode == "pandas":
+            os.environ["DCA_TPU_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            reads[mode] = read_text(tsv)
+            res[f"read_{mode}_s"] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("DCA_TPU_NO_NATIVE", None)
+    a, b = reads["native"], reads["pandas"]
+    _check(np.array_equal(a.X, b.X) and a.X.dtype == b.X.dtype == np.float32
+           and a.X.shape == (n_genes, n_cells) and np.array_equal(a.X, counts.T),
+           "read_text: the native and the pandas matrices differ")
+    _check(list(a.obs_names) == list(b.obs_names) == genes
+           and list(a.var_names) == list(b.var_names) == cells,
+           "read_text: the native and the pandas names differ")
+    values = np.random.RandomState(8).lognormal(0.0, 2.0, (n_genes, n_cells)).astype(np.float32)
+    t0 = time.perf_counter()
+    got = native.format_matrix(values, rownames=genes, colnames=cells)
+    res["format_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    pd.DataFrame(values, index=genes, columns=cells).to_csv(buf, sep="\t",
+                                                            float_format="%.6f")
+    want = buf.getvalue().encode()
+    res["format_pandas_s"] = time.perf_counter() - t0
+    _check(got == want, "format_matrix: the native bytes differ from pandas to_csv")
+    res["format_bytes"] = len(got)
+    shutil.rmtree(work)
+    print(f"phase 8: native IO tier built ({res['threads']} OpenMP threads); read_text of the "
+          f"{n_genes} x {n_cells} count TSV: native {res['read_native_s']:.3f} s, pandas "
+          f"{res['read_pandas_s']:.3f} s, the same matrix and names; %.6f format of a "
+          f"{n_genes} x {n_cells} float matrix ({len(got) / 1e6:.1f} MB): native "
+          f"{res['format_native_s']:.3f} s, pandas {res['format_pandas_s']:.3f} s, the same "
+          "bytes")
+    return res
+
+
+OPTIMIZERS = ("SGD", "RMSprop", "Adam", "Adamax", "Nadam", "Adagrad", "Adadelta")
+# (optimizer, hidden activation) of the options phase
+OPTIONS = tuple((name, "relu") for name in OPTIMIZERS) + (("RMSprop", "PReLU"),
+                                                          ("Adam", "PReLU"))
+STEP_COUNTED = ("Adam", "Adamax", "Nadam")  # the optimizers with a step count t
+
+
+@contextlib.contextmanager
+def _optimizer_states():
+    """Yields a list that receives the state of every optimizer ``train()``
+    creates while the block runs (the step count ``t`` is read from it)."""
+    from dca_tpu_torch.train import loop
+
+    real = loop.get_optimizer
+    states = []
+
+    def recording(name, clipvalue=None):
+        opt = real(name, clipvalue=clipvalue)
+
+        def init(params):
+            states.append(opt.init(params))
+            return states[-1]
+
+        return opt._replace(init=init)
+
+    loop.get_optimizer = recording
+    try:
+        yield states
+    finally:
+        loop.get_optimizer = real
+
+
+def options_fit(optimizer, activation, device, graphs=True, state=None, n_cells=200,
+                n_genes=60, epochs=2, dropout=0.0):
+    """A zinb-conddisp (16, 8, 16) fit of ``n_cells`` x ``n_genes`` with
+    ``optimizer`` and hidden ``activation``, from ``state`` (the initial
+    weights of the first fit when None).  Returns (history, the loss
+    kernels' launches, the optimizer state after the fit, the initial
+    weights)."""
+    import torch
+
+    from dca_tpu_torch.data import io
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.train.loop import train
+
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(n_cells, n_genes, 3))))
+    net = get_ae_type("zinb-conddisp")(input_size=n_genes, hidden_size=(16, 8, 16),
+                                       ridge=0.05, activation=activation,
+                                       hidden_dropout=dropout, device=device).build()
+    if state is None:
+        state = {k: v.detach().cpu().clone() for k, v in net.model.state_dict().items()}
+    net.model.load_state_dict(state)
+    fl.reset_launches()
+    with _optimizer_states() as states:
+        hist = train(adata, net, optimizer=optimizer, epochs=epochs, verbose=False,
+                     _graphs=graphs)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return hist, dict(fl.launches), states[0], state
+
+
+def phase_options(n_cells=200, epochs=2):
+    """Phase 9: each of the seven optimizers, and PReLU with RMSprop and with
+    Adam, in a small zinb-conddisp fit on the CPU (the eager loop, the
+    kernels' plain versions), on the card through the CUDA graphs and on the
+    card eagerly, from the same weights: graph and eager histories the same
+    bits; the step count of Adam, Adamax and Nadam after the fit the steps
+    taken (the graph warm-up's two steps restored); the K1/K2 launches exact,
+    warm-ups included; the card within rtol 1e-3 of the CPU, as phase 3
+    holds the zoo."""
+    steps, warmups = _steps(n_cells), _warmups(n_cells)
+    for optimizer, activation in OPTIONS:
+        cpu, _, _, state = options_fit(optimizer, activation, "cpu", epochs=epochs)
+        graph, graph_launches, graph_opt, _ = options_fit(optimizer, activation, "cuda", True,
+                                                          state, epochs=epochs)
+        eager, eager_launches, eager_opt, _ = options_fit(optimizer, activation, "cuda",
+                                                          False, state, epochs=epochs)
+        label = f"{optimizer} {activation}"
+        _check(graph.capture_s is not None and eager.capture_s is None,
+               f"options {label}: the card fit replayed no graph, or the eager one did")
+        for key in ("loss", "val_loss", "lr"):
+            _check(graph.history[key] == eager.history[key],
+                   f"options {label}: {key} of the graph fit {graph.history[key]} is not the "
+                   f"eager fit's {eager.history[key]} bit for bit")
+        for key in ("loss", "val_loss"):
+            _check(np.allclose(graph.history[key], cpu.history[key], rtol=1e-3, atol=0.0),
+                   f"options {label}: {key} on the card {graph.history[key]} vs the CPU "
+                   f"{cpu.history[key]}, beyond rtol 1e-3")
+        if optimizer in STEP_COUNTED:
+            for path, opt_state in (("graph", graph_opt), ("eager", eager_opt)):
+                _check(int(opt_state["t"]) == epochs * steps,
+                       f"options {label} ({path}): step count {int(opt_state['t'])} after "
+                       f"the fit, {epochs * steps} steps taken")
+        _check(eager_launches == _want_launches("zinb", epochs, steps),
+               f"options {label} (eager): launches {eager_launches}")
+        _check(graph_launches == _want_launches("zinb", epochs, steps, warmups),
+               f"options {label} (graph): launches {graph_launches}")
+        print(f"phase 9: {label}: graph fit the eager fit's bits, loss {graph.history['loss']}"
+              f" (CPU {cpu.history['loss']}); K1/K2 launches "
+              f"{graph_launches['zinb_nll_fwd']}/{graph_launches['zinb_nll_bwd']}"
+              + (f"; t = {int(graph_opt['t'])}" if optimizer in STEP_COUNTED else ""))
+
+
+def phase_prelu_adam_full(epochs=2):
+    """Phase 9 at full width: ``dca()`` zinb-conddisp 64-32-64 with PReLU
+    and Adam on the 2730 x 3451 matrix through the CUDA graphs: outputs
+    finite and of the right shapes, launches exact, Adam's step count the
+    steps taken, and the alphas trained.  Returns the run's launches."""
+    import torch
+
+    import dca_tpu_torch
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    counts = make_paul15_like()
+    n_cells, n_genes = counts.shape
+    steps = _steps(n_cells)
+    fl.reset_launches()
+    t0 = time.perf_counter()
+    with _optimizer_states() as states:
+        ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), ae_type="zinb-conddisp",
+                                     activation="PReLU", optimizer="Adam", epochs=epochs,
+                                     hidden_size=(64, 32, 64), batch_size=32, copy=True,
+                                     return_info=True, return_model=True, verbose=False)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(fl.launches)
+    want = _want_launches("zinb", epochs, steps, _warmups(n_cells))
+    _check(launches == want, f"PReLU + Adam dca(): launches {launches}, expected {want}")
+    _check(int(states[0]["t"]) == epochs * steps,
+           f"PReLU + Adam dca(): step count {int(states[0]['t'])}, {epochs * steps} steps")
+    for name, arr in (("X", ret.X), ("X_dca_dispersion", ret.obsm["X_dca_dispersion"]),
+                      ("X_dca_dropout", ret.obsm["X_dca_dropout"])):
+        _check(arr.shape == (n_cells, n_genes) and bool(np.isfinite(arr).all()),
+               f"PReLU + Adam dca(): {name} of shape {arr.shape} or not finite")
+    hist = ret.uns["dca_loss_history"]
+    _check(len(hist["loss"]) == epochs and np.all(np.isfinite(hist["val_loss"])),
+           f"PReLU + Adam dca(): history {hist}")
+    alphas = [p for k, p in net.model.named_parameters() if k.endswith("prelu_alpha")]
+    _check(len(alphas) == 3 and all(bool((a != 0).any()) for a in alphas),
+           "PReLU + Adam dca(): the alphas did not train")
+    print(f"phase 9: dca() zinb-conddisp PReLU + Adam {n_cells} x {n_genes}, {epochs} epochs "
+          f"through the CUDA graphs in {t_run:.3f} s: loss {hist['loss']}, val_loss "
+          f"{hist['val_loss']}; launches {launches['zinb_nll_fwd']}/"
+          f"{launches['zinb_nll_bwd']}; t = {int(states[0]['t'])}; outputs finite")
+    return launches
+
+
+def optimizer_epoch_timings(epochs=3):
+    """The per-epoch wall time of ``train()`` zinb-conddisp on the 2730 x
+    3451 matrix through the CUDA graphs with RMSprop and with Adam, three
+    3-epoch fits each, in turns (RMSprop, Adam, Adam, RMSprop, RMSprop,
+    Adam), from the same initial weights.  Returns {name: [ms, ...]}."""
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.train.loop import train
+
+    adata = _prepped_paul15()
+    out = {"RMSprop": [], "Adam": []}
+    state = None
+    for adam in IN_TURNS:
+        name = "Adam" if adam else "RMSprop"
+        net = get_ae_type("zinb-conddisp")(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                           device="cuda").build()
+        if state is None:
+            state = {k: v.clone() for k, v in net.model.state_dict().items()}
+        net.model.load_state_dict(state)
+        hist = train(adata, net, optimizer=name, epochs=epochs, verbose=False)
+        out[name].append(float(np.mean(hist.epoch_s)) * 1e3)
+        print(f"phase 9: zinb-conddisp graph fit with {name}: epochs "
+              f"{[round(t * 1e3, 2) for t in hist.epoch_s]} ms; capture "
+              f"{hist.capture_s * 1e3:.1f} ms")
+    return out
 
 
 DP_RANKS = 2
@@ -1472,6 +1900,10 @@ def main():
         nb_launches, nb_net, _, nb_bits = phase_api("nb-conddisp", 2)
         epochs = epoch_timings()
         launches.update({k: v for k, v in nb_launches.items() if k.startswith("nb_")})
+        phase_options()
+        full_launches = phase_prelu_adam_full()
+        opt_epochs = optimizer_epoch_timings()
+        nat = phase_native()
         phase_cli()
         den = phase_denoise(zinb_net, nb_net)
         dp = phase_data_parallel(zinb_hist)
@@ -1570,7 +2002,23 @@ def main():
           f"on {card}")
     print(f"denoise tier (2730 x 3451, zinb-conddisp) on {card}: forward "
           f"{den['forward_s_0'] * 1e3:.1f} ms without K4, {den['forward_s_1'] * 1e3:.1f} ms "
-          f"with; write_streaming {den['stream_s']:.2f} s")
+          f"with (medians in turns {den['forward_all_s_0']} / {den['forward_all_s_1']} s); "
+          f"fetch of its {den['fetch_copies']} outputs {den['fetch_pinned_s'] * 1e3:.2f} ms "
+          f"through the page-locked ring against {den['fetch_pageable_s'] * 1e3:.2f} ms "
+          f"pageable; at {den['pin_rows']}-row blocks {den['pin_peak_bytes'] / 2**20:.1f} MiB "
+          f"page-locked at the peak (the ring {den['pin_ring_bytes'] / 2**20:.1f} MiB), "
+          f"resident {(den['pin_rss_peak_bytes'] - den['pin_rss_before_bytes']) / 2**20:.1f} "
+          "MiB above the start; write_streaming "
+          f"{den['stream_s']:.2f} s native, {den['stream_pandas_s']:.2f} s pandas")
+    print(f"native IO tier on {card} ({nat['threads']} OpenMP threads): read_text of the "
+          f"3451 x 2730 count TSV {nat['read_native_s']:.3f} s native, "
+          f"{nat['read_pandas_s']:.3f} s pandas; format of a 3451 x 2730 float matrix "
+          f"{nat['format_native_s']:.3f} s native, {nat['format_pandas_s']:.3f} s pandas")
+    print(f"graph epoch (train() 2730 x 3451 zinb-conddisp, 3 fits of 3 epochs each, in turns) "
+          f"on {card}: RMSprop {opt_epochs['RMSprop']} ms, Adam {opt_epochs['Adam']} ms, "
+          f"medians {np.median(opt_epochs['RMSprop']):.2f} against "
+          f"{np.median(opt_epochs['Adam']):.2f} ms; PReLU + Adam dca() launches "
+          f"{full_launches['zinb_nll_fwd']}/{full_launches['zinb_nll_bwd']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,12 @@ the CUDA device unless ``--device cpu`` is given.  ``--devices`` trains data
 parallel over the ranks of a process group, one process per device:
 ``torchrun --nproc-per-node N -m dca_tpu_torch in.tsv out/ --devices all``
 (rank 0 writes the outputs).  Flags whose paths are not ported yet
-(--hyper, --tensorboard, --saveweights, --modelparallel above 1,
---activation PReLU and the optimizers other than RMSprop) are parsed and
-then refused with an error that names ROADMAP.md.
-Every ``--type`` of the JAX package runs; ``--outputformat h5ad`` writes
+(--hyper, --tensorboard, --saveweights, --modelparallel above 1) are
+parsed and then refused with an error that names ROADMAP.md.
+Every ``--type``, ``--activation`` (PReLU included) and ``--optimizer``
+(SGD, RMSprop, Adam, Adamax, Nadam, Adagrad, Adadelta) of the JAX package
+runs; the input is read and the TSVs are written through the native C++
+tier (``dca_tpu_torch/native``); ``--outputformat h5ad`` writes
 ``denoised.h5ad`` through the streaming writer.
 """
 

@@ -8,8 +8,9 @@ with ``return_info`` the dispersion in ``obsm['X_dca_dispersion']``, or
 ``var['X_dca_dispersion']`` for the constant-dispersion ``nb``/``zinb``,
 and the ZINB dropout in ``obsm['X_dca_dropout']``; the loss history in
 ``uns['dca_loss_history']``) and the same return values (copy x
-return_model), for every ``ae_type`` of the JAX package, plus ``device``:
-the CUDA device unless ``device="cpu"``.
+return_model), for every ``ae_type``, hidden ``activation`` (PReLU
+included) and ``optimizer`` of the JAX package, plus ``device``: the CUDA
+device unless ``device="cpu"``.
 
 ``devices``/``model_parallel`` as the JAX package's: with ``devices``
 (``"all"``, an int or a list) the fit is data parallel over the ranks of a

@@ -1,8 +1,9 @@
 """Dataset ingestion, preprocessing and TSV output.
 
 A copy of the JAX package's ``dca_tpu/data/io.py`` (which the port may not
-import) with its pandas paths for text input and output; the parallel C++
-tier waits (ROADMAP.md, Queue 1 item 12).  The held-out test fold of
+import).  Text input and output go through the native C++ tier
+(``dca_tpu_torch/native``) first, with pandas as the fallback that gives the
+same arrays and the same bytes.  The held-out test fold of
 ``test_split`` is drawn as ``sklearn.model_selection.train_test_split(...,
 test_size=0.1, random_state=42)`` draws it, with numpy alone.
 
@@ -32,6 +33,7 @@ import numpy as np
 import pandas as pd
 import scipy.sparse as sp
 
+from .. import native
 from .adata import AnnData, is_anndata_like, read_h5ad
 
 
@@ -41,9 +43,18 @@ from .adata import AnnData, is_anndata_like, read_h5ad
 
 
 def read_text(path, first_column_names=True) -> AnnData:
-    """Read a delimited text matrix (rows x cols as given in the file)."""
+    """Read a delimited text matrix (rows x cols as given in the file),
+    through the native parser where it can, else through pandas, with the
+    same result."""
     p = str(path)
     sep = "," if p.endswith((".csv", ".csv.gz")) else "\t"
+    parsed = native.parse_text_matrix(path, sep=sep, first_column_names=first_column_names)
+    if parsed is not None:
+        X, rownames, colnames = parsed
+        obs = pd.DataFrame(
+            index=pd.Index(rownames if rownames is not None else range(X.shape[0])).astype(str))
+        var = pd.DataFrame(index=pd.Index(colnames).astype(str))
+        return AnnData(X, obs, var)
     df = pd.read_csv(path, sep=sep, index_col=0 if first_column_names else None)
     X = df.to_numpy(dtype=np.float32)
     obs = pd.DataFrame(index=pd.Index(df.index.astype(str)))
@@ -293,7 +304,9 @@ def read_genelist(filename):
 
 
 def write_text_matrix(matrix, filename, rownames=None, colnames=None, transpose=False):
-    """Tab-separated, %.6f, optional transpose that swaps row/col names."""
+    """Tab-separated, %.6f, optional transpose that swaps row/col names;
+    through the native writer where it can, else through pandas, with the
+    same bytes."""
     matrix = np.asarray(matrix)
     if transpose:
         matrix = matrix.T
@@ -303,6 +316,9 @@ def write_text_matrix(matrix, filename, rownames=None, colnames=None, transpose=
         # against the gene names: the JAX package's writer names the one
         # row by the first of them (pandas would refuse the mismatch)
         rownames = rownames[:matrix.shape[0]]
+    if matrix.ndim == 2 and native.write_matrix(matrix, filename, rownames, colnames,
+                                                sep="\t"):
+        return
     pd.DataFrame(matrix, index=rownames, columns=colnames).to_csv(
         filename,
         sep="\t",

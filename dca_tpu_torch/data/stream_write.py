@@ -19,9 +19,9 @@ O(block + strip):
     anndata ecosystem.
 
 Byte parity: both TSV writers give output byte-identical to
-``io.write_text_matrix`` on the same matrix: both format through pandas
-(``%.6f``); the JAX package's native C++ formatter waits for the port's
-native tier (ROADMAP.md, Queue 1 item 12).
+``io.write_text_matrix`` on the same matrix: both format ``%.6f`` through
+the native C++ tier (``dca_tpu_torch/native``), or, without it, through
+pandas, which gives the same bytes.
 """
 
 from __future__ import annotations
@@ -33,21 +33,15 @@ import tempfile
 import numpy as np
 import pandas as pd
 
-
-def _header_bytes(rownames, colnames, sep="\t"):
-    """The header line exactly as pandas ``to_csv(header=...)`` writes it:
-    an empty index field when there are row names, then the column names."""
-    if colnames is None:
-        return b""
-    head = (sep if rownames is not None else "") + sep.join(
-        str(c) for c in colnames
-    ) + "\n"
-    return head.encode()
+from .. import native
 
 
 def _format_rows(matrix, rownames, sep="\t"):
     """A row block as %.6f TSV bytes (no header), as pandas to_csv writes
-    it."""
+    it: the native formatter, else pandas."""
+    out = native.format_matrix(matrix, rownames=rownames, colnames=None, sep=sep)
+    if out is not None:
+        return out
     buf = _pyio.StringIO()
     pd.DataFrame(np.asarray(matrix), index=rownames).to_csv(
         buf, sep=sep, header=False, index=rownames is not None,
@@ -69,7 +63,7 @@ class RowStreamTSV:
         os.makedirs(d, exist_ok=True)
         fd, self._tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
         self._f = os.fdopen(fd, "wb")
-        self._f.write(_header_bytes(rownames, colnames, sep))
+        self._f.write(native.header_bytes(rownames, colnames, sep))
 
     def append(self, block):
         block = np.asarray(block, np.float32)
@@ -152,8 +146,7 @@ class TransposedSpillTSV:
         fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
         try:
             with os.fdopen(fd, "wb") as out:
-                out.write(_header_bytes(self.rownames, self.colnames,
-                                        self.sep))
+                out.write(native.header_bytes(self.rownames, self.colnames, self.sep))
                 for g0 in range(0, self.G or 0, strip):
                     g1 = min(g0 + strip, self.G)
                     parts = []

@@ -34,9 +34,11 @@ In eval mode with DCA_TPU_FUSED_DENSE=1 the trunk layers before ``center``,
 the fork branches' layers and the dense heads go through the fused dense
 kernel K4 (``ops/fused_dense.py``), as the JAX package routes them through
 its Pallas kernel; ``center`` stays plain so that ``latent`` is its pre-BN
-output.  Matrix products honour DCA_TPU_MATMUL (``_dot``).  ``apply`` with
-``keys`` computes only the heads (and fork branches) those outputs need,
-what XLA's dead-code elimination gives the JAX package's per-keys predict.
+output, and so do the hidden layers under PReLU, whose trainable alpha K4
+has no epilogue for.  Matrix products honour DCA_TPU_MATMUL (``_dot``).
+``apply`` with ``keys`` computes only the heads (and fork branches) those
+outputs need, what XLA's dead-code elimination gives the JAX package's
+per-keys predict.
 
 In a data-parallel training step (``shard``, a ``parallel.step.BatchShard``)
 each rank runs its rows of the global batch: BatchNorm normalises with the
@@ -45,8 +47,11 @@ as GSPMD's psum gives them in the JAX package, and dropout draws the
 global batch's mask from the shared-seed generator and takes its own rows,
 so the ranks compute what one device would on the whole batch.
 
-All 11 architectures of the JAX package run here; the PReLU activation
-(its trainable alpha) waits for a later slice (ROADMAP.md, Queue 1).
+All 11 architectures of the JAX package run here.  With
+``activation="PReLU"`` every hidden layer of the trunk and of the fork
+branches carries a trainable alpha per unit, ``prelu_alpha`` (Keras zeros
+at init), which the bridge carries across from the JAX pytree under the
+same name.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ import torch
 from torch import nn
 
 from ..config import matmul_dtype, use_fused_dense
-from ..ops.activations import DispAct, MeanAct, get_activation
+from ..ops.activations import (PARAMETRIC_ACTIVATIONS, DispAct, MeanAct, get_activation,
+                               prelu)
 from ..ops.fused_dense import fused_dense_block, supported_activation
 from ..ops.initializers import get_initializer
 from ..parallel.multihost import all_reduce_sum
@@ -319,11 +325,12 @@ def build_definition(
 
 
 class Dense(nn.Module):
-    """One Dense layer's parameters, and its batch-norm parameter and state
-    when it has one.  ``kernel`` is (in, out), the JAX layout, or (units,)
-    for the elementwise pi head."""
+    """One Dense layer's parameters, its batch-norm parameter and state when
+    it has one, and its PReLU alpha (zeros, as Keras initialises it) when
+    ``prelu``.  ``kernel`` is (in, out), the JAX layout, or (units,) for
+    the elementwise pi head."""
 
-    def __init__(self, kernel: torch.Tensor, batchnorm: bool):
+    def __init__(self, kernel: torch.Tensor, batchnorm: bool, prelu: bool = False):
         super().__init__()
         units = kernel.shape[-1]
         zeros = torch.zeros(units, device=kernel.device, dtype=torch.float32)
@@ -334,6 +341,8 @@ class Dense(nn.Module):
             self.bn_beta = nn.Parameter(zeros.clone())
             self.register_buffer("moving_mean", zeros.clone())
             self.register_buffer("moving_var", torch.ones_like(zeros))
+        if prelu:
+            self.prelu_alpha = nn.Parameter(zeros.clone())
 
 
 class ConstantDispersion(nn.Module):
@@ -345,17 +354,10 @@ class ConstantDispersion(nn.Module):
         self.theta = nn.Parameter(torch.zeros((1, units), device=device, dtype=torch.float32))
 
 
-def _check_supported(definition: NetworkDef):
-    if definition.activation == "PReLU":
-        raise NotImplementedError(
-            "the PReLU activation (a trainable alpha per unit) is not ported "
-            "yet (see ROADMAP.md, Queue 1)")
-
-
-def _stack(layers, init_fn, generator, device):
+def _stack(layers, init_fn, generator, device, parametric):
     return nn.ModuleDict({
         layer.name: Dense(init_fn(generator, (layer.in_dim, layer.units), device),
-                          layer.batchnorm)
+                          layer.batchnorm, prelu=parametric)
         for layer in layers
     })
 
@@ -375,11 +377,11 @@ class DCANetwork(nn.Module):
     def __init__(self, definition: NetworkDef, generator: torch.Generator,
                  device="cpu"):
         super().__init__()
-        _check_supported(definition)
         init_fn = get_initializer(definition.init)
-        self.trunk = _stack(definition.shared, init_fn, generator, device)
+        parametric = definition.activation in PARAMETRIC_ACTIVATIONS
+        self.trunk = _stack(definition.shared, init_fn, generator, device, parametric)
         self.branches = nn.ModuleDict({
-            bname: _stack(layers, init_fn, generator, device)
+            bname: _stack(layers, init_fn, generator, device, parametric)
             for bname, layers in definition.branches.items()
         })
         self.heads = nn.ModuleDict({
@@ -493,9 +495,12 @@ def _apply_stack(layers, stack, x, activation, training, generator, new_state,
     and puts each BN layer's new state into ``new_state``.  In eval mode
     with the fused kernel switched on, the layers run through it up to
     ``center``, which stays plain: ``latent`` is its Dense output before
-    BN and activation."""
+    BN and activation.  PReLU layers never take the kernel, as in the JAX
+    package."""
     latent = None
-    if not training and use_fused_dense() and supported_activation(activation):
+    parametric = activation in PARAMETRIC_ACTIVATIONS
+    if (not training and not parametric and use_fused_dense()
+            and supported_activation(activation)):
         for i, layer in enumerate(layers):
             if layer.name == "center":
                 layers = layers[i:]
@@ -507,7 +512,7 @@ def _apply_stack(layers, stack, x, activation, training, generator, new_state,
                 new_state[layer.name] = _eval_state(d)
         else:
             return x, latent
-    act_fn = get_activation(activation)
+    act_fn = None if parametric else get_activation(activation)
     for layer in layers:
         d = stack[layer.name]
         x = _dot(x, d.kernel) + d.bias
@@ -515,7 +520,7 @@ def _apply_stack(layers, stack, x, activation, training, generator, new_state,
             latent = x  # encoder output = center Dense before BN/activation
         if layer.batchnorm:
             x, new_state[layer.name] = _batchnorm(d, x, training, shard)
-        x = act_fn(x)
+        x = prelu(x, d.prelu_alpha) if parametric else act_fn(x)
         if layer.dropout > 0.0 and training:
             x = _dropout(x, layer.dropout, generator, shard)
     return x, latent

@@ -65,15 +65,63 @@ def _fetch_dtype():
     raise ValueError(f"DCA_TPU_FETCH_DTYPE={mode!r}: expected f32/bf16/f16")
 
 
-def _to_host(v):
-    """A float32 numpy copy of a forward output, downcast on the device
-    first under DCA_TPU_FETCH_DTYPE and cast back on the host."""
-    if v is None:
-        return None
+# the page-locked staging ring of fetch_to_host: two chunks of this many
+# bytes, allocated at the first fetch and kept by the process
+FETCH_CHUNK_BYTES = 32 << 20
+_rings = {}
+
+
+def _ring(chunk_bytes):
+    """The two page-locked chunks of ``chunk_bytes`` bytes."""
+    if chunk_bytes not in _rings:
+        _rings[chunk_bytes] = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=True)
+                               for _ in range(2)]
+    return _rings[chunk_bytes]
+
+
+def fetch_to_host(outputs):
+    """{key: float32 numpy array} of a dict of forward outputs (tensors or
+    None), downcast on the device first under DCA_TPU_FETCH_DTYPE and cast
+    back on the host.
+
+    The CUDA outputs cross in chunks of ``FETCH_CHUNK_BYTES`` through a ring
+    of two page-locked chunks: each chunk's copy is queued without blocking
+    and followed by an event, and while it runs the host copies the chunk
+    before it, once its event has completed, into the output's pageable
+    array.  The page-locked memory is the ring's two chunks whatever the
+    size of the block, and the arrays handed out are pageable and own
+    their memory.  A CPU output is read as it is."""
     dt = _fetch_dtype()
-    if dt is not None and v.dtype == torch.float32:
-        return v.to(dt).cpu().to(torch.float32).numpy()
-    return v.cpu().numpy()
+    fetched, pieces = {}, []
+    for k, v in outputs.items():
+        if v is not None and dt is not None and v.dtype == torch.float32:
+            v = v.to(dt)
+        if v is None or not v.is_cuda:
+            fetched[k] = v
+            continue
+        v = v.contiguous()
+        fetched[k] = torch.empty(v.shape, dtype=v.dtype)
+        src, dst = v.view(-1).view(torch.uint8), fetched[k].view(-1).view(torch.uint8)
+        pieces += [(src[i:i + FETCH_CHUNK_BYTES], dst[i:i + FETCH_CHUNK_BYTES])
+                   for i in range(0, src.numel(), FETCH_CHUNK_BYTES)]
+    ring, queued = _ring(FETCH_CHUNK_BYTES) if pieces else [], []
+
+    def drain():
+        done, staged, dst = queued.pop(0)
+        done.synchronize()
+        dst.copy_(staged)
+
+    for i, (src, dst) in enumerate(pieces):
+        if len(queued) == len(ring):
+            drain()  # the piece that holds the chunk this one takes
+        staged = ring[i % len(ring)][:src.numel()]
+        staged.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(src.device))
+        queued.append((done, staged, dst))
+    while queued:
+        drain()
+    return {k: None if v is None else v.to(torch.float32).numpy() for k, v in fetched.items()}
 
 
 class Autoencoder:
@@ -270,16 +318,13 @@ class Autoencoder:
                                     keys=keys)
             return out
 
-        def fetch(out):
-            return {k: _to_host(v) for k, v in out.items()}
-
         if chunk_rows is None:
             chunk_rows = self._auto_chunk_rows(len(keys) if keys is not None else 5)
         blocks = [(lo, min(lo + chunk_rows, n))
                   for lo in range(0, n, chunk_rows)] or [(0, 0)]
         if len(blocks) == 1 or os.environ.get("DCA_TPU_PREFETCH", "1") == "0":
             for lo, hi in blocks:
-                yield lo, hi, fetch(compute(prep(lo, hi), lo, hi))
+                yield lo, hi, fetch_to_host(compute(prep(lo, hi), lo, hi))
             return
 
         pool = ThreadPoolExecutor(max_workers=1)
@@ -293,10 +338,10 @@ class Autoencoder:
                 dev = compute(prepped, lo, hi)
                 if pending is not None:
                     plo, phi, pdev = pending
-                    yield plo, phi, fetch(pdev)
+                    yield plo, phi, fetch_to_host(pdev)
                 pending = (lo, hi, dev)
             plo, phi, pdev = pending
-            yield plo, phi, fetch(pdev)
+            yield plo, phi, fetch_to_host(pdev)
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
@@ -600,7 +645,7 @@ class Autoencoder:
                         d, _ = self.apply(torch.tensor(x_post, device=self.device),
                                           torch.tensor(sf[lo:hi], device=self.device),
                                           keys=("disp",))
-                    sink("disp", _to_host(d["disp"]))
+                    sink("disp", fetch_to_host(d)["disp"])
             for ws in writers.values():
                 for w in ws:
                     w.close()

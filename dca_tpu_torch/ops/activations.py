@@ -4,8 +4,9 @@
     DispAct = clip(softplus(x), 1e-4, 1e4)
 
 The hidden-layer registry holds the same names as the JAX package's
-``dca_tpu/ops/activations.py``.  PReLU carries a trainable parameter and is
-not ported yet (ROADMAP.md, Queue 1).
+``dca_tpu/ops/activations.py``.  PReLU carries a trainable alpha per unit,
+which the model trunk owns (``models/core.py``); ``get_activation`` returns
+its name as a sentinel, and ``prelu`` applies it.
 """
 
 from __future__ import annotations
@@ -47,12 +48,25 @@ ACTIVATIONS = {
 }
 
 
+# Activations that carry trainable parameters; resolved inside the trunk.
+PARAMETRIC_ACTIVATIONS = ("PReLU",)
+
+
+def prelu(x, alpha):
+    """Keras PReLU with a per-unit ``alpha``: the JAX package's
+    ``where(x >= 0, x, alpha * x)``, whose gradient at x = 0 and whose NaN
+    handling ``F.prelu`` does not share."""
+    return torch.where(x >= 0, x, alpha * x)
+
+
 def get_activation(name):
     if callable(name):
         return name
+    if name in PARAMETRIC_ACTIVATIONS:
+        return name  # sentinel: the trunk owns the parameter
     if name not in ACTIVATIONS:
         raise ValueError(
-            f"Unknown activation {name!r}; available: {sorted(ACTIVATIONS)} "
-            "(PReLU waits for a later slice of the port, see ROADMAP.md)"
+            f"Unknown activation {name!r}; available: {sorted(ACTIVATIONS)} + "
+            f"{PARAMETRIC_ACTIVATIONS}"
         )
     return ACTIVATIONS[name]

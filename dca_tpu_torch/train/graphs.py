@@ -88,7 +88,10 @@ class EagerEpoch:
 class GraphEpoch(EagerEpoch):
     """Replays an epoch's steps from two CUDA graphs captured at
     construction.  ``state`` lists every tensor the steps write besides
-    ``bufs`` (parameters, optimizer state, BN statistics); ``generator``
+    ``bufs``: the parameters (PReLU's alphas among them), the BN
+    statistics and every tensor of the optimizer state
+    (``optim.state_tensors``: its per-parameter tensors and its step
+    count, which the warm-up advances too); ``generator``
     is the fit's dropout generator.  ``capture_s`` is the wall time of the
     warm-up and the captures."""
 

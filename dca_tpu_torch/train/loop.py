@@ -68,6 +68,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import native
 from ..data.io import densify, scale_stats, size_factors
 from ..device import resolve_device
 from ..parallel.mesh import resolve_mesh
@@ -75,7 +76,7 @@ from ..parallel.multihost import initialize, is_primary
 from ..parallel.step import (StepBuffers, batch_shard, make_sharded_train_step,
                              place_train_state, shard_train_data)
 from .graphs import EagerEpoch, GraphEpoch
-from .optim import get_optimizer
+from .optim import get_optimizer, state_tensors
 
 
 def _not_ported(what):
@@ -223,7 +224,11 @@ def train(
     if stream:
         raise _not_ported("the streaming trainer for inputs above the device budget")
     if threads:
+        # the CPU path computes in torch; the host loops of the native tier
+        # (text parse and format, row gathers) take the same cap, as the
+        # JAX package's train() gives them
         torch.set_num_threads(threads)
+        native.set_threads(threads)
     if output_dir is not None:
         os.makedirs(output_dir, exist_ok=True)
 
@@ -292,8 +297,7 @@ def train(
                         "val_loss" if has_val else "loss")
     if (_graphs and epochs > 0 and device.type == "cuda" and group is None
             and not network.definition.debug):
-        written = params + list(network.model.buffers()) + [
-            t for ts in opt_state.values() for t in ts]
+        written = params + list(network.model.buffers()) + state_tensors(opt_state)
         run_epoch = GraphEpoch(step, bufs, rem, written, generator)
         hist.capture_s = run_epoch.capture_s
     else:

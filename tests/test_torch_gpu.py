@@ -8,8 +8,11 @@ odd address, the same bits twice and under CUDA-graph replay, and one
 device operation a loss backward; the reciprocal and division of
 ``csrc/special.cuh`` the same bits as CUDA's IEEE ones; and the training
 step replayed from CUDA graphs (``train/graphs.py``) against the eager
-loop on the card (``_graphs=False``), its launch counts, and a capture
-that fails raising.
+loop on the card (``_graphs=False``), for every optimizer and for PReLU,
+its launch counts, and a capture that fails raising; the forward's outputs
+fetched through a page-locked ring the same bits as pageable copies,
+block by block, with nothing page-locked beyond the ring; and PReLU
+layers kept off K4.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -26,12 +29,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, _grad_check, _loss_inputs, _on,
-                        _small_counts, _ulps, _weights, check_dense_case, check_weighted_case,
-                        dense_inputs)
+from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, OPTIONS, STEP_COUNTED, _grad_check,
+                        _loss_inputs, _on, _small_counts, _steps, _ulps, _want_launches,
+                        _warmups, _weights, check_dense_case, check_weighted_case, dense_inputs,
+                        options_fit)
 from dca_tpu_torch.data import io
 from dca_tpu_torch.data.adata import AnnData
-from dca_tpu_torch.models.network import get_ae_type
+from dca_tpu_torch.models import network
+from dca_tpu_torch.models.network import fetch_to_host, get_ae_type
 from dca_tpu_torch.ops import _build, fused_dense, fused_loss
 from dca_tpu_torch.parallel.step import StepBuffers, make_sharded_train_step
 from dca_tpu_torch.train import optim
@@ -638,3 +643,121 @@ def test_failing_capture_raises_and_does_not_fit_eagerly(cuda, monkeypatch):
         assert torch.equal(v, before[k]), k
     # the card is usable after the failed capture
     assert torch.ones(3, device=cuda).sum().item() == 3.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("optimizer,activation", OPTIONS, ids=[f"{o}-{a}" for o, a in OPTIONS])
+def test_options_graph_fit_matches_eager_fit_on_card(cuda, optimizer, activation, dropout):
+    """Every optimizer, and PReLU, is graph-safe: the fit replayed from CUDA
+    graphs gives the eager fit's history bit for bit (its state written in
+    place, the step count on the device, the warm-up's two steps undone),
+    the step count after the fit is the steps taken, and the launches are
+    the eager fit's plus the two warm-ups."""
+    epochs, n_cells = 3, 200
+    graph, graph_launches, graph_opt, state = options_fit(optimizer, activation, "cuda", True,
+                                                          epochs=epochs, dropout=dropout)
+    eager, eager_launches, eager_opt, _ = options_fit(optimizer, activation, "cuda", False,
+                                                      state, epochs=epochs, dropout=dropout)
+    for key in ("loss", "val_loss", "lr"):
+        assert graph.history[key] == eager.history[key], key
+    steps = _steps(n_cells)
+    if optimizer in STEP_COUNTED:
+        assert int(graph_opt["t"]) == int(eager_opt["t"]) == epochs * steps
+    assert eager_launches == _want_launches("zinb", epochs, steps)
+    assert graph_launches == _want_launches("zinb", epochs, steps, _warmups(n_cells))
+
+
+def _forward_outputs(cuda, activation="relu", n_cells=700, n_genes=300):
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(n_cells, n_genes, 9))))
+    net = get_ae_type("zinb-conddisp")(input_size=n_genes, hidden_size=(64, 32, 64),
+                                       activation=activation, device=cuda).build()
+    return net, np.asarray(adata.X, np.float32), io.size_factors(adata)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [network.FETCH_CHUNK_BYTES, 4098], ids=["ring", "odd-chunks"])
+def test_pinned_fetch_same_bits_as_pageable_on_card(cuda, monkeypatch, chunk):
+    """fetch_to_host copies every output through the page-locked ring: the
+    bits of a pageable copy, in float32 arrays of pageable memory, also
+    with chunks that split the outputs and their floats at odd offsets;
+    under DCA_TPU_FETCH_DTYPE=bf16 the bits of the downcast pageable copy."""
+    monkeypatch.setattr(network, "FETCH_CHUNK_BYTES", chunk)
+    net, x, sf = _forward_outputs(cuda)
+    with torch.no_grad():
+        out, _ = net.apply(torch.tensor(x, device=cuda), torch.tensor(sf, device=cuda))
+    got = fetch_to_host(out)
+    assert sorted(got) == sorted(out)
+    for k, v in out.items():
+        if v is None:
+            assert got[k] is None
+            continue
+        want = v.cpu().numpy()
+        assert got[k].dtype == np.float32 and got[k].shape == want.shape, k
+        assert np.array_equal(got[k].view(np.uint32), want.view(np.uint32)), k
+        assert not torch.from_numpy(got[k]).is_pinned(), k
+    monkeypatch.setenv("DCA_TPU_FETCH_DTYPE", "bf16")
+    low = fetch_to_host({"mean": out["mean"]})["mean"]
+    np.testing.assert_array_equal(low, out["mean"].bfloat16().cpu().float().numpy())
+
+
+@pytest.mark.gpu
+def test_pipelined_blocks_keep_their_arrays_on_card(cuda, monkeypatch):
+    """The pipelined block forward queues block k+1 while block k is
+    fetched: every block's arrays, all held until the end, keep the bits of
+    the serial forward's (DCA_TPU_PREFETCH=0), and agree with the forward
+    of the whole matrix in one block."""
+    net, x, sf = _forward_outputs(cuda)
+    held = list(net.iter_forward_blocks(x, sf, chunk_rows=128))
+    assert [(lo, hi) for lo, hi, _ in held] == [(i, min(i + 128, 700))
+                                                for i in range(0, 700, 128)]
+    monkeypatch.setenv("DCA_TPU_PREFETCH", "0")
+    serial = list(net.iter_forward_blocks(x, sf, chunk_rows=128))
+    for (lo, hi, a), (_, _, b) in zip(held, serial):
+        for k, v in b.items():
+            if v is not None:
+                assert np.array_equal(a[k].view(np.uint32), v.view(np.uint32)), (lo, k)
+    whole = net.forward(x, sf)  # one block: the products may round otherwise
+    for k, v in whole.items():
+        if v is not None:
+            np.testing.assert_allclose(np.concatenate([b[k] for _, _, b in held]), v,
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_block_forward_pins_no_more_than_the_ring_on_card(cuda):
+    """However many blocks the caller holds, the pipelined block forward
+    page-locks nothing beyond the fetch ring's two chunks, made at the
+    first fetch; the arrays it hands out are pageable."""
+    net, x, sf = _forward_outputs(cuda)
+    fetch_to_host({"x": torch.zeros(1, device=cuda)})
+    ring = network._ring(network.FETCH_CHUNK_BYTES)
+    assert [c.numel() for c in ring] == [network.FETCH_CHUNK_BYTES] * 2
+    assert all(c.is_pinned() for c in ring)
+    torch.cuda.reset_peak_host_memory_stats()
+    base = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    held = list(net.iter_forward_blocks(x, sf, chunk_rows=128))
+    stats = torch.cuda.host_memory_stats()
+    assert len(held) > 2
+    assert stats["allocated_bytes.peak"] == stats["allocated_bytes.current"] == base
+    for _, _, b in held:
+        for a in b.values():
+            assert a is None or not torch.from_numpy(a).is_pinned()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation,k4,splitk", [("relu", 4, 1), ("PReLU", 3, 0)])
+def test_prelu_never_takes_k4_on_card(cuda, monkeypatch, activation, k4, splitk):
+    """With K4 switched on, a PReLU network launches it for the dense heads
+    alone (no hidden layer: K4 has no epilogue for a trainable alpha); a
+    relu one for the encoder too.  The outputs agree with the switch off."""
+    net, x, sf = _forward_outputs(cuda, activation)
+    off = net.forward(x, sf)
+    monkeypatch.setenv("DCA_TPU_FUSED_DENSE", "1")
+    fused_dense.reset_launches()
+    on = net.forward(x, sf)
+    assert fused_dense.launches["fused_dense"] == k4
+    assert fused_dense.launches["splitk"] == splitk
+    for k, v in off.items():
+        if v is not None:
+            np.testing.assert_allclose(on[k], v, rtol=1e-4, atol=1e-5, err_msg=k)

@@ -154,11 +154,22 @@ def test_rmsprop_matches_jax(steps):
 
 
 def test_adam_and_prelu_are_not_ported_yet():
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        optim.get_optimizer("Adam")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_ae_type("zinb-conddisp")(input_size=20, hidden_size=HID, activation="PReLU",
-                                     device="cpu").build()
+    """Adam and PReLU are ported now: what stays refused is an unknown
+    optimizer or activation, with the JAX package's messages."""
+    from dca_tpu.ops.activations import get_activation as jget_activation
+    from dca_tpu_torch.ops.activations import get_activation
+
+    assert optim.get_optimizer("Adam").name == "Adam"
+    net = get_ae_type("zinb-conddisp")(input_size=20, hidden_size=HID, activation="PReLU",
+                                       device="cpu").build()
+    assert "trunk.enc0.prelu_alpha" in dict(net.model.named_parameters())
+    for get, jget, name in ((optim.get_optimizer, joptim.get_optimizer, "Adamw"),
+                            (get_activation, jget_activation, "prelu")):
+        with pytest.raises(ValueError) as ours:
+            get(name)
+        with pytest.raises(ValueError) as theirs:
+            jget(name)
+        assert str(ours.value) == str(theirs.value)
 
 
 def test_predict_matches_jax():

@@ -154,8 +154,23 @@ def test_cli_zinb_on_cpu(input_tsv, tmp_path, ae_type):
         assert pickle.load(f)["ae_type"] == ae_type
 
 
-@pytest.mark.parametrize("flags", [["--activation", "PReLU"], ["--hyper"],
-                                   ["--saveweights"], ["--tensorboard"],
+def test_cli_prelu_adam_on_cpu(input_tsv, tmp_path, capsys):
+    """--activation PReLU --optimizer Adam runs and writes the TSV contract
+    (it was refused before PReLU and Adam were ported)."""
+    outdir = str(tmp_path / "out")
+    main([input_tsv, outdir, "-e", "2", "-s", "16,8,16", "--type", "zinb-conddisp",
+          "--activation", "PReLU", "--optimizer", "Adam", "--device", "cpu"])
+    assert "Epoch 2/2" in capsys.readouterr().out
+    for fname, header, shape in (("mean.tsv", 0, (20, 60)), ("dropout.tsv", None, (20, 60)),
+                                 ("dispersion.tsv", None, (20, 60)),
+                                 ("latent.tsv", None, (60, 8))):
+        df = pd.read_csv(os.path.join(outdir, fname), sep="\t", index_col=0, header=header)
+        assert df.shape == shape and np.isfinite(df.to_numpy()).all(), fname
+    with open(os.path.join(outdir, "model.pickle"), "rb") as f:
+        assert pickle.load(f)["ctor"]["activation"] == "PReLU"
+
+
+@pytest.mark.parametrize("flags", [["--hyper"], ["--saveweights"], ["--tensorboard"],
                                    ["--modelparallel", "2"]])
 def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
     with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
