@@ -145,7 +145,44 @@ Phases, each of which must pass:
    ``train()`` with RMSprop and with Adam, three 3-epoch fits each in
    turns.
 
-The phases run in the order 1-4, 9, 8, 5-7.  Prints the card's name and
+10. The streaming trainer (``train/loop.py::_train_streaming``), on
+   zinb-conddisp 64-32-64 fits through the CUDA graphs, the data read and
+   normalized with the z-scale deferred (``normalize(lazy_scale=True)``).
+   (a) At phase 4's 2730 x 3451 with ``max_device_cells=512`` (an epoch
+   is 6 staged parts, the last chunk's 12 full batches and its 25-row
+   trailing batch apart, and one 273-row validation chunk), 2 epochs
+   through each staging tier: host densify, padded, flat and flat8
+   payloads, the derived input and the resident corpus (forced with
+   DCA_TPU_RESIDENT=1).  Held against the in-memory graph fit from the
+   same weights: host, padded, flat and flat8 its history bit for bit;
+   the derived input within rtol 2e-3 (``DERIVED_RTOL``: its input is
+   log1p on the device, held within 2 ulps of the host's); the resident
+   tier the derived tier's
+   bits; each fit's K1/K2 launches exact, the warm-ups of its 3 captured
+   steps included.  Then every device scatter (padded, flat, flat8, and
+   flat into a kept buffer) of a 512-row part, with the z-scale on the
+   normalized X and without it on the raw counts, the bits of
+   ``native.densify_rows``; and the block forward's payload branch
+   (DCA_TPU_DEVICE_DENSIFY=1, blocks of 1024 rows) the host forward's bits
+   with K4 off, and with K4 on within ``_forward_tolerance`` (4 K4
+   launches a block).
+   (b) At corpus scale: 262,144 cells x 3451 genes, 345 nonzeros a cell
+   (~10%; ``synthetic_sparse_counts``), which streams by the default gate
+   (7.24e9 bytes > 6e9): parts of 131,072 cells, 7,372 full steps, a
+   25-row trailing step and one 26,215-row validation chunk an epoch.  2
+   epochs on the host tier, then 2 with the resident corpus, which the
+   auto gate engages: each epoch's time, training rows/s, the device
+   memory peak against the estimate (part buffers, and the resident
+   payload and a part's transient), the host's peak resident memory, and
+   the main stream's busy share of each epoch (DCA_TPU_TIMELINE, written
+   to chip_smoke_out/timeline_*.jsonl); launches exact.  One resident part
+   target rebuilt by the slice (unfold) gather ``ops/resident.py`` uses and
+   by the element-wise gather, the same bits, timed in turns; the whole
+   part's time and its transient device memory a padded slot.  ZINB K1 at the
+   validation chunk's (26215, 3451) against its plain version (loss rel
+   err <= 1e-5), both timed.
+
+The phases run in the order 1-4, 10, 9, 8, 5-7.  Prints the card's name and
 power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
 non-zero, with no result line, when there is no CUDA device or a phase
@@ -162,6 +199,7 @@ import subprocess
 import sys
 import time
 import types
+from io import StringIO
 
 import numpy as np
 
@@ -1859,6 +1897,540 @@ def phase_data_parallel(single_hist, n_ranks=DP_RANKS, backend="gloo", val_rtol=
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the streaming trainer
+# ---------------------------------------------------------------------------
+
+STREAM_TIERS = {
+    "host": {"DCA_TPU_DEVICE_DENSIFY": "0"},
+    "padded": {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_DERIVE_INPUT": "0",
+               "DCA_TPU_PAYLOAD": "padded"},
+    "flat": {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_DERIVE_INPUT": "0",
+             "DCA_TPU_PAYLOAD": "flat"},
+    "flat8": {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_DERIVE_INPUT": "0",
+              "DCA_TPU_PAYLOAD": "flat8"},
+    "derived": {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_RESIDENT": "0"},
+    "resident": {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_RESIDENT": "1"},
+}
+STREAM_SWITCHES = ("DCA_TPU_DEVICE_DENSIFY", "DCA_TPU_DERIVE_INPUT", "DCA_TPU_PAYLOAD",
+                   "DCA_TPU_RESIDENT", "DCA_TPU_TIMELINE", "DCA_TPU_FUSED_DENSE")
+# the streamed tiers whose parts are the in-memory fit's bits (the CPU tests
+# show them equal: tests/test_torch_streaming.py)
+SAME_BITS_TIERS = ("host", "padded", "flat", "flat8")
+CORPUS = (262_144, 3451, 345)  # cells, genes, nonzeros a cell: ~10% density
+# the derived input is log1p(t * m) on the device, within 2 ulps of the
+# host's normalized input (checked apart, ``_check_derived_input``); the
+# Dense biases before BatchNorm, whose exact gradient is 0, turn such
+# differences into learning-rate-sized RMSprop steps, which the running
+# means carry into the history: the JAX package holds its derived tier to
+# its host tier at this tolerance (tests/test_densify.py)
+DERIVED_RTOL = 2e-3
+
+
+@contextlib.contextmanager
+def _switches(env):
+    """Set the streaming switches to ``env`` (the others unset) for the
+    block, and restore them after."""
+    saved = {k: os.environ.get(k) for k in STREAM_SWITCHES}
+    for k in STREAM_SWITCHES:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _lazy_adata(X):
+    """``X`` (cells x genes) read and normalized as ``dca()`` does, with the
+    z-scale deferred (``normalize(lazy_scale=True)``), X kept sparse."""
+    import scipy.sparse as sp
+
+    from dca_tpu_torch.data import io
+    from dca_tpu_torch.data.adata import AnnData
+
+    return io.normalize(io.read_dataset(AnnData(sp.csr_matrix(X)), check_counts=False),
+                        lazy_scale=True)
+
+
+def _stream_schedule(n_cells, max_cells, batch=32, val_split=0.1):
+    """(train steps, validation chunks, captured graphs) of one streamed
+    epoch, as ``train/loop.py::_train_streaming`` stages it: the full
+    batches of each chunk of ``chunk`` rows as one part and its trailing
+    rows as another, the parts alternating between two buffers, then the
+    validation chunks; one graph for each (buffer, full or trailing) the
+    schedule uses."""
+    n_train = int(n_cells * (1.0 - val_split))
+    chunk = max((min(max_cells, n_train) // batch) * batch, batch)
+    kinds = []
+    for lo in range(0, n_train, chunk):
+        n = min(chunk, n_train - lo)
+        kinds += ["full"] * (n >= batch) + ["rem"] * (n % batch > 0)
+    graphs = {(i % 2, k) for i, k in enumerate(kinds)}
+    n_val = n_cells - n_train
+    val_chunks = -(-n_val // chunk)
+    return n_train // batch + (n_train % batch > 0), val_chunks, len(graphs)
+
+
+def _streamed_epochs(text):
+    """The epochs a verbose fit printed as streamed."""
+    return sum(line.startswith("Epoch ") and line.endswith("[streaming]")
+               for line in text.splitlines())
+
+
+def _want_stream_launches(epochs, n_cells, max_cells):
+    steps, val_chunks, graphs = _stream_schedule(n_cells, max_cells)
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
+    want["zinb_nll_fwd"] = epochs * (steps + val_chunks) + graphs
+    want["zinb_nll_bwd"] = epochs * steps + graphs
+    return want
+
+
+def synthetic_sparse_counts(n_cells, n_genes=3451, k=345, seed=0):
+    """Sparse count matrix at ~10% density built directly in CSR, only its
+    nonzeros sampled: k nonzeros a cell on a strided column pattern,
+    values Poisson(3) + 1 (the generator of the JAX package's
+    ``examples/large_scale.py``, copied, with the row offsets running over
+    every column the stride leaves, so that no gene is empty and
+    ``normalize`` keeps all n_genes)."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    step = n_genes // k
+    offsets = n_genes - (k - 1) * step
+    idx = (np.arange(k, dtype=np.int32)[None, :] * step
+           + (np.arange(n_cells, dtype=np.int32)[:, None] % offsets))
+    data = (rs.poisson(3.0, size=n_cells * k) + 1.0).astype(np.float32)
+    indptr = np.arange(n_cells + 1, dtype=np.int64) * k
+    return sp.csr_matrix((data, idx.ravel(), indptr), shape=(n_cells, n_genes))
+
+
+class _PeakRSS:
+    """The process's peak resident memory while the block runs, sampled
+    every 20 ms on a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = _rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, _rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+
+def _stream_fit(dev, adata, state, epochs, **kw):
+    """``train()`` zinb-conddisp 64-32-64 on ``dev`` from ``state``;
+    returns (history, launches, network)."""
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.train.loop import train
+
+    net = get_ae_type("zinb-conddisp")(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                       device=dev).build()
+    net.model.load_state_dict(state)
+    fl.reset_launches()
+    hist = train(adata, net, epochs=epochs, **kw)
+    return hist, dict(fl.launches), net
+
+
+def _check_scatters(dev, adata):
+    """Every device scatter of a 512-row part of ``adata`` (its normalized
+    X with the fused z-scale, its raw counts without) against the host
+    tier's ``native.densify_rows``: the same bits."""
+    import torch
+
+    from dca_tpu_torch import native
+    from dca_tpu_torch.data.loader import Flat8Chunk
+    from dca_tpu_torch.data.io import scale_stats
+    from dca_tpu_torch.ops import densify as dz
+
+    mean, std = scale_stats(adata)
+    mean_d, std_d = torch.from_numpy(mean).to(dev), torch.from_numpy(std).to(dev)
+    rows = np.random.RandomState(3).permutation(adata.n_obs)[:512]
+    n = 0
+    for M, scaled in ((adata.X, True), (adata.raw.X, False)):
+        G = M.shape[1]
+        want = native.densify_rows(M.indptr, M.indices, M.data, rows, G)
+        if scaled:
+            want = (want - mean) / std
+        int_vals = not scaled
+        sc = (mean_d, std_d) if scaled else (None, None)
+        L = dz.flat_slots_for(M, rows)
+        out = torch.full((600 * G + 1,), 7.0, device=dev)  # a kept, dirty buffer
+        got = {
+            "padded": dz.device_densify(*dz.payload_from_csr(M, rows, int_vals=int_vals), G,
+                                        *sc, device=dev),
+            "flat": dz.device_densify_flat(*dz.flat_payload_from_csr(M, rows, L,
+                                                                     int_vals=int_vals),
+                                           len(rows), G, *sc, device=dev),
+            "flat8": dz.device_densify_flat8(
+                Flat8Chunk(*dz.flat8_payload_from_csr(M, rows, L, L, L), len(rows), G),
+                *sc, device=dev),
+            "flat into a kept buffer": dz.device_densify_flat(
+                *dz.flat_payload_from_csr(M, rows, L, int_vals=int_vals), len(rows), G, *sc,
+                out=out),
+        }
+        for name, t in got.items():
+            _check(t.device.type == dev.type and np.array_equal(t.cpu().numpy(), want),
+                   f"phase 10: the {name} scatter{' with the z-scale' if scaled else ''} "
+                   f"differs from densify_rows at {int((t.cpu().numpy() != want).sum())} "
+                   "elements")
+            n += 1
+        _check(bool((out[len(rows) * G:-1] == 7.0).all()),
+               "phase 10: a scatter wrote past its part into the kept buffer")
+    return n
+
+
+def _check_derived_input(dev, adata):
+    """The derived input of every row (``ops.resident.derive_input`` on the
+    device, from the raw counts and ``_derivable_row_scale``'s m): its
+    log1p(t * m) within 4 ulps of the host's normalized log counts (m is
+    recovered through expm1, so t * m may round apart from the host's
+    scaled counts, and the two log1p are different functions), and the
+    z-scaled input within that error through 1/std plus 2 ulps; returns the
+    worst log1p error, in ulps."""
+    import torch
+
+    from dca_tpu_torch.data.io import scale_stats
+    from dca_tpu_torch.ops.resident import derive_input
+
+    from dca_tpu_torch.train.loop import _derivable_row_scale
+
+    mean, std = scale_stats(adata)
+    m = _derivable_row_scale(adata.X, adata.raw.X)
+    _check(m is not None, "phase 10: the input is not derivable from the raw counts")
+    t = torch.from_numpy(adata.raw.X.toarray()).to(dev)
+    m_d = torch.from_numpy(m).to(dev)
+    G = t.shape[1]
+    l1p = derive_input(t, m_d, torch.zeros(G, device=dev), torch.ones(G, device=dev))
+    got = derive_input(t, m_d, torch.from_numpy(mean).to(dev),
+                       torch.from_numpy(std).to(dev)).cpu().numpy()
+    host = adata.X.toarray()
+    ulps = np.abs(l1p.cpu().numpy() - host) / np.spacing(np.abs(host))
+    worst = float(ulps.max())
+    _check(worst <= 4, f"phase 10: the derived log counts are {worst} ulps off the host's")
+    want = (host - mean) / std
+    tol = 4 * np.spacing(np.abs(host)) / std + 2 * np.spacing(np.abs(want))
+    _check(bool((np.abs(got - want) <= tol).all()),
+           "phase 10: the derived, z-scaled input is off the host's beyond its tolerance")
+    return worst
+
+
+def phase_stream_small(dev, epochs=2, max_cells=512):
+    """Phase 10 (a): the streaming trainer at 2730 x 3451 through every
+    staging tier, against the in-memory fit (module docstring)."""
+    import torch
+
+    from dca_tpu_torch.data.io import scale_stats, size_factors
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.ops import fused_dense as fd
+
+    counts = make_paul15_like()
+    adata = _lazy_adata(counts)
+    n_cells = adata.n_obs
+    state = {k: v.clone() for k, v in get_ae_type("zinb-conddisp")(
+        input_size=adata.n_vars, hidden_size=(64, 32, 64), device=dev).build()
+        .model.state_dict().items()}
+    with _switches({}):
+        ref, _, ref_net = _stream_fit(dev, adata, state, epochs, verbose=False)
+    _check(ref.capture_s is not None, "phase 10: the in-memory fit replayed no graph")
+    want = _want_stream_launches(epochs, n_cells, max_cells)
+    res = {"launches": dict.fromkeys(LAUNCH_NAMES, 0), "same_bits": {}}
+    hists = {}
+    for tier, env in STREAM_TIERS.items():
+        with _switches(env):
+            out = StringIO()
+            with contextlib.redirect_stdout(out):
+                hist, launches, _ = _stream_fit(dev, adata, state, epochs, verbose=True,
+                                                max_device_cells=max_cells)
+        text = out.getvalue()
+        n_epochs = _streamed_epochs(text)
+        _check(n_epochs == epochs, f"phase 10: {tier}: {n_epochs} streamed epochs printed")
+        _check(("corpus resident" in text) == (tier == "resident"),
+               f"phase 10: {tier}: the resident corpus {'not ' if tier == 'resident' else ''}"
+               "engaged")
+        _check(hist.capture_s is not None, f"phase 10: {tier}: no graph replayed")
+        _check(launches == want, f"phase 10: {tier}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            res["launches"][k] += v
+        hists[tier] = hist.history
+        same = hist.history == ref.history
+        res["same_bits"][tier] = same
+        if tier in SAME_BITS_TIERS:
+            _check(same, f"phase 10: {tier}: history {hist.history} is not the in-memory "
+                         f"fit's {ref.history}")
+        elif tier == "derived":
+            for key in ("loss", "val_loss"):
+                _check(np.allclose(hist.history[key], ref.history[key], rtol=DERIVED_RTOL,
+                                   atol=0.0),
+                       f"phase 10: derived: {key} {hist.history[key]} vs the in-memory "
+                       f"{ref.history[key]}, beyond rtol {DERIVED_RTOL}")
+        else:
+            _check(hist.history == hists["derived"],
+                   f"phase 10: resident: {hist.history} is not the derived tier's "
+                   f"{hists['derived']}")
+        print(f"phase 10 (a): {tier}: loss {hist.history['loss']}, val_loss "
+              f"{hist.history['val_loss']}; epochs {[round(t * 1e3, 2) for t in hist.epoch_s]} "
+              f"ms; capture {hist.capture_s * 1e3:.1f} ms; launches {launches}; the "
+              f"in-memory fit's bits: {same}")
+
+    res["scatters"] = _check_scatters(dev, adata)
+    res["derived_ulps"] = _check_derived_input(dev, adata)
+
+    # the block forward's payload branch, K4 off and on
+    mean, std = scale_stats(adata)
+    sf = size_factors(adata)
+    x_dense = (adata.X.toarray() - mean) / std
+    outs = {}
+    for name, env in (("host", {"DCA_TPU_DEVICE_DENSIFY": "0"}),
+                      ("payload", {"DCA_TPU_DEVICE_DENSIFY": "1"}),
+                      ("payload K4", {"DCA_TPU_DEVICE_DENSIFY": "1",
+                                      "DCA_TPU_FUSED_DENSE": "1"})):
+        with _switches(env):
+            fd.reset_launches()
+            outs[name] = ref_net.forward(adata.X, sf, mean, std, chunk_rows=1024)
+            torch.cuda.synchronize()
+            res[f"k4_{name}"] = dict(fd.launches)
+    for key, v in outs["host"].items():
+        _check(np.array_equal(outs["payload"][key], v),
+               f"phase 10: the payload forward's {key} is not the host forward's bits")
+    tol = _forward_tolerance(ref_net, x_dense, sf)
+    worst = 0.0
+    for key, t in tol.items():
+        err = np.abs(outs["payload K4"][key] - outs["host"][key])
+        _check(bool((err <= t).all()), f"phase 10: the payload forward with K4: {key} off "
+                                       f"by {(err / t).max():.3f} of its tolerance")
+        worst = max(worst, float((err / t).max()))
+    blocks = -(-n_cells // 1024)
+    _check(res["k4_payload K4"]["fused_dense"] == 4 * blocks and
+           res["k4_payload"]["fused_dense"] == 0,
+           f"phase 10: K4 launches {res['k4_payload K4']} through the payload forward, "
+           f"expected {4 * blocks} ({blocks} blocks of encoder, mean, dispersion, pi)")
+    res["k4_worst"] = worst
+    print(f"phase 10 (a): {res['scatters']} device scatters the bits of densify_rows; the "
+          f"payload forward the host forward's bits, with K4 within {worst:.3f} of its "
+          f"tolerance ({res['k4_payload K4']['fused_dense']} K4 launches); the derived input "
+          f"within {res['derived_ulps']:.1f} ulps of the host's; K1/K2 launches "
+          f"of the 6 streamed fits {res['launches']['zinb_nll_fwd']}/"
+          f"{res['launches']['zinb_nll_bwd']}")
+    return res
+
+
+def _resident_elementwise_target(r, rows, t_out):
+    """``ResidentCSR.target`` rebuilt with the other gather form: the
+    B x K offsets ``starts[rows, None] + arange(K)`` written out, then one
+    element-wise gather of the columns and one of the values at them."""
+    import torch
+
+    B, G = rows.shape[0], r.G
+    t_out[:B * G].zero_()
+    trash = t_out.numel() - 1
+    offs = r.starts_d[rows].view(B, 1) + r._k
+    mask = r._k < r.lens_d[rows].view(B, 1)
+    flat = r.col_d[offs].to(torch.int64)
+    flat += torch.arange(B, device=rows.device, dtype=torch.int64).mul_(G).view(B, 1)
+    flat.masked_fill_(~mask, trash)
+    vals = r.val_d[offs]
+    vals = (vals.to(torch.int32).bitwise_and_(0xFFFF).to(torch.float32) if r.uint16
+            else vals.float())
+    t_out.index_put_((flat.view(-1),), vals.view(-1))
+    return t_out[:B * G].view(B, G)
+
+
+def _stage_sums(rows, epoch):
+    """Seconds a timeline (``DCA_TPU_TIMELINE``) spent in each stage of one
+    epoch."""
+    sums = {}
+    for r in rows:
+        if r["epoch"] == epoch:
+            sums[r["stage"]] = sums.get(r["stage"], 0.0) + r["dur"]
+    return {k: round(v, 4) for k, v in sorted(sums.items())}
+
+
+def _events_ms(fn, n=5):
+    """Median wall of ``n`` calls of ``fn`` on the device (CUDA events)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _big_loss_inputs(dev, B, G, seed=5):
+    """y, mu, theta, pi at (B, G) drawn on the device (the distributions of
+    ``_loss_inputs``, with NB counts as a Poisson of a Gamma)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mu = torch.randn(B, G, device=dev, generator=g).exp_().clamp_(1e-5, 1e6)
+    th = (torch.randn(B, G, device=dev, generator=g) + 0.5).exp_().clamp_(1e-4, 1e4)
+    lam = torch._standard_gamma(th, generator=g) * (mu / th)
+    y = torch.poisson(lam, generator=g)
+    y[torch.rand(B, G, device=dev, generator=g) < 0.2] = 0.0
+    pi = torch.sigmoid(torch.randn(B, G, device=dev, generator=g) * 1.5 - 1.0)
+    return y, mu, th, pi
+
+
+def phase_stream_corpus(dev, epochs=2, corpus=CORPUS, max_cells=None):
+    """Phase 10 (b): the streaming trainer at corpus scale on one card
+    (module docstring).  ``max_cells``: ``train()``'s ``max_device_cells``,
+    None for the default gate and parts (131072 cells)."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.ops.resident import PART_BYTES_PER_SLOT, ResidentCSR
+
+    n_cells, n_genes, k = corpus
+    t0 = time.perf_counter()
+    adata = _lazy_adata(synthetic_sparse_counts(n_cells, n_genes, k, seed=7))
+    t_prep = time.perf_counter() - t0
+    _check(adata.n_obs == n_cells and adata.n_vars == n_genes,
+           f"phase 10 (b): normalize kept {adata.shape}")
+    _check(max_cells is not None or n_cells * n_genes * 8 > int(
+        os.environ.get("DCA_TPU_DEVICE_BYTES", 6_000_000_000)),
+        "phase 10 (b): the corpus does not pass the gate")
+    from dca_tpu_torch.models.network import get_ae_type
+
+    state = {kk: v.clone() for kk, v in get_ae_type("zinb-conddisp")(
+        input_size=n_genes, hidden_size=(64, 32, 64), device=dev).build()
+        .model.state_dict().items()}
+    n_train = int(n_cells * 0.9)
+    chunk = max_cells or 131072
+    kmax = int(np.diff(adata.raw.X.indptr).max())
+    buffers = 2 * chunk * 2 * n_genes * 4
+    payload = ResidentCSR.payload_bytes(adata.raw.X)
+    transient = chunk * kmax * PART_BYTES_PER_SLOT
+    want = _want_stream_launches(epochs, n_cells, chunk)
+    res = {"prep_s": t_prep, "launches": dict.fromkeys(LAUNCH_NAMES, 0)}
+    for tier, env in (("host", {"DCA_TPU_DEVICE_DENSIFY": "0"}), ("resident", {})):
+        tl = os.path.join(OUT_DIR, f"timeline_{tier}.jsonl")
+        if os.path.exists(tl):
+            os.remove(tl)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with _switches({**env, "DCA_TPU_TIMELINE": tl}), _PeakRSS() as rss:
+            out = StringIO()
+            with contextlib.redirect_stdout(out):
+                hist, launches, _ = _stream_fit(dev, adata, state, epochs, verbose=True,
+                                                max_device_cells=max_cells)
+        text = out.getvalue()
+        print(text, end="")
+        _check(_streamed_epochs(text) == epochs,
+               f"phase 10 (b): {tier}: {_streamed_epochs(text)} streamed epochs")
+        _check(("corpus resident" in text) == (tier == "resident"),
+               f"phase 10 (b): {tier}: the resident corpus engaged or not as expected")
+        _check(launches == want, f"phase 10 (b): {tier}: launches {launches}, expected {want}")
+        _check(np.all(np.isfinite(hist.history["loss"] + hist.history["val_loss"])),
+               f"phase 10 (b): {tier}: history not finite {hist.history}")
+        for kk, v in launches.items():
+            res["launches"][kk] += v
+        peak = torch.cuda.max_memory_allocated() - base
+        estimate = buffers + (payload + transient if tier == "resident" else 0)
+        rows = [json.loads(line) for line in open(tl)]
+        busy = []
+        for e in range(epochs):
+            ev = [r for r in rows if r["epoch"] == e]
+            wall = sum(r["dur"] for r in ev if r["stage"] == "epoch")
+            busy.append(sum(r["dur"] for r in ev if r["stage"] == "device") / wall)
+        res[tier] = {"epoch_s": hist.epoch_s, "rows_per_s": [n_train / t for t in hist.epoch_s],
+                     "capture_s": hist.capture_s, "peak_bytes": peak, "estimate_bytes": estimate,
+                     "rss_peak_bytes": rss.peak, "busy": busy, "history": hist.history,
+                     "wait_s": [sum(r["dur"] for r in rows if r["epoch"] == e
+                                    and r["stage"] == "wait") for e in range(epochs)],
+                     "stages": [_stage_sums(rows, e) for e in range(epochs)]}
+        print(f"phase 10 (b): {tier}: {n_cells} x {n_genes} ({adata.raw.X.nnz} nonzeros), "
+              f"epochs {[round(t, 3) for t in hist.epoch_s]} s, "
+              f"{[round(v) for v in res[tier]['rows_per_s']]} training rows/s, capture "
+              f"{hist.capture_s:.3f} s; device memory peak {peak / 2**30:.2f} GiB against the "
+              f"estimate {estimate / 2**30:.2f} GiB (part buffers {buffers / 2**30:.2f}"
+              + (f", payload {payload / 2**30:.2f}, part transient {transient / 2**30:.2f}"
+                 if tier == "resident" else "") +
+              f"); host RSS peak {rss.peak / 2**30:.2f} GiB; main stream busy "
+              f"{[round(b, 4) for b in busy]} of each epoch; main thread waited on staging "
+              f"{[round(w, 3) for w in res[tier]['wait_s']]} s; launches {launches}; seconds "
+              f"by timeline stage {res[tier]['stages']}")
+
+    # the resident part: the slice gather ops/resident.py uses against the
+    # element-wise one, and its transient memory
+    r = ResidentCSR(adata.raw.X, np.ones(n_cells, np.float32), np.ones(n_cells, np.float32),
+                    np.zeros(n_genes, np.float32), np.ones(n_genes, np.float32), dev)
+    rows_d = torch.from_numpy(np.random.RandomState(1).permutation(n_train)[:chunk]).to(dev)
+    x_buf = torch.zeros(chunk * n_genes + 1, device=dev)
+    t_buf = torch.zeros(chunk * n_genes + 1, device=dev)
+    s_buf = torch.zeros(chunk, device=dev)
+    t_slice = r.target(rows_d, t_buf).clone()
+    t_elem = _resident_elementwise_target(r, rows_d, t_buf).clone()
+    _check(torch.equal(t_elem, t_slice), "phase 10 (b): the two gather forms differ")
+    del t_elem, t_slice
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    r.part(rows_d, x_buf, t_buf, s_buf)
+    torch.cuda.synchronize()
+    res["part_transient_bytes_per_slot"] = (torch.cuda.max_memory_allocated() - before) / (
+        chunk * r.K)
+    forms = {"target_slice_ms": lambda: r.target(rows_d, t_buf),
+             "target_elementwise_ms": lambda: _resident_elementwise_target(r, rows_d, t_buf)}
+    for slice_form in IN_TURNS[:4]:  # element-wise, slice, slice, element-wise
+        name = "target_slice_ms" if slice_form else "target_elementwise_ms"
+        res.setdefault(name, []).append(_events_ms(forms[name]))
+    res["part_ms"] = _events_ms(lambda: r.part(rows_d, x_buf, t_buf, s_buf))
+    del r, x_buf, t_buf, s_buf
+    print(f"phase 10 (b): one resident part of {chunk} rows (K = {kmax}): the target by the "
+          f"slice gather (ops/resident.py) {res['target_slice_ms']} ms, by the element-wise "
+          f"gather {res['target_elementwise_ms']} ms (in turns), the same bits; the whole part "
+          f"(the derive and sf too) {res['part_ms']:.2f} ms; its transient "
+          f"{res['part_transient_bytes_per_slot']:.1f} bytes a padded slot (the gate counts "
+          f"{PART_BYTES_PER_SLOT})")
+
+    # K1 at the validation chunk's shape
+    B = n_cells - n_train
+    y, mu, th, pi = _big_loss_inputs(dev, B, n_genes)
+    got = fl._fwd_out_kernel(y, mu, th, pi, 0.0)
+    ref = fl._fwd_out_reference(y, mu, th, pi, 0.0)
+    rel = abs(got[2].item() - ref[2].item()) / abs(ref[2].item())
+    _check(rel <= LOSS_RTOL, f"phase 10 (b): K1 at {(B, n_genes)}: loss rel err {rel:.3e} "
+                             f"above {LOSS_RTOL}")
+    ms = _device_ms(lambda: fl._fwd_kernel(y, mu, th, pi, 0.0), n=20, warmup=3)
+    plain_ms = _device_ms(lambda: fl._fwd_reference(y, mu, th, pi, 0.0), n=5, warmup=1)
+    bound, by = _bound_ms(4 * 4 * y.numel() + 4 * 4, _k1_ops(y, mu, th, True))
+    res["k1_val"] = {"shape": [B, n_genes], "rel_err": rel,
+                     "abs_err": abs(got[2].item() - ref[2].item()),
+                     "count": [got[1].item(), ref[1].item()], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by}
+    print(f"phase 10 (b): ZINB K1 at ({B}, {n_genes}): loss {got[2].item():.7f} against the "
+          f"plain {ref[2].item():.7f}, rel err {rel:.3e}; count {got[1].item():.0f} against "
+          f"{ref[1].item():.0f}; {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us, bound "
+          f"{bound * 1e3:.1f} us by {by})")
+    del y, mu, th, pi
+    torch.cuda.empty_cache()
+    return res
+
+
 def _card():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -1898,6 +2470,8 @@ def main():
         phase_zoo()
         launches, zinb_net, zinb_hist, zinb_bits = phase_api("zinb-conddisp", 5)
         nb_launches, nb_net, _, nb_bits = phase_api("nb-conddisp", 2)
+        stream_small = phase_stream_small(dev)
+        stream_corpus = phase_stream_corpus(dev)
         epochs = epoch_timings()
         launches.update({k: v for k, v in nb_launches.items() if k.startswith("nb_")})
         phase_options()
@@ -1926,7 +2500,12 @@ def main():
         ):
             ms, plain_ms, bound_ms, bound_by, extra = times[f"{fam}_{kind}"]
             name = f"{fam}_nll_{kind}"
-            kernels.append({
+            streamed = {"launches_streaming": {
+                "phase 10 (a)": stream_small["launches"][name],
+                "phase 10 (b)": stream_corpus["launches"][name]}}
+            if name == "zinb_nll_fwd":
+                streamed["validation_chunk"] = stream_corpus["k1_val"]
+            kernels.append({**streamed,
                 "name": name, "route": "cuda",
                 "source": "dca_tpu_torch/csrc/fused_nll.cu",
                 "replaces": f"dca_tpu/ops/fused_loss.py:{line}",
@@ -1986,7 +2565,9 @@ def main():
             "plan": plan._asdict(), "timings": timings,
             "launches_by_run": {"forward": den[f"forward_{kind}"],
                                 "write_streaming": den[f"stream_{kind}"],
-                                "nb_predict": den[f"nb_predict_{kind}"]},
+                                "nb_predict": den[f"nb_predict_{kind}"],
+                                "payload_forward (phase 10)":
+                                    stream_small["k4_payload K4"][kind]},
             "checked_shapes": "; ".join(f"{n} {sh}" for n, sh, *_ in DENSE_CASES),
             "tolerance": "linear: 2 K 2^-24 (|x|@|W| + |b|) |s| + 4 ulps; activations: 4 "
                          "ulps of the plain activation of the kernel's linear output",
@@ -2019,6 +2600,14 @@ def main():
           f"medians {np.median(opt_epochs['RMSprop']):.2f} against "
           f"{np.median(opt_epochs['Adam']):.2f} ms; PReLU + Adam dca() launches "
           f"{full_launches['zinb_nll_fwd']}/{full_launches['zinb_nll_bwd']}")
+    for tier in ("host", "resident"):
+        c = stream_corpus[tier]
+        print(f"streaming trainer at {CORPUS[0]} x {CORPUS[1]} ({tier}) on {card}: epochs "
+              f"{[round(t, 3) for t in c['epoch_s']]} s, "
+              f"{[round(v) for v in c['rows_per_s']]} training rows/s, device memory peak "
+              f"{c['peak_bytes'] / 2**30:.2f} GiB (estimate {c['estimate_bytes'] / 2**30:.2f}), "
+              f"host RSS peak {c['rss_peak_bytes'] / 2**30:.2f} GiB, main stream busy "
+              f"{[round(b, 4) for b in c['busy']]}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

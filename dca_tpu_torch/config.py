@@ -1,6 +1,6 @@
 """Runtime switches the port reads, under the JAX package's names and with
-its defaults (a copy of the two of ``dca_tpu/config.py`` that the denoise
-tier needs).
+its defaults (a copy of the three of ``dca_tpu/config.py`` that the denoise
+tier and the streaming trainer need).
 
 DCA_TPU_FUSED_DENSE: '1' sends the eval-mode Dense -> BatchNorm ->
 activation blocks and the output heads' epilogues through the fused dense
@@ -14,9 +14,14 @@ matrix products to bfloat16 and accumulates in float32, in training and
 in eval; 'auto' (the default), 'f32' and '0' keep float32 products.
 Anything else raises.
 
+DCA_TPU_DEVICE_DENSIFY: '1' ships sparse (CSR) inputs to the device as
+compact payloads and scatters them dense there (``ops/densify.py``), in the
+streaming trainer and in the block forward; '0' densifies them on the
+host.  'auto' (the default) turns it on where the JAX package does, on its
+accelerator: here, on a CUDA device, and off on the CPU.
+
 The port always uses its loss kernels on a CUDA device, so the JAX
-package's DCA_TPU_FUSED_LOSS has no counterpart here; its
-DCA_TPU_DEVICE_DENSIFY waits with the streaming trainer.
+package's DCA_TPU_FUSED_LOSS has no counterpart here.
 """
 
 from __future__ import annotations
@@ -44,3 +49,15 @@ def matmul_dtype():
     raise ValueError(
         f"DCA_TPU_MATMUL={mode!r}: expected 'auto', 'bf16'/'1', or 'f32'/'0'"
     )
+
+
+def use_device_densify(device) -> bool:
+    """'1' forces the device densify, '0' the host one; 'auto' (the
+    default) chooses it on a CUDA ``device`` (a ``torch.device`` or its
+    name) and not on the CPU."""
+    mode = os.environ.get("DCA_TPU_DEVICE_DENSIFY", "auto")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    return torch.device(device).type == "cuda"

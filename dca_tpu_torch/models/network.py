@@ -25,7 +25,9 @@ back.  It reads the JAX package's switches: DCA_TPU_PREDICT_BLOCK_BYTES
 (the block size), DCA_TPU_PREFETCH=0 (no pipelining), DCA_TPU_FETCH_DTYPE
 (bf16/f16: outputs downcast on the device before the copy, lossy),
 DCA_TPU_WRITE_ALIASES=0 (``write_streaming`` without the alias outputs),
-and, in the model, DCA_TPU_FUSED_DENSE and DCA_TPU_MATMUL.
+DCA_TPU_DEVICE_DENSIFY (a CSR input scattered dense on the device from
+compact payloads), and, in the model, DCA_TPU_FUSED_DENSE and
+DCA_TPU_MATMUL.
 
 Under a ``torch.distributed`` process group (a data-parallel fit) every
 rank holds the same parameters, so each predicts the whole matrix; rank 0
@@ -40,11 +42,14 @@ import pickle
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .. import losses
+from ..config import use_device_densify
 from ..data.io import densify, scale_stats, size_factors, write_text_matrix
 from ..device import resolve_device
+from ..ops.densify import device_densify_flat, flat_payload_from_csr, flat_slots_for
 from ..ops.fused_loss import nb_nll_fused, nb_nll_fused_w, zinb_nll_fused, zinb_nll_fused_w
 from ..parallel.multihost import is_primary
 from . import core
@@ -293,7 +298,11 @@ class Autoencoder:
         runs no torch, and its upload and forward are queued on the device.
         DCA_TPU_PREFETCH=0 runs the blocks one after another.
         ``scale_mean``/``scale_std``: the deferred z-scale of
-        ``normalize(lazy_scale=True)``, applied to each block.
+        ``normalize(lazy_scale=True)``, applied to each block.  A CSR
+        ``count`` with DCA_TPU_DEVICE_DENSIFY on (``config.use_device_densify``:
+        by default on a CUDA device) crosses as flat payloads built on the
+        worker thread and scattered dense on the device, the z-scale fused
+        there (``ops/densify.py``).
         ``chunk_rows=None`` sizes the blocks from DCA_TPU_PREDICT_BLOCK_BYTES;
         ``keys`` restricts the outputs, and the heads computed, to those."""
         assert self.model is not None, "call build() first"
@@ -302,8 +311,25 @@ class Autoencoder:
               else np.asarray(size_factors, np.float32))
         keys = tuple(keys) if keys is not None else None
 
+        # a CSR count with the device densify on crosses as flat payloads,
+        # scattered dense on the device with the z-scale fused
+        # (ops/densify.py, the streaming trainer's tier)
+        use_payload = sp.isspmatrix_csr(count) and use_device_densify(self.device)
+        if use_payload:
+            nnz = np.diff(count.indptr)
+            nnz_moments = (float(nnz.mean()), float(nnz.std()))
+            mean_d = std_d = None
+            if scale_mean is not None:
+                mean_d = torch.tensor(np.asarray(scale_mean, np.float32), device=self.device)
+                std_d = torch.tensor(np.asarray(scale_std, np.float32), device=self.device)
+
         def prep(lo, hi):
-            """Host half, on the worker thread: densify and scale."""
+            """Host half, on the worker thread: the payload, or the dense
+            and scaled rows."""
+            if use_payload:
+                rows = np.arange(lo, hi, dtype=np.int64)
+                return flat_payload_from_csr(count, rows,
+                                             flat_slots_for(count, rows, nnz_moments, nnz))
             x = densify(count[lo:hi])
             if scale_mean is not None:
                 x = (x - scale_mean) / scale_std
@@ -312,9 +338,13 @@ class Autoencoder:
         def compute(x, lo, hi):
             """Device half: upload and forward, queued on the device."""
             with torch.no_grad():
-                # torch.tensor copies: adata's arrays may be read-only views
-                out, _ = self.apply(torch.tensor(x, device=self.device),
-                                    torch.tensor(sf[lo:hi], device=self.device),
+                if use_payload:
+                    x = device_densify_flat(*x, hi - lo, count.shape[1], mean_d, std_d,
+                                            device=self.device)
+                else:
+                    # torch.tensor copies: adata's arrays may be read-only views
+                    x = torch.tensor(x, device=self.device)
+                out, _ = self.apply(x, torch.tensor(sf[lo:hi], device=self.device),
                                     keys=keys)
             return out
 

@@ -23,16 +23,23 @@ there, and run one epoch for a permutation of the train rows:
     masks an eager step would.  Capture once per fit; a failure raises,
     and nothing falls back to the eager runner.
 
+``GraphSteps`` does the warm-up, the captures and the replays for a set of
+keyed steps: ``GraphEpoch``'s full and trailing step, and the streaming
+trainer's full and trailing step on each of its two part buffers
+(``train/loop.py::_train_streaming``, the counterpart of the JAX package's
+``chunk_fn``/``rem_fn``).
+
 The kernels' launch counters (``ops/fused_loss.launches``,
 ``ops/fused_dense.launches``) count launches on the card: a wrapper counts
 when it enqueues its kernel, which under capture enqueues it into the graph
-and launches nothing, so ``GraphEpoch`` takes each graph's counts off the
+and launches nothing, so ``GraphSteps`` takes each graph's counts off the
 counters after its capture and adds them back at every replay.  The
 warm-up's launches are real and stay counted.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
@@ -85,61 +92,86 @@ class EagerEpoch:
             self.step(trailing=True)
 
 
-class GraphEpoch(EagerEpoch):
-    """Replays an epoch's steps from two CUDA graphs captured at
-    construction.  ``state`` lists every tensor the steps write besides
-    ``bufs``: the parameters (PReLU's alphas among them), the BN
-    statistics and every tensor of the optimizer state
-    (``optim.state_tensors``: its per-parameter tensors and its step
-    count, which the warm-up advances too); ``generator``
-    is the fit's dropout generator.  ``capture_s`` is the wall time of the
-    warm-up and the captures."""
+class GraphSteps:
+    """Captures each of ``steps`` ({key: zero-argument callable}) as a
+    CUDA graph once, and replays them by key.
 
-    def __init__(self, step, bufs, rem, state, generator):
-        super().__init__(step, bufs, rem)
-        device = bufs.perm.device
+    Before capturing, each step runs once eagerly on a side stream, which
+    builds the kernel library, allocates and zeroes K1's workspace (a
+    synchronizing first call) and creates cuBLAS's handle; then every tensor
+    of ``state`` (each tensor the steps write) and the dropout
+    ``generator``'s state are restored in place, so the warm-up moves
+    nothing of the fit.  The generator is registered with each graph, so a
+    replay draws the dropout masks an eager call would.  The graphs share
+    one memory pool.  ``capture_s`` is the wall time of the warm-up and
+    the captures; a failed capture raises."""
+
+    def __init__(self, steps, state, generator, device):
         t0 = time.perf_counter()
-        kinds = ([False] if bufs.n_full else []) + ([True] if rem else [])
-        self._warm_up(kinds, list(state) + [bufs.step_i, bufs.losses], generator, device)
+        self._warm_up(steps, list(state), generator, device)
         self.graphs = {}
         self.launches = {}
         pool = None
-        for trailing in kinds:
+        for key, fn in steps.items():
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(generator)
             before = _counts()
             try:
                 with torch.cuda.graph(graph, pool=pool):
-                    step(trailing=trailing)
+                    fn()
             finally:
-                self.launches[trailing] = _take_since(before)
-            self.graphs[trailing] = graph
+                self.launches[key] = _take_since(before)
+            self.graphs[key] = graph
             pool = graph.pool()
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
 
-    def _warm_up(self, kinds, state, generator, device):
+    @staticmethod
+    def _warm_up(steps, state, generator, device):
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             saved = [t.detach().clone() for t in state]
             rng = generator.get_state()
-            for trailing in kinds:
-                self.step(trailing=trailing)
+            for fn in steps.values():
+                fn()
             with torch.no_grad():
                 for t, s in zip(state, saved):
                     t.copy_(s)
             generator.set_state(rng)
         torch.cuda.current_stream(device).wait_stream(side)
 
+    def replay(self, key, times=1):
+        """Replay the graph of ``key`` ``times`` times and count its
+        launches."""
+        graph = self.graphs[key]
+        for _ in range(times):
+            graph.replay()
+        _add(self.launches[key], times)
+
+
+class GraphEpoch(EagerEpoch):
+    """Replays an epoch's steps from two CUDA graphs captured at
+    construction (``GraphSteps``, keyed by ``trailing``).  ``state`` lists
+    every tensor the steps write besides ``bufs``: the parameters (PReLU's
+    alphas among them), the BN statistics and every tensor of the optimizer
+    state (``optim.state_tensors``: its per-parameter tensors and its step
+    count, which the warm-up advances too); ``generator`` is the fit's
+    dropout generator.  ``capture_s`` is the wall time of the warm-up and
+    the captures."""
+
+    def __init__(self, step, bufs, rem, state, generator):
+        super().__init__(step, bufs, rem)
+        kinds = ([False] if bufs.n_full else []) + ([True] if rem else [])
+        self.steps = GraphSteps({k: functools.partial(step, trailing=k) for k in kinds},
+                                list(state) + [bufs.step_i, bufs.losses], generator,
+                                bufs.perm.device)
+        self.graphs, self.launches = self.steps.graphs, self.steps.launches
+        self.capture_s = self.steps.capture_s
+
     def __call__(self, perm):
         self.start(perm)
-        full = self.graphs.get(False)
-        for _ in range(self.bufs.n_full):
-            full.replay()
-        if full is not None:
-            _add(self.launches[False], self.bufs.n_full)
-        trailing = self.graphs.get(True)
-        if trailing is not None:
-            trailing.replay()
-            _add(self.launches[True], 1)
+        if self.bufs.n_full:
+            self.steps.replay(False, self.bufs.n_full)
+        if self.rem:
+            self.steps.replay(True)

@@ -49,9 +49,16 @@ The per-step and validation losses are summed over the ranks once per
 epoch, so every rank sees the same history and takes the same callback
 decisions.
 
-The streaming trainer, the whole-fit-as-one-program path
-(``dca_tpu/train/compiled.py``), checkpoint/resume, TensorBoard, saved
-weights and gene-dim model parallelism wait for later slices (ROADMAP.md,
+Inputs larger than the device, by the JAX package's gate (more than
+``max_device_cells`` cells or, without it, input and target above
+DCA_TPU_DEVICE_BYTES), take the streaming trainer (``_train_streaming``):
+the matrix stays on the host and shuffled parts of it are staged, by one
+of the JAX package's tiers, into two part buffers on the device while the
+captured steps run on the other; its epochs print ``[streaming]``.
+
+The whole-fit-as-one-program path (``dca_tpu/train/compiled.py``),
+checkpoint/resume, TensorBoard, saved weights, gene-dim model parallelism
+and streaming under a process group wait for later slices (ROADMAP.md,
 Queue 1): ``train`` takes the JAX package's keywords for them and raises
 ``NotImplementedError`` where the JAX package would run one of those
 paths, before anything is densified or copied to the device.
@@ -59,23 +66,32 @@ paths, before anything is densified or copied to the device.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import random
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
 from .. import native
+from ..config import use_device_densify
 from ..data.io import densify, scale_stats, size_factors
+from ..data.loader import Flat8Chunk, FlatChunk, SparseChunk, StreamingData, canonicalize_csr
 from ..device import resolve_device
+from ..ops.densify import device_densify, device_densify_flat, device_densify_flat8, upload
+from ..ops.resident import PART_BYTES_PER_SLOT, ResidentCSR, derive_input
 from ..parallel.mesh import resolve_mesh
 from ..parallel.multihost import initialize, is_primary
 from ..parallel.step import (StepBuffers, batch_shard, make_sharded_train_step,
                              place_train_state, shard_train_data)
-from .graphs import EagerEpoch, GraphEpoch
+from .graphs import EagerEpoch, GraphEpoch, GraphSteps
 from .optim import get_optimizer, state_tensors
 
 
@@ -194,8 +210,9 @@ def train(
     ``checkpoint_every > 0`` and ``resume`` raise.  The size gate of the
     JAX package: an input of more than ``max_device_cells`` cells, or
     without it one whose input and target, n_cells * n_genes * 4 * 2
-    bytes, exceed DCA_TPU_DEVICE_BYTES (default 6e9), would take its
-    streaming trainer, and raises here.
+    bytes, exceed DCA_TPU_DEVICE_BYTES (default 6e9), takes the streaming
+    trainer (``_train_streaming``, parts of ``max_device_cells`` cells,
+    default 131072), which raises under a process group.
 
     ``devices``/``model_parallel`` as the JAX package's: None for one
     device; ``"all"``, an int or a list for data parallelism over the
@@ -221,8 +238,6 @@ def train(
     else:
         stream = n_cells * n_genes * 4 * 2 > int(os.environ.get("DCA_TPU_DEVICE_BYTES",
                                                                 6_000_000_000))
-    if stream:
-        raise _not_ported("the streaming trainer for inputs above the device budget")
     if threads:
         # the CPU path computes in torch; the host loops of the native tier
         # (text parse and format, row gathers) take the same cap, as the
@@ -237,6 +252,16 @@ def train(
     lr = float(learning_rate) if learning_rate is not None else opt.default_lr
     device = network.device
     verbose = verbose and is_primary()
+    if stream:
+        if group is not None:
+            raise _not_ported("the streaming trainer under a process group (the JAX "
+                              "package's multi-process staging)")
+        return _train_streaming(
+            adata, network, opt, lr, epochs=epochs, reduce_lr=reduce_lr,
+            early_stop=early_stop, batch_size=batch_size,
+            validation_split=validation_split, use_raw_as_output=use_raw_as_output,
+            output_subset=output_subset, seed=seed, verbose=verbose,
+            max_device_cells=max_device_cells or 131072, graphs=_graphs)
 
     # ----- host arrays -----
     X = densify(adata.X)
@@ -337,6 +362,510 @@ def train(
 
         if cbs.end_epoch(epoch, monitor):
             break
+    return hist
+
+
+# ---------------------------------------------------------------------------
+# the streaming trainer
+# ---------------------------------------------------------------------------
+
+
+def _derivable_row_scale(Xn, raw):
+    """Per-row multiplier ``m`` with ``Xn == log1p(raw * m)`` elementwise,
+    or None when the normalized input is not derivable from the raw target
+    that way (another pattern, a subset target, other normalize flags, ...).
+
+    The multiplier is recovered from the first nonzero of each row and
+    verified on a random sample of entries, so any "per-row scale, then
+    log1p" pipeline qualifies and anything else falls back to shipping both
+    payloads.  A copy of the JAX package's."""
+    if Xn is raw:
+        return None
+    if not (sp.isspmatrix_csr(Xn) and sp.isspmatrix_csr(raw)):
+        return None
+    if Xn.shape != raw.shape or Xn.nnz != raw.nnz or Xn.nnz == 0:
+        return None
+    canonicalize_csr(Xn)
+    canonicalize_csr(raw)
+    if not (np.array_equal(Xn.indptr, raw.indptr)
+            and np.array_equal(Xn.indices, raw.indices)):
+        return None
+    lens = np.diff(Xn.indptr)
+    nonempty = lens > 0
+    first = Xn.indptr[:-1][nonempty]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        m = np.ones(Xn.shape[0], np.float64)
+        m[nonempty] = np.expm1(Xn.data[first].astype(np.float64)) / raw.data[first]
+    if not np.all(np.isfinite(m)) or np.any(m <= 0):
+        return None
+    k = min(50000, Xn.nnz)
+    sel = np.random.RandomState(0).randint(0, Xn.nnz, k)
+    rows_of = np.searchsorted(Xn.indptr, sel, side="right") - 1
+    recon = np.log1p(raw.data[sel].astype(np.float64) * m[rows_of])
+    if not np.allclose(recon, Xn.data[sel], rtol=1e-5, atol=1e-6):
+        return None
+    return m.astype(np.float32)
+
+
+class _StreamTimeline:
+    """Opt-in (``DCA_TPU_TIMELINE=<path>``) event log of streaming epochs,
+    one JSON line per (epoch, part, stage) with absolute perf_counter
+    stamps, so that an epoch's stages add up to its wall time (the JAX
+    package's format; ``scripts/timeline_report.py`` summarizes it).
+    Stages:
+
+      prep      host payload build or densify      (prefetch thread)
+      ship      upload and device scatter enqueued (prefetch thread)
+      wait      main thread blocked on the staged part
+      dispatch  main thread enqueueing the part's steps or evaluation
+      fetch     the epoch's one read-back of its losses
+      epoch     the whole epoch
+      device    on a CUDA device: the main stream's time from the part's
+                first to its last operation (CUDA events; t0 is the
+                dispatch's start, t1 = t0 + dur)
+      stage     on a CUDA device: the staging stream's time for the part's
+                writes, likewise
+
+    Σ device / epoch is the main stream's busy share of the epoch."""
+
+    def __init__(self, path, cuda):
+        self.path = path
+        self.cuda = cuda
+        self.events = []
+        self.pending = []  # (part, kind, stage, t0, start event, end event)
+        self.epoch = -1
+
+    def rec(self, part, kind, stage, t0, t1):
+        self.events.append((self.epoch, part, kind, stage, t0, t1))
+
+    def start_event(self):
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def device_span(self, part, kind, stage, t0, start):
+        """Close the span opened by ``start_event`` on the current stream."""
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.pending.append((self.epoch, part, kind, stage, t0, start, end))
+
+    def flush(self):
+        import json
+
+        for e, part, kind, stage, t0, start, end in self.pending:
+            dur = start.elapsed_time(end) / 1e3
+            self.events.append((e, part, kind, stage, t0, t0 + dur))
+        self.pending = []
+        with open(self.path, "a") as f:
+            for e, part, kind, stage, t0, t1 in self.events:
+                f.write(json.dumps(dict(
+                    epoch=e, part=part, kind=kind, stage=stage,
+                    t0=round(t0, 4), t1=round(t1, 4),
+                    dur=round(t1 - t0, 6))) + "\n")
+        self.events = []
+
+
+class _PartSlot:
+    """One of the streaming trainer's two part buffers: x, t and sf of up
+    to ``rows`` cells at fixed addresses, which the captured steps read.
+    ``x_flat``/``t_flat`` hold one spare last element that takes the device
+    scatters' padding (``ops/densify.py``).
+
+    Hand-over: the staging side takes ``free`` (released by the main
+    thread once it has enqueued the part's last reader) and, on a CUDA
+    device, makes its stream wait for ``done`` (recorded after that
+    reader) before it writes, and records ``ready`` after; the main stream
+    waits for ``ready`` before the part's first step.  So a replay never
+    reads a part still being written, and no part is overwritten while a
+    replay still reads it."""
+
+    def __init__(self, rows, g_in, g_out, device):
+        self.x_flat = torch.zeros(rows * g_in + 1, device=device)
+        self.t_flat = torch.zeros(rows * g_out + 1, device=device)
+        self.sf = torch.ones(rows, device=device)
+        self.x = self.x_flat[:rows * g_in].view(rows, g_in)
+        self.t = self.t_flat[:rows * g_out].view(rows, g_out)
+        self.free = threading.Semaphore(1)
+        self.cuda = device.type == "cuda"
+        self.ready = None
+        self.done = torch.cuda.Event() if self.cuda else None
+
+
+def _stream_tasks(tr, va, perm, bs):
+    """An epoch's staging schedule: (kind, StreamingData, rows) for the
+    train parts, the full batches of each chunk apart from its trailing
+    rows, then the validation chunks."""
+    tasks = []
+    for idx in tr.index_chunks(perm):
+        nb = len(idx) // bs
+        if nb > 0:
+            tasks.append(("full", tr, idx[:nb * bs]))
+        if len(idx) > nb * bs:
+            tasks.append(("rem", tr, idx[nb * bs:]))
+    if va is not None:
+        for idx in va.index_chunks(np.arange(va.n)):
+            tasks.append(("val", va, idx))
+    return tasks
+
+
+def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, batch_size,
+                     validation_split, use_raw_as_output, output_subset, seed, verbose,
+                     max_device_cells, graphs=True):
+    """The fit for inputs larger than the device (the JAX package's
+    ``_train_streaming``, single device).  The count matrix stays on the
+    host, sparse as it came; each epoch, shuffled parts of ``chunk`` cells
+    (a multiple of the batch) are staged into one of two part buffers
+    while the steps run on the other.
+
+    ``chunk`` is a multiple of the batch, so the epoch's full batches are
+    exactly those of the in-memory fit under the same permutation, and its
+    trailing step holds the same ``n_train mod batch`` rows.  So the step
+    is the in-memory fit's (``parallel/step.py``): ``StepBuffers`` hold a
+    fixed map from the epoch's step to its rows' places in the part buffer
+    and one epoch-long loss buffer, and the step counter runs over the
+    whole epoch.  On one CUDA device outside ``debug`` (and unless
+    ``graphs`` is False) the full and the trailing step on each part
+    buffer are CUDA graphs captured once a fit and replayed
+    (``train/graphs.py::GraphSteps``), the counterpart of the JAX package's
+    ``chunk_fn``/``rem_fn``; on the CPU and in ``debug`` they run eagerly.
+    The validation chunks are evaluated unweighted through
+    ``network.loss_fn``; every loss stays on the device until the epoch's
+    one read-back.
+
+    Staging tiers, as in the JAX package:
+      * host: parts densified on the host (``native.densify_rows``, the
+        deferred z-scale applied there) and copied whole;
+      * device densify (DCA_TPU_DEVICE_DENSIFY, ``config.use_device_densify``):
+        payloads (padded, flat or flat8, ``data/loader.py``) scattered dense
+        on the device with the z-scale fused; input and target share the
+        index stream when they share the pattern;
+      * derived input: when the normalized input is log1p of a per-row
+        multiple of the raw target (``_derivable_row_scale``, on both
+        splits or neither) only the target crosses and the input is derived
+        on the device (DCA_TPU_DERIVE_INPUT=0 turns it off);
+      * resident (``ops/resident.py``): with the derived input, the target
+        corpus is uploaded once and every part is gathered on the device;
+        DCA_TPU_RESIDENT=1/0 forces it, 'auto' engages it when the payload
+        is within DCA_TPU_RESIDENT_MIN_BYTES .. DCA_TPU_RESIDENT_BYTES and a
+        part's transient (``resident.PART_BYTES_PER_SLOT`` a padded slot)
+        within DCA_TPU_RESIDENT_PART_BYTES.
+    A prefetch thread stages DCA_TPU_PREFETCH parts ahead (default 1; 0
+    stages on the main thread), on a side stream on a CUDA device; the
+    resident tier stages on the main thread, at most
+    DCA_TPU_RESIDENT_AHEAD parts (default 1) ahead of the device."""
+    device = network.device
+    cuda = device.type == "cuda"
+    X = adata.X
+    sf = size_factors(adata)
+    if output_subset:
+        gene_idx = [np.where(adata.raw.var_names == x)[0][0] for x in output_subset]
+        target = adata.raw.X[:, gene_idx] if use_raw_as_output else X[:, gene_idx]
+    else:
+        target = adata.raw.X if use_raw_as_output else X
+    scale_mean, scale_std = scale_stats(adata)
+    mean_d = std_d = None
+    if scale_mean is not None:
+        mean_d = torch.from_numpy(scale_mean).to(device)
+        std_d = torch.from_numpy(scale_std).to(device)
+
+    n = X.shape[0]
+    split_at = int(n * (1.0 - validation_split))
+    bs = min(batch_size, max(split_at, 1))
+    chunk = max((min(max_device_cells, split_at) // bs) * bs, bs)
+    dev_densify = use_device_densify(device)
+
+    X_tr, X_va = X[:split_at], X[split_at:]
+    T_tr, T_va = target[:split_at], target[split_at:]
+    m_tr = m_va = None
+    if (dev_densify and scale_mean is not None
+            and os.environ.get("DCA_TPU_DERIVE_INPUT", "1") != "0"):
+        m_tr = _derivable_row_scale(X_tr, T_tr)
+        if m_tr is not None and split_at < n:
+            m_va = _derivable_row_scale(X_va, T_va)
+            if m_va is None:
+                m_tr = None  # both splits or neither
+
+    tr = StreamingData(X_tr, T_tr, sf[:split_at], chunk, scale_mean, scale_std,
+                       device_densify=dev_densify, derive_input=m_tr is not None)
+    tr.derive_m = m_tr
+    has_val = split_at < n
+    va = None
+    if has_val:
+        va = StreamingData(X_va, T_va, sf[split_at:], chunk, scale_mean, scale_std,
+                           device_densify=dev_densify, derive_input=m_va is not None)
+        va.derive_m = m_va
+    n_train = split_at
+    g_in, g_out = X.shape[1], target.shape[1]
+
+    resident = None
+    if m_tr is not None and sp.isspmatrix_csr(target):
+        rmode = os.environ.get("DCA_TPU_RESIDENT", "auto")
+        rlo = int(os.environ.get("DCA_TPU_RESIDENT_MIN_BYTES", 64_000_000))
+        rhi = int(os.environ.get("DCA_TPU_RESIDENT_BYTES", 4_000_000_000))
+        rest = ResidentCSR.payload_bytes(target)
+        # a part's transient grows with K (the widest row), so one heavy
+        # row can blow a part past the device on a wide panel even when
+        # the payload is small: auto declines those (force with
+        # DCA_TPU_RESIDENT=1 after shrinking max_device_cells)
+        kmax = int(np.diff(target.indptr).max()) if target.shape[0] else 0
+        part_b = int(os.environ.get("DCA_TPU_RESIDENT_PART_BYTES", 6_000_000_000))
+        auto_ok = rlo <= rest <= rhi and chunk * kmax * PART_BYTES_PER_SLOT <= part_b
+        if rmode == "1" or (rmode != "0" and auto_ok):
+            m_full = np.concatenate([m_tr, m_va]) if has_val else m_tr
+            resident = ResidentCSR(target, m_full, sf, scale_mean, scale_std, device)
+            if verbose:
+                print(f"dca_tpu_torch: corpus resident on device "
+                      f"({rest / 1e6:.0f} MB payload) [streaming]")
+
+    # ----- the step, on two part buffers -----
+    params = list(network.model.parameters())
+    opt_state = opt.init(params)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    bufs = StepBuffers.create(n_train, bs, lr, device)
+    n_full = bufs.n_full
+    rem = n_train - n_full * bs
+    # the place of each of the epoch's rows in its part buffer: full batch
+    # rows at their offset within their chunk (chunk is a multiple of bs),
+    # the trailing rows at the start of their own part
+    place = np.arange(n_train, dtype=np.int64)
+    place[:n_full * bs] %= chunk
+    place[n_full * bs:] -= n_full * bs
+    bufs.perm.copy_(torch.from_numpy(place))
+    slots = [_PartSlot(chunk, g_in, g_out, device) for _ in range(2)]
+    train_step = make_sharded_train_step(network, opt)
+    # the epoch's schedule is the same every epoch: each (part buffer,
+    # kind) it uses is captured once
+    kinds = {(i % 2, kind == "rem") for i, (kind, _, _) in
+             enumerate(_stream_tasks(tr, va, np.arange(n_train), bs)) if kind != "val"}
+    steps = {key: functools.partial(train_step, slots[key[0]].x, slots[key[0]].t,
+                                    slots[key[0]].sf, bufs, opt_state, generator, key[1])
+             for key in sorted(kinds)}
+    hist = History()
+    if graphs and epochs > 0 and cuda and not network.definition.debug:
+        written = params + list(network.model.buffers()) + state_tensors(opt_state)
+        runner = GraphSteps(steps, written + [bufs.step_i, bufs.losses], generator, device)
+        hist.capture_s = runner.capture_s
+        run = runner.replay
+    else:
+        def run(key, times=1):
+            for _ in range(times):
+                steps[key]()
+
+    # ----- staging -----
+    stage_stream = torch.cuda.Stream(device) if cuda else None
+    if cuda:
+        stage_stream.wait_stream(torch.cuda.current_stream(device))
+    tl_path = os.environ.get("DCA_TPU_TIMELINE")
+    tl = _StreamTimeline(tl_path, cuda) if tl_path else None
+    closing = threading.Event()
+
+    def to_device(c, out, mean=None, std=None):
+        """Part ``c`` (a payload or dense rows) dense in ``out``, z-scaled
+        on the device when given ``mean`` and ``std``."""
+        if isinstance(c, SparseChunk):
+            return device_densify(c.idx, c.dat, c.n_cols, mean, std, out=out)
+        if isinstance(c, Flat8Chunk):
+            return device_densify_flat8(c, mean, std, out=out)
+        if isinstance(c, FlatChunk):
+            return device_densify_flat(c.counts, c.col, c.val, c.n_rows, c.n_cols, mean, std,
+                                       out=out)
+        B, G = c.shape
+        dense = out[:B * G].view(B, G)
+        dense.copy_(torch.from_numpy(np.ascontiguousarray(c, dtype=np.float32)),
+                    non_blocking=True)
+        return dense
+
+    def write_part(slot, xc, tc, sfc, m_part):
+        if m_part is not None and xc is tc:
+            # one payload: densify the target, derive the input from it
+            t = to_device(tc, slot.t_flat)
+            derive_input(t, upload(m_part, device), mean_d, std_d,
+                         slot.x_flat[:t.numel()].view(t.shape))
+        elif (isinstance(xc, FlatChunk) and isinstance(tc, FlatChunk)
+              and xc.counts is tc.counts and xc.col is tc.col):
+            # a shared pattern: its index stream crosses once
+            cnt, col = upload(xc.counts, device), upload(xc.col, device)
+            device_densify_flat(cnt, col, xc.val, xc.n_rows, xc.n_cols, mean_d, std_d,
+                                out=slot.x_flat)
+            device_densify_flat(cnt, col, tc.val, tc.n_rows, tc.n_cols, out=slot.t_flat)
+        elif (isinstance(xc, SparseChunk) and isinstance(tc, SparseChunk)
+              and xc.idx is tc.idx):
+            idx = upload(xc.idx, device)
+            device_densify(idx, xc.dat, xc.n_cols, mean_d, std_d, out=slot.x_flat)
+            device_densify(idx, tc.dat, tc.n_cols, out=slot.t_flat)
+        else:
+            # a dense part comes z-scaled from the loader, a payload is
+            # scaled on the device
+            scale = (None, None) if isinstance(xc, np.ndarray) else (mean_d, std_d)
+            to_device(xc, slot.x_flat, *scale)
+            to_device(tc, slot.t_flat)
+        slot.sf[:len(sfc)].copy_(torch.from_numpy(np.ascontiguousarray(sfc, np.float32)),
+                                 non_blocking=True)
+
+    def stage(pi, kind, slot, write):
+        """Write a part into ``slot`` once it is free (nothing when the fit
+        is being torn down)."""
+        slot.free.acquire()
+        if closing.is_set():
+            slot.free.release()
+            return
+        if not cuda:
+            write()
+            return
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stage_stream):
+            stage_stream.wait_event(slot.done)
+            start = tl.start_event() if tl is not None else None
+            write()
+            if tl is not None:
+                tl.device_span(pi, kind, "stage", t0, start)
+            slot.ready = torch.cuda.Event()
+            slot.ready.record(stage_stream)
+
+    def prepare(sd, idx):
+        m = getattr(sd, "derive_m", None)
+        return sd.materialize(idx), (m[idx] if m is not None else None)
+
+    def ship(pi, kind, slot, prep):
+        (xc, tc, sfc), m_part = prep
+        stage(pi, kind, slot, lambda: write_part(slot, xc, tc, sfc, m_part))
+
+    pf = os.environ.get("DCA_TPU_PREFETCH", "1")
+    depth = max(int(pf) if pf.isdigit() else 1, 0)
+    if resident is not None:
+        depth = 0  # no host staging to hide
+    pool = ThreadPoolExecutor(max_workers=1) if depth > 0 else None
+
+    def staged(tasks):
+        """Yield each task's slot once its part is staged (on the
+        prefetch thread, ``depth`` parts ahead, when there is one)."""
+        if resident is not None:
+            ahead = max(int(os.environ.get("DCA_TPU_RESIDENT_AHEAD", "1")), 0)
+            window = []
+            for pi, (kind, sd, idx) in enumerate(tasks):
+                slot = slots[pi % 2]
+                t0 = time.perf_counter()
+                if cuda and ahead and len(window) >= ahead:
+                    window.pop(0).synchronize()
+                rows = idx if sd is tr else np.asarray(idx) + split_at
+                stage(pi, kind, slot, lambda: resident.part(rows, slot.x_flat, slot.t_flat,
+                                                            slot.sf))
+                if cuda and ahead:
+                    window.append(slot.ready)
+                if tl is not None:
+                    tl.rec(pi, kind, "wait", t0, time.perf_counter())
+                yield slot
+            return
+        if pool is None:
+            for pi, (kind, sd, idx) in enumerate(tasks):
+                t0 = time.perf_counter()
+                ship(pi, kind, slots[pi % 2], prepare(sd, idx))
+                if tl is not None:
+                    tl.rec(pi, kind, "wait", t0, time.perf_counter())
+                yield slots[pi % 2]
+            return
+
+        def work(pi, kind, sd, idx):
+            t0 = time.perf_counter()
+            p = prepare(sd, idx)
+            t1 = time.perf_counter()
+            ship(pi, kind, slots[pi % 2], p)
+            if tl is not None:
+                tl.rec(pi, kind, "prep", t0, t1)
+                tl.rec(pi, kind, "ship", t1, time.perf_counter())
+
+        pending = deque()
+        for pi, (kind, sd, idx) in enumerate(tasks):
+            pending.append((pi, kind, pool.submit(work, pi, kind, sd, idx)))
+            while len(pending) > depth:
+                yield _take(pending)
+        while pending:
+            yield _take(pending)
+
+    def _take(pending):
+        ppi, pkind, fut = pending.popleft()
+        t0 = time.perf_counter()
+        fut.result()
+        if tl is not None:
+            tl.rec(ppi, pkind, "wait", t0, time.perf_counter())
+        return slots[ppi % 2]
+
+    rng_np = np.random.RandomState(seed)
+    cbs = _FitCallbacks(lr, reduce_lr, early_stop, verbose, "val_loss" if has_val else "loss")
+    try:
+        for epoch in range(epochs):
+            t_ep = time.perf_counter()
+            perm = rng_np.permutation(n_train)
+            bufs.lr.fill_(cbs.lr)
+            bufs.step_i.zero_()
+            tasks = _stream_tasks(tr, va, perm, bs)
+            if tl is not None:
+                tl.epoch = epoch
+            val_losses, val_rows = [], []
+            for pi, ((kind, _, idx), slot) in enumerate(zip(tasks, staged(tasks))):
+                t0 = time.perf_counter()
+                if cuda:
+                    torch.cuda.current_stream(device).wait_event(slot.ready)
+                start = tl.start_event() if tl is not None else None
+                if kind == "full":
+                    run((pi % 2, False), len(idx) // bs)
+                elif kind == "rem":
+                    run((pi % 2, True))
+                else:
+                    k = len(idx)
+                    with torch.no_grad():
+                        loss, _ = network.loss_fn(slot.x[:k], slot.sf[:k], slot.t[:k], False)
+                    val_losses.append(loss.detach().reshape(1))
+                    val_rows.append(k)
+                if tl is not None:
+                    tl.device_span(pi, kind, "device", t0, start)
+                if cuda:
+                    slot.done.record()
+                slot.free.release()
+                if tl is not None:
+                    tl.rec(pi, kind, "dispatch", t0, time.perf_counter())
+
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                sums = torch.cat([bufs.losses[:n_full].sum().view(1),
+                                  bufs.losses[n_full:]] + val_losses).tolist()
+            hist.epoch_s.append(time.perf_counter() - t_ep)
+            if tl is not None:
+                now = time.perf_counter()
+                tl.rec(-1, "", "fetch", t0, now)
+                tl.rec(-1, "", "epoch", t_ep, now)
+                tl.flush()
+            # the in-memory fit's arithmetic, so the same steps give the
+            # same history
+            train_loss = (sums[0] * bs + sums[1] * rem) / max(n_train, 1)
+            hist.append("loss", train_loss)
+            hist.append("lr", cbs.lr)
+            if has_val:
+                # each chunk's mean, weighted by its rows; one chunk gives
+                # its loss exactly
+                val_loss = sum(v * k for v, k in zip(sums[2:], val_rows)) / max(sum(val_rows), 1)
+                hist.append("val_loss", val_loss)
+                monitor = val_loss
+            else:
+                monitor = train_loss
+            if verbose:
+                msg = f"Epoch {epoch + 1}/{epochs} - loss: {train_loss:.4f}"
+                if has_val:
+                    msg += f" - val_loss: {val_loss:.4f}"
+                print(msg + f" - lr: {cbs.lr:.2e} [streaming]")
+            if cbs.end_epoch(epoch, monitor):
+                break
+    finally:
+        closing.set()
+        for slot in slots:
+            slot.free.release()
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        if cuda:
+            torch.cuda.current_stream(device).wait_stream(stage_stream)
     return hist
 
 

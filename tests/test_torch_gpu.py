@@ -231,9 +231,6 @@ def test_one_launch_k1_same_bits_in_graphs_and_one_device_op(cuda, family, weigh
     """K1's (sum, count, loss, denom) against its plain version, the same
     bits on a second launch and on CUDA-graph replays; one device operation
     a loss forward through _FusedNLL without a group."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(cuda)
                      for a in _loss_inputs(32, 3451, 7, pi_shape=(32, 3451)
                                            if family == "zinb" else None))
@@ -259,12 +256,27 @@ def test_one_launch_k1_same_bits_in_graphs_and_one_device_op(cuda, family, weigh
         torch.cuda.synchronize()
         assert torch.equal(out, first)
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fused_loss._FusedNLL.apply(y, mu, th, pi, w, 0.1, None)
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    with torch.no_grad():
+        ops = _device_ops(lambda: fused_loss._FusedNLL.apply(y, mu, th, pi, w, 0.1, None), 5)
     assert sum(e.count for e in ops) == 5, [(e.key, e.count) for e in ops]
+
+
+def _device_ops(fn, n):
+    """The device operations ``torch.profiler`` lists for ``n`` calls of
+    ``fn``.  The profiler's first recorded device operation can go missing,
+    so one throwaway call runs in a warm-up step of the profiler's schedule
+    and only the ``n`` calls of the active step are counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for calls in (1, n):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
 def _placed(a, dev, aligned):
@@ -338,9 +350,6 @@ def test_k2_matches_plain_version_same_bits_in_graphs(cuda, shape, nan_frac, n_c
 def test_one_device_op_per_loss_backward(cuda, family, weighted):
     """A loss backward through _FusedNLL without a group is K2 alone: the
     kernel divides the incoming gradient by the denominator itself."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(cuda)
                      for a in _loss_inputs(32, 3451, 9, pi_shape=(32, 3451)
                                            if family == "zinb" else None))
@@ -350,11 +359,7 @@ def test_one_device_op_per_loss_backward(cuda, family, weighted):
     g = torch.tensor(0.37, device=cuda)
     torch.autograd.grad(loss, ops, g, retain_graph=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            torch.autograd.grad(loss, ops, g, retain_graph=True)
-        torch.cuda.synchronize()
-    items = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    items = _device_ops(lambda: torch.autograd.grad(loss, ops, g, retain_graph=True), 5)
     assert sum(e.count for e in items) == 5, [(e.key, e.count) for e in items]
     assert all("nll_bwd_kernel" in e.key for e in items), [e.key for e in items]
 
@@ -761,3 +766,141 @@ def test_prelu_never_takes_k4_on_card(cuda, monkeypatch, activation, k4, splitk)
     for k, v in off.items():
         if v is not None:
             np.testing.assert_allclose(on[k], v, rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the streaming trainer on the card
+# ---------------------------------------------------------------------------
+
+STREAM_ENV = ("DCA_TPU_DEVICE_DENSIFY", "DCA_TPU_DERIVE_INPUT", "DCA_TPU_PAYLOAD",
+              "DCA_TPU_RESIDENT", "DCA_TPU_PREFETCH")
+STREAM_TIERS = {"host": {"DCA_TPU_DEVICE_DENSIFY": "0"},
+                "flat": {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_DERIVE_INPUT": "0",
+                         "DCA_TPU_PAYLOAD": "flat"},
+                "resident": {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_RESIDENT": "1"}}
+
+
+def _stream_env(monkeypatch, env):
+    for k in STREAM_ENV:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+
+def _lazy_counts(n_cells=200, n_genes=60):
+    import scipy.sparse as sp
+
+    return io.normalize(io.read_dataset(AnnData(sp.csr_matrix(_small_counts(n_cells, n_genes,
+                                                                             3)))),
+                        lazy_scale=True)
+
+
+def _stream_fit(cuda, state, graphs=True, max_cells=64, epochs=2):
+    """zinb-conddisp (16, 8, 16) on 200 x 60, parts of 64 cells: 64, 64
+    and 32 full rows and a 20-row trailing part, then the 20 validation
+    rows."""
+    from chip_smoke import _stream_schedule, _want_stream_launches
+
+    net = get_ae_type("zinb-conddisp")(input_size=60, hidden_size=(16, 8, 16),
+                                       hidden_dropout=0.1, device=cuda).build()
+    net.model.load_state_dict(state)
+    fused_loss.reset_launches()
+    hist = train(_lazy_counts(), net, epochs=epochs, verbose=False, _graphs=graphs,
+                 max_device_cells=max_cells)
+    if max_cells is not None:
+        want = _want_stream_launches(epochs, 200, max_cells)
+        if not graphs:  # no warm-up steps
+            n_graphs = _stream_schedule(200, max_cells)[2]
+            want["zinb_nll_fwd"] -= n_graphs
+            want["zinb_nll_bwd"] -= n_graphs
+        assert dict(fused_loss.launches) == want
+    return hist
+
+
+@pytest.fixture
+def stream_state(cuda):
+    net = get_ae_type("zinb-conddisp")(input_size=60, hidden_size=(16, 8, 16),
+                                       device=cuda).build()
+    return {k: v.clone() for k, v in net.model.state_dict().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["padded", "flat", "flat8"])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_device_scatters_equal_densify_rows_on_card(cuda, kind, scaled):
+    """Each device scatter, with and without the fused z-scale, the bits of
+    the host tier's ``native.densify_rows`` (then the z-scale in float32)."""
+    from dca_tpu_torch import native
+    from dca_tpu_torch.data.loader import Flat8Chunk
+    from dca_tpu_torch.ops import densify as dz
+
+    adata = _lazy_counts(300, 200)
+    M = adata.X if scaled else adata.raw.X
+    mean, std = io.scale_stats(adata)
+    rows = np.random.RandomState(4).permutation(300)[:150]
+    want = native.densify_rows(M.indptr, M.indices, M.data, rows, 200)
+    sc = (None, None)
+    if scaled:
+        want = (want - mean) / std
+        sc = (torch.from_numpy(mean).to(cuda), torch.from_numpy(std).to(cuda))
+    L = dz.flat_slots_for(M, rows)
+    if kind == "padded":
+        got = dz.device_densify(*dz.payload_from_csr(M, rows, int_vals=not scaled), 200, *sc,
+                                device=cuda)
+    elif kind == "flat":
+        got = dz.device_densify_flat(*dz.flat_payload_from_csr(M, rows, L, int_vals=not scaled),
+                                     150, 200, *sc, device=cuda)
+    else:
+        got = dz.device_densify_flat8(Flat8Chunk(*dz.flat8_payload_from_csr(M, rows, L, L, L),
+                                                 150, 200), *sc, device=cuda)
+    assert got.is_cuda
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", list(STREAM_TIERS))
+def test_streamed_graph_fit_same_bits_as_eager_on_card(cuda, monkeypatch, stream_state, tier):
+    """A streamed fit replayed from the CUDA graphs gives its eager fit's
+    history bit for bit, dropout 0.1 included, each with its exact K1/K2
+    launches; the host and payload tiers also give the in-memory graph
+    fit's history."""
+    _stream_env(monkeypatch, STREAM_TIERS[tier])
+    graph = _stream_fit(cuda, stream_state)
+    eager = _stream_fit(cuda, stream_state, graphs=False)
+    assert graph.capture_s is not None and eager.capture_s is None
+    assert graph.history == eager.history
+    if tier != "resident":
+        assert graph.history == _stream_fit(cuda, stream_state, max_cells=None).history
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("delay", ["staging", "replays"])
+def test_part_buffers_not_overwritten_while_read_on_card(cuda, monkeypatch, stream_state,
+                                                         delay):
+    """A staged part is never read before its writes end, nor overwritten
+    while a replay still reads it: with ~10 ms of device time injected
+    before each staging write, or before each replay, on its stream (and
+    two parts prefetched), the history keeps the bits of the undelayed
+    fit."""
+    from dca_tpu_torch.train import graphs as graphs_mod
+    from dca_tpu_torch.train import loop
+
+    _stream_env(monkeypatch, {**STREAM_TIERS["flat"], "DCA_TPU_PREFETCH": "2"})
+    want = _stream_fit(cuda, stream_state).history
+    if delay == "staging":
+        real = loop.device_densify_flat
+
+        def slow(*a, **k):
+            torch.cuda._sleep(20_000_000)
+            return real(*a, **k)
+
+        monkeypatch.setattr(loop, "device_densify_flat", slow)
+    else:
+        real = graphs_mod.GraphSteps.replay
+
+        def slow(self, key, times=1):
+            torch.cuda._sleep(20_000_000)
+            return real(self, key, times)
+
+        monkeypatch.setattr(graphs_mod.GraphSteps, "replay", slow)
+    assert _stream_fit(cuda, stream_state).history == want

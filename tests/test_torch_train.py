@@ -215,25 +215,34 @@ def test_train_refuses_paths_not_ported_by_name(kwds):
 
 
 @pytest.mark.parametrize("gate", ["device_bytes", "max_device_cells"])
-def test_train_refuses_inputs_the_jax_package_would_stream(monkeypatch, gate):
+def test_train_refuses_inputs_the_jax_package_would_stream(monkeypatch, capsys, gate):
     """The JAX package's size gate: above DCA_TPU_DEVICE_BYTES (input and
     target, n_cells * n_genes * 4 * 2 bytes) or above max_device_cells it
-    takes its streaming trainer, which the port refuses by name before
-    densifying anything; at the limit it fits."""
-    adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
-    n = adata.n_obs * adata.n_vars * 8
-    net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
+    takes its streaming trainer, and so does the port now (it refused these
+    inputs by name before the streaming trainer was ported): the epochs
+    print ``[streaming]`` and, on the host tier, give the in-memory fit's
+    history; at the limit the fit stays in memory."""
+    def fit(**kw):
+        adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
+        net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu", seed=2).build()
+        hist = train(adata, net, epochs=2, verbose=True, seed=4, **kw).history
+        return hist, capsys.readouterr().out.count("[streaming]")
+
+    monkeypatch.delenv("DCA_TPU_DEVICE_DENSIFY", raising=False)
+    n = 40 * 10 * 8
     if gate == "device_bytes":
         monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", str(n - 1))
         over, at = {}, None
     else:
-        over, at = {"max_device_cells": adata.n_obs - 1}, {"max_device_cells": adata.n_obs}
-    with pytest.raises(NotImplementedError, match="streaming trainer.*ROADMAP.md"):
-        train(adata, net, epochs=1, verbose=False, **over)
+        over, at = {"max_device_cells": 39}, {"max_device_cells": 40}
+    streamed, n_streaming = fit(**over)
+    assert n_streaming == 2
     if gate == "device_bytes":
         monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", str(n))
         at = {}
-    assert len(train(adata, net, epochs=1, verbose=False, **at).history["loss"]) == 1
+    in_memory, n_streaming = fit(**at)
+    assert n_streaming == 0
+    assert streamed == in_memory
 
 
 @pytest.mark.parametrize("kwds", [{"compiled": "auto"}, {"compiled": False},
@@ -291,8 +300,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'dca_tpu') "
         "or m.startswith(('jax.', 'dca_tpu.'))]\n"
-        "print(len(sys.modules), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "missing = [m for m in ('dca_tpu_torch.data.loader', 'dca_tpu_torch.ops.densify', "
+        "'dca_tpu_torch.ops.resident') if m not in sys.modules]\n"
+        "print(len(sys.modules), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
