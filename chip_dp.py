@@ -13,13 +13,16 @@ eagerly), times the one-card epoch both ways as phase 4 does
 and nb-conddisp 1, the histories the same on every rank, the loss within
 rtol 1e-3 of the one-card fit and val_loss within rtol 1e-2, the per-rank
 launches of the loss kernels, the denoised matrices equal on every rank,
-rank 0 alone writing.  val_loss gets more room than phase 7's 1e-3: the
+rank 0 alone writing; the zinb-conddisp fits log to TensorBoard, and rank
+0's last gradient histograms must match the one-card gradient of its
+final parameters within rtol 1e-3.  val_loss gets more room than phase 7's 1e-3: the
 Dense bias before each BatchNorm has a gradient that is zero in exact
 arithmetic and rounding noise in float32, which RMSprop scales up to
 steps of the learning rate; the eval-mode BatchNorm carries that drift
-into val_loss, and cuBLAS rounds a rank's block of 8 rows otherwise than
-the whole batch of 32 (at 2 ranks phase 7 measured 4e-4 to 8e-4).  Prints the
-cards' names and power limits and both epoch times; exits non-zero on
+into val_loss (and the eval-mode gradients), and cuBLAS rounds a rank's
+block of 8 rows otherwise than the whole batch of 32 (at 2 ranks phase 7
+measured 4e-4 to 8e-4).  Prints the cards' names and power limits and
+both epoch times; exits non-zero on
 any failure.  Nothing here imports JAX or the JAX package.
 """
 
@@ -48,9 +51,9 @@ def main():
         return 1
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     try:
-        _, _, hist, _ = cs.phase_api("zinb-conddisp", 2)
+        _, _, hist, _, tb = cs.phase_api("zinb-conddisp", 2, tensorboard=True)
         one = cs.epoch_timings(epochs=2)
-        dp = cs.phase_data_parallel(hist, n, "nccl", val_rtol=1e-2)
+        dp = cs.phase_data_parallel(hist, tb["histograms"], n, "nccl", val_rtol=1e-2)
     except cs.SmokeFailure as e:
         print(f"chip_dp: FAILED: {e}", file=sys.stderr)
         return 1

@@ -2,7 +2,8 @@
 """Where the port's time goes on one NVIDIA GPU: a profile of one training
 epoch of the main path, and the loss kernels' own device time.
 
-    python3 chip_profile.py [ae_type] [--parent DIR] [--k2 | --epoch | --forward]
+    python3 chip_profile.py [ae_type] [--parent DIR] [--k2 | --epoch | --forward |
+                                                     --tensorboard]
 
 1. The training epoch of ``train()`` on the 2730 x 3451 Paul15-shaped
    matrix, ``ae_type`` (default zinb-conddisp, the slice's main path)
@@ -39,6 +40,16 @@ epoch of the main path, and the loss kernels' own device time.
    The outputs cross to the host as the main path fetches them, through
    a page-locked ring (``network.fetch_to_host``).  ``--forward`` runs
    this section alone.
+
+4. The TensorBoard fit's cost (``--tensorboard``): ``train()`` of
+   ``ae_type`` on the same matrix, 4 epochs, eager and from CUDA graphs,
+   without TensorBoard, with it as shipped (the event file and a
+   ``torch.profiler`` trace of the set-up and the first
+   ``TRACE_EPOCHS`` epochs, ``train/loop.py::_fit_trace``), with a trace
+   of every epoch, and with no trace: each fit's epoch walls
+   (``History.epoch_s``), its mean logging time
+   (``History.tb_s``) and the trace file's bytes, after an untimed
+   warm-up fit.
 
 Prints the card's name and power limit first.  Nothing here imports JAX
 or the JAX package.
@@ -421,6 +432,57 @@ def profile_forward(ae_type):
             os.environ["DCA_TPU_FUSED_DENSE"] = saved
 
 
+TB_VARIANTS = ("plain", "shipped", "whole fit", "no trace")
+
+
+def profile_tensorboard(ae_type, epochs=4):
+    """Section 4: the TensorBoard fit's cost, by trace variant (module
+    docstring)."""
+    import contextlib
+    import glob
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from chip_smoke import _prepped_paul15
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.train import loop
+
+    adata = _prepped_paul15()
+    shipped = loop._fit_trace
+    variants = {
+        "plain": None, "shipped": shipped,
+        "whole fit": lambda logdir, device: profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+            on_trace_ready=tensorboard_trace_handler(logdir)),
+        "no trace": lambda logdir, device: contextlib.nullcontext(),
+    }
+    out = os.path.join(OUT_DIR, "tb_cost")
+    loop.train(adata, get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                           device="cuda").build(), epochs=1, verbose=False)
+    try:
+        for graphs in (False, True):
+            for name in TB_VARIANTS:
+                shutil.rmtree(out, ignore_errors=True)
+                if variants[name] is not None:
+                    loop._fit_trace = variants[name]
+                net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                           device="cuda").build()
+                hist = loop.train(adata, net, epochs=epochs, verbose=False, _graphs=graphs,
+                                  output_dir=out, tensorboard=variants[name] is not None)
+                torch.cuda.synchronize()
+                loop._fit_trace = shipped
+                traces = glob.glob(os.path.join(out, "tb", "*.pt.trace.json"))
+                tb_ms = float(np.mean(hist.tb_s)) * 1e3 if hist.tb_s else 0.0
+                print(f"tensorboard cost, {'graph' if graphs else 'eager'} fit, {name}: epochs "
+                      f"{[round(t * 1e3, 2) for t in hist.epoch_s]} ms, logging {tb_ms:.2f} ms "
+                      f"an epoch, trace {sum(os.path.getsize(t) for t in traces)} bytes")
+    finally:
+        loop._fit_trace = shipped
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -439,6 +501,8 @@ def main():
     parser.add_argument("--epoch", action="store_true", help="only the training epoch (section 1)")
     parser.add_argument("--forward", action="store_true",
                         help="only the denoise forward (section 3)")
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="only the TensorBoard fit's cost (section 4)")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -446,6 +510,9 @@ def main():
     parent = None if args.parent is None else load_parent(args.parent)
     if args.forward:
         profile_forward(args.ae_type)
+        return 0
+    if args.tensorboard:
+        profile_tensorboard(args.ae_type)
         return 0
     if not args.k2:
         profile_epoch(args.ae_type)

@@ -64,7 +64,9 @@ Phases, each of which must pass:
    over 67 TFLOP/s float32).  K1 also at the validation split (273, 3451).
    One whole loss backward (``_FusedNLL.backward``: K2 alone), and with
    ``--parent`` the parent's (its division, then its K2), in turns.
-   K1w at (137, 3451) and K2w at (32, 3451), NB and ZINB, likewise.
+   K1w at (137, 3451) and K2w at (32, 3451), NB and ZINB, likewise; ZINB
+   K2 at (273, 3451) and K2w at (137, 3451), the shapes of the TensorBoard
+   gradient (phases 4, 7 and 11).
    K4 at the encoder and head shapes, with its plan, its bound, the plain
    version's time and, for the ``linear`` epilogue, ``torch.addmm``'s,
    timed in turns with K4 on the same inputs (x warm in the 50 MB L2 for
@@ -89,7 +91,10 @@ Phases, each of which must pass:
    are the same bits is printed).  Then the per-epoch wall time of
    ``train()`` zinb-conddisp, eager and graph, three 3-epoch fits each in
    turns, and the graph fits' capture times; the graph epoch must be the
-   faster (``epoch_timings``).
+   faster (``epoch_timings``).  Then zinb-conddisp once more through the
+   graphs with ``tensorboard=True`` (``_tb_run``): the plain graph fit's
+   history bit for bit, every scalar and histogram tag at every epoch, a
+   profiler trace beside the events, and one more K1 and K2 an epoch.
 5. CLI runs: ``python -m dca_tpu_torch counts.tsv out/ -e 2`` on the card
    with the default nb-conddisp, ``--type zinb-conddisp`` and ``--type
    zinb``, and the output contract (mean, mean_norm, latent, reduced,
@@ -117,11 +122,23 @@ Phases, each of which must pass:
 7. The data-parallel fit: 2 ranks, spawned, both on the one card over
    gloo (asked for explicitly; NCCL refuses ranks that share a device),
    each running ``dca(devices="all")`` on phase 4's matrix and seed:
-   zinb-conddisp for 2 epochs, then nb-conddisp for 1.  Loss and val_loss
-   the same on both ranks and within rtol 1e-3 of phase 4's first two
-   epochs; per-rank launches 154 / 154 K1/K2 and 2 K1w (the padded
-   validation, 273 rows to 274) for zinb-conddisp, 77 / 77 and 1 for
-   nb-conddisp, no K2w (nothing differentiates the weighted validation);
+   zinb-conddisp for 2 epochs, the same again with ``tensorboard=True``,
+   then nb-conddisp for 1.  Loss and val_loss the same on both ranks and
+   within rtol 1e-3 of phase 4's first two epochs; per-rank launches 154 /
+   154 K1/K2 and 2 K1w (the padded validation, 273 rows to 274) for
+   zinb-conddisp, 77 / 77 and 1 K1w for nb-conddisp; the TensorBoard fit
+   the plain fit's history bit for bit on every rank, with 2 more K1w and
+   2 K2w a rank (its gradient on the padded block, once an epoch), and
+   one event file (rank 0's), whose last ``grads/``
+   histograms (min, max, num, sum, sum of squares) match within rtol 1e-3
+   (the sum within 1e-3 sqrt(num x sum of squares), the elementwise rtol
+   carried through the sum) the one-card gradient of rank 0's final
+   parameters on the same 273 validation rows (``_one_card_grad_stats``); their distance from phase
+   4's TensorBoard fit is printed, not held: the Dense bias before each
+   BatchNorm has a training gradient of exactly 0, which RMSprop turns
+   into learning-rate-sized steps of rounding noise, different on one
+   card and on two ranks, and the eval-mode gradient reads those biases
+   (val_loss is 4e-4 to 8e-4 apart for the same reason);
    the denoised matrices equal on both ranks and finite; rank 0 alone
    writes (its model.pickle).  A rank that fails or outlives its time
    limit fails the phase.  The data-parallel epoch time is printed: two
@@ -182,7 +199,27 @@ Phases, each of which must pass:
    validation chunk's (26215, 3451) against its plain version (loss rel
    err <= 1e-5), both timed.
 
-The phases run in the order 1-4, 10, 9, 8, 5-7.  Prints the card's name and
+11. The fit's artefacts: zinb-conddisp 64-32-64 at phase 4's 2730 x 3451,
+   dropout 0.1, ``train()`` through the CUDA graphs.  (a) A 4-epoch fit
+   with ``checkpoint_every=1`` against 2 epochs and then ``resume=True``
+   to 4: epochs 3-4 and the final parameters the same bits, each
+   segment's K1/K2 launches exact (replays and warm-ups); the time of
+   each checkpoint save (read-back and npz), its bytes, the resume's
+   restore.  (b) ``load_model`` of the fit's ``model.pickle`` rebuilds the
+   trained network on the card; where h5py imports, the fit also ran with
+   ``save_weights=True`` and ``weights.hdf5`` holds the best epoch's
+   parameters, and ``load_weights`` into a fresh network on the card then
+   predicts the fit's bits (the best epoch being the last); without h5py
+   that is printed as not run.  (c) ``tensorboard=True``: the history of
+   (a)'s 4-epoch fit bit for bit, every tag at every epoch, a profiler
+   trace, one more K1 and K2 an epoch, and each K2 of the gradient at
+   (273, 3451) against the plain version on the same tensors at K2's
+   tolerance (``check_k2_call``); the epoch times with and without
+   TensorBoard.  (d) Phase 10 (a)'s streamed fit (parts of 512) for 2
+   epochs against 1 epoch with a checkpoint and a resume to 2, on the host
+   and the resident tiers: the same bits.
+
+The phases run in the order 1-4, 10, 11, 9, 8, 5-7.  Prints the card's name and
 power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
 non-zero, with no result line, when there is no CUDA device or a phase
@@ -408,6 +445,56 @@ def _grad_check(name, got, want, want_full, mag, scale):
            f"{GRAD_ATOL} + {GRAD_ULPS} ulps of the terms (summed over {summed}); max "
            f"unscaled error {err.max().item():.3e}")
     return err.max().item(), (err / tol).max().item()
+
+
+def check_k2_call(what, args, out):
+    """Hold one K2 or K2w launch of a path (``args`` as the wrapper
+    ``fused_loss._bwd_kernel`` took them: y, mu, theta, pi, ridge, g, denom
+    and w; ``out`` its gradients) against the plain version on the same
+    tensors, at K2's tolerance (``_grad_check``; weighted: each element's
+    terms times its weight, exactly 0 on zero-weight rows).  Returns the
+    largest error over its tolerance."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    y, mu, th, pi, ridge, g, denom, w = args
+    B, G = mu.shape
+    with torch.no_grad():
+        refs = fl._bwd_reference(y, mu, th, pi, ridge, g, denom, w)
+        w_eff = 1.0 if w is None else torch.where(torch.isnan(y), 0.0, w)
+        fulls = [d * w_eff for d in fl._elem_grads(y, mu, th, pi, ridge) if d is not None]
+        mags = [m * w_eff for m in fl.grad_term_magnitudes(y, mu, th, pi, ridge)
+                if m is not None]
+    worst = 0.0
+    for gname, got, want, full, mag in zip(("d mu", "d theta", "d pi"), out, refs, fulls,
+                                           mags):
+        if w is not None and got.shape == (B, G):
+            _check(bool((got[(w_eff == 0.0).expand(B, G)] == 0.0).all()),
+                   f"{what}: {gname} not exactly 0 on zero-weight rows")
+        worst = max(worst, _grad_check(f"{what}: {gname}", got, want, full.expand(B, G),
+                                       mag.expand(B, G), g / denom)[1])
+    return worst
+
+
+@contextlib.contextmanager
+def recording_k2():
+    """Record every call of K2's wrapper in the block: a list of (args,
+    gradients)."""
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    calls, real = [], fl._bwd_kernel
+
+    def rec(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    fl._bwd_kernel = rec
+    try:
+        yield calls
+    finally:
+        fl._bwd_kernel = real
 
 
 COMPARE_SHAPES = [((32, 3451), 0.0, 0), ((25, 3451), 0.0, 0), ((273, 3451), 0.0, 0),
@@ -942,6 +1029,37 @@ def weighted_timings(dev):
     return out
 
 
+def tb_k2_timings(dev):
+    """ZINB K2 at phase 4's validation split (273, 3451) and K2w at a rank's
+    padded validation block of phase 7 (137, 3451), the shapes of the
+    TensorBoard gradient, with the plain versions' times and the bounds;
+    {name: (ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    G = 3451
+    g = torch.tensor(G_BWD, device=dev)
+    out = {}
+    for name, B, weighted in (("zinb_bwd", 273, False), ("zinb_bwd_w", 137, True)):
+        y, mu, th, pi = (torch.from_numpy(a).to(dev)
+                         for a in _loss_inputs(B, G, 31 + B, pi_shape=(B, G)))
+        w = torch.from_numpy(_weights(B, "padding", B)).to(dev) if weighted else None
+        _, denom = fl._fwd_kernel(y, mu, th, pi, 0.1, w)
+        ms = _device_ms(lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom, w))
+        plain_ms = _device_ms(lambda: fl._bwd_reference(y, mu, th, pi, 0.1, g, denom, w))
+        # y, mu, theta, pi (and w) read, g and the denominator read, three
+        # (B, G) gradients written; w * scale once more an element
+        n = B * G
+        bound, by = _bound_ms(4 * 4 * n + (4 * B if weighted else 0) + 2 * 4 + 3 * 4 * n,
+                              _k2_ops(y, mu, th, True) + (n if weighted else 0))
+        out[name] = (ms, plain_ms, bound, by)
+        print(f"phase 2: zinb K2{'w' if weighted else ''} at {(B, G)} (the TensorBoard "
+              f"gradient's shape): {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.2f} us by {by})")
+    return out
+
+
 def _small_counts(n_cells, n_genes, seed):
     rs = np.random.RandomState(seed)
     mu = rs.gamma(2.0, 1.0, size=(1, n_genes)) * rs.lognormal(0.0, 0.3, (n_cells, 1)) * 5
@@ -1027,13 +1145,15 @@ def phase_zoo():
               f"{hist['cpu']['loss']}; launches {launches}")
 
 
-def phase_api(ae_type, epochs):
+def phase_api(ae_type, epochs, tensorboard=False):
     """``dca()`` of ``ae_type`` at 2730 x 3451, ``epochs`` epochs, through
     the CUDA-graph path (the main path), then the same fit eagerly on the
     card (``training_kwds={"_graphs": False}``); the two histories must be
-    equal within rtol 1e-6, and each run's launches exact.  Returns (the
-    graph run's launches, the trained network, its loss history, whether
-    the two histories are the same bits)."""
+    equal within rtol 1e-6, and each run's launches exact.  With
+    ``tensorboard`` a third run through the graphs logs to TensorBoard
+    (``_tb_run``).  Returns (the graph run's launches, the trained network,
+    its loss history, whether the two histories are the same bits, the
+    TensorBoard run's histograms and launches or None)."""
     import torch
 
     import dca_tpu_torch
@@ -1093,7 +1213,72 @@ def phase_api(ae_type, epochs):
           f"{'the same bits' if same_bits else 'not the same bits'}: loss "
           f"{graph_hist['loss']} vs {eager_hist['loss']}")
     launches, net, hist = runs[True]
-    return launches, net, hist, same_bits
+    tb = None
+    if tensorboard:
+        tb = _tb_run(ae_type, counts, epochs, kw, graph_hist)
+    return launches, net, hist, same_bits, tb
+
+
+TB_STATS = ("min", "max", "num", "sum", "sum_squares")
+
+
+def _tb_events(out, epochs, paths, val=True):
+    """The one event file under ``out/tb``: every scalar (loss, val_loss,
+    lr) and every histogram (weights/ and grads/ of each parameter path of
+    ``paths``) at every epoch.  Returns {(step, tag): histogram
+    statistics}."""
+    import glob
+
+    from dca_tpu_torch.tbevents import read_events, read_histograms
+
+    files = glob.glob(os.path.join(out, "tb", "events.out.tfevents.*"))
+    _check(len(files) == 1, f"{len(files)} event files under {out}/tb, expected 1")
+    scalars = {(st, t) for st, d in read_events(files[0]) for t, v in d.items()
+               if v != "histogram"}
+    hists = read_histograms(files[0])
+    names = ("loss", "lr") + (("val_loss",) if val else ())
+    for step in range(epochs):
+        missing = [t for t in names if (step, t) not in scalars]
+        missing += [pre + p for p in paths for pre in ("weights/", "grads/")
+                    if (step, pre + p) not in hists]
+        _check(not missing, f"{out}: epoch {step} lacks {missing}")
+    return hists
+
+
+def _tb_run(ae_type, counts, epochs, kw, graph_hist):
+    """``dca()`` of phase 4 through the graphs with ``tensorboard=True``:
+    the history the plain graph fit's bits, every tag at every epoch, a
+    profiler trace beside the events, and one more K1 and K2 an epoch
+    (the gradient on the 273 validation rows, eager)."""
+    import glob
+
+    import dca_tpu_torch
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.models import core
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    out = os.path.join(OUT_DIR, f"tb-{ae_type}")
+    shutil.rmtree(out, ignore_errors=True)
+    fl.reset_launches()
+    ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), epochs=epochs, return_model=True,
+                                 training_kwds={"output_dir": out, "tensorboard": True}, **kw)
+    launches = dict(fl.launches)
+    hist = ret.uns["dca_loss_history"]
+    _check(hist == graph_hist, f"phase 4: {ae_type}: the TensorBoard fit's history {hist} is "
+                               f"not the plain graph fit's {graph_hist}")
+    lk = core.LIKELIHOODS[ae_type]
+    want = _want_launches(lk, epochs, _steps(counts.shape[0]), _warmups(counts.shape[0]))
+    want[f"{lk}_nll_fwd"] += epochs
+    want[f"{lk}_nll_bwd"] += epochs
+    _check(launches == want, f"phase 4: {ae_type} TensorBoard fit: launches {launches}, "
+                             f"expected {want}")
+    paths = [n.replace(".", "/") for n, _ in net.model.named_parameters()]
+    hists = _tb_events(out, epochs, paths)
+    _check(bool(glob.glob(os.path.join(out, "tb", "*.pt.trace.json"))),
+           f"phase 4: no profiler trace under {out}/tb")
+    print(f"phase 4: {ae_type} TensorBoard fit ({epochs} epochs, graphs): the plain fit's "
+          f"bits; every tag at every epoch ({len(hists)} histograms); launches {launches}")
+    return {"launches": launches, "histograms": hists}
 
 
 IN_TURNS = (False, True, True, False, False, True)  # A, B, B, A, A, B: two ways timed in turns
@@ -1791,9 +1976,55 @@ def _dp_rank(rank, world, port, out_dir, backend):
         np.save(os.path.join(out_dir, f"denoised-{ae_type}-rank{rank}.npy"), ret.X)
         res[ae_type] = {"history": ret.uns["dca_loss_history"], "launches": launches,
                         "t_run": t_run, "t_zero": t_zero}
+        if ae_type == "zinb-conddisp":
+            # the same fit logging to TensorBoard: its gradient on the
+            # padded validation block goes through K1w/K2w
+            fl.reset_launches()
+            t0 = time.perf_counter()
+            ret, net = dca_tpu_torch.dca(
+                AnnData(counts.copy()), ae_type=ae_type, epochs=epochs,
+                training_kwds={"output_dir": os.path.join(out_dir, "tb"), "tensorboard": True},
+                **kw)
+            torch.cuda.synchronize()
+            res["tensorboard"] = {"history": ret.uns["dca_loss_history"],
+                                  "launches": dict(fl.launches),
+                                  "t_run": time.perf_counter() - t0}
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{ae_type}-params.npz"),
+                         **{k: v.cpu().numpy() for k, v in net.model.state_dict().items()})
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
+
+
+TB_DP_RTOL = 1e-3
+
+
+def _one_card_grad_stats(state):
+    """{grads/<path>: histogram statistics} of the TensorBoard gradient on
+    the one card: zinb-conddisp 64-32-64 carrying ``state`` on phase 4's
+    273 validation rows, as ``dca()`` preprocesses them."""
+    import torch
+
+    from dca_tpu_torch.data.io import densify, size_factors
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.train.loop import _tb_grads
+
+    adata = _prepped_paul15()
+    split = int(adata.n_obs * 0.9)
+    dev = torch.device("cuda")
+    net = get_ae_type("zinb-conddisp")(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                       device=dev).build()
+    net.model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    x, t = (torch.tensor(densify(a)[split:], device=dev) for a in (adata.X, adata.raw.X))
+    sf = torch.tensor(size_factors(adata)[split:], device=dev)
+    stats = {}
+    for path, g in _tb_grads(net, x, sf, t).items():
+        v = g.detach().cpu().numpy().astype(np.float64).ravel()
+        v = v[np.isfinite(v)]
+        stats["grads/" + path] = dict(zip(TB_STATS, (v.min(), v.max(), float(v.size), v.sum(),
+                                                     np.square(v).sum())))
+    return stats
 
 
 def _free_port():
@@ -1804,13 +2035,17 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def phase_data_parallel(single_hist, n_ranks=DP_RANKS, backend="gloo", val_rtol=1e-3):
+def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo",
+                        val_rtol=1e-3):
     """Phase 7: the data-parallel fit, by default 2 ranks on the one card
     over gloo (module docstring; ``chip_dp.py`` runs it with a card a rank
     over NCCL).  ``single_hist``: phase 4's zinb-conddisp history, which
     the loss must match within rtol 1e-3 and val_loss within
-    ``val_rtol``.  Returns each run's per-rank launches and the per-epoch
-    time."""
+    ``val_rtol``; ``single_tb``: phase 4's TensorBoard histograms, whose
+    ``grads/`` statistics (min, max, num, sum, sum of squares) rank 0's
+    must match within ``val_rtol`` too.  Returns each run's per-rank
+    launches, the per-epoch time and the gradients' largest relative
+    difference."""
     import multiprocessing
 
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
@@ -1888,11 +2123,63 @@ def phase_data_parallel(single_hist, n_ranks=DP_RANKS, backend="gloo", val_rtol=
         print(f"phase 7: {ae_type} {epochs} epochs on {n_ranks} ranks: loss {hist['loss']}, "
               f"val_loss {hist['val_loss']}, the same on every rank; per-rank launches "
               f"{runs[0]['launches']}; denoised matrices equal and finite; rank 0 alone wrote")
+    # the TensorBoard fit: the plain fit's history on every rank, and its
+    # gradient one more K1w and one K2w a rank an epoch
+    epochs = DP_RUNS[0][1]
+    tb_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), zinb_nll_fwd=154, zinb_nll_bwd=154,
+                   zinb_nll_fwd_w=2 + epochs, zinb_nll_bwd_w=epochs)
+    for rk, r in enumerate(ranks):
+        _check(r["tensorboard"]["history"] == r["zinb-conddisp"]["history"],
+               f"phase 7: rank {rk}'s TensorBoard fit's history {r['tensorboard']['history']} "
+               f"is not its plain fit's {r['zinb-conddisp']['history']}")
+        _check(r["tensorboard"]["launches"] == tb_want,
+               f"phase 7: rank {rk}'s TensorBoard fit launched {r['tensorboard']['launches']}, "
+               f"expected {tb_want}")
+    out["tensorboard"] = [r["tensorboard"]["launches"] for r in ranks]
+    out["tb_per_epoch_s"] = (ranks[0]["tensorboard"]["t_run"]
+                             - ranks[0]["zinb-conddisp"]["t_zero"]) / epochs
+    # rank 0 alone wrote the events; its gradients are the global batch's:
+    # its last epoch's against the one-card gradient of its final
+    # parameters on the same 273 validation rows
+    hists = _tb_events(os.path.join(out_dir, "tb"), epochs,
+                       sorted({t.split("/", 1)[1] for _, t in single_tb
+                               if t.startswith("grads/")}))
+    params = dict(np.load(os.path.join(out_dir, "zinb-conddisp-params.npz")))
+    same = {}
+    for tag, stats in _one_card_grad_stats(params).items():
+        got = hists[(epochs - 1, tag)]
+        for k in TB_STATS:
+            d = abs(got[k] - stats[k])
+            # an elementwise rtol carried through the sum bounds its error
+            # by rtol * sum |g| <= rtol * sqrt(num * sum g^2)
+            scale = (np.sqrt(stats["num"] * stats["sum_squares"]) if k == "sum"
+                     else abs(stats[k]))
+            _check(d <= TB_DP_RTOL * scale,
+                   f"phase 7: {tag}: {k} {got[k]!r} vs {stats[k]!r}, the one-card gradient of "
+                   f"the same parameters, beyond rtol {TB_DP_RTOL}")
+            same[k] = max(same.get(k, 0.0), d / abs(stats[k]) if stats[k] else 0.0)
+    # and against phase 4's one-card fit, whose parameters have drifted
+    # from the data-parallel fit's (see the module docstring): measured
+    drift = {}
+    for (step, tag), stats in hists.items():
+        if tag.startswith("grads/"):
+            ref = single_tb[(step, tag)]
+            for k in TB_STATS:
+                d = abs(stats[k] - ref[k])
+                drift[k] = max(drift.get(k, 0.0), d / abs(ref[k]) if ref[k] else 0.0)
+    out["grads_rel_same_params"], out["grads_rel_phase4"] = same, drift
+    fmt = lambda d: ", ".join(f"{k} {v:.2e}" for k, v in d.items())  # noqa: E731
+    print(f"phase 7: rank 0's grads/ histograms (one event file) at epoch {epochs} against the "
+          f"one-card gradient of the same parameters, largest relative differences: "
+          f"{fmt(same)} (rtol {TB_DP_RTOL}); against phase 4's one-card TensorBoard fit at "
+          f"epochs 1-{epochs}: {fmt(drift)} (measured, not held: the fits' parameters differ)")
     zinb = ranks[0]["zinb-conddisp"]
     out["per_epoch_s"] = (zinb["t_run"] - zinb["t_zero"]) / DP_RUNS[0][1]
     print(f"phase 7: data-parallel zinb-conddisp epoch {out['per_epoch_s'] * 1e3:.1f} ms on "
           f"rank 0 ({n_ranks} ranks over {backend}"
-          f"{': sharing one card, this measures no scaling' if backend == 'gloo' else ''})")
+          f"{': sharing one card, this measures no scaling' if backend == 'gloo' else ''}); "
+          f"with TensorBoard {out['tb_per_epoch_s'] * 1e3:.1f} ms; the TensorBoard fit the "
+          f"plain fit's bits on every rank, launches {out['tensorboard'][0]} a rank")
     shutil.rmtree(out_dir)
     return out
 
@@ -2431,6 +2718,193 @@ def phase_stream_corpus(dev, epochs=2, corpus=CORPUS, max_cells=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the fit's artefacts
+# ---------------------------------------------------------------------------
+
+ART_DROPOUT = 0.1
+
+
+def _art_fit(dev, adata, state, epochs, **kw):
+    """``train()`` zinb-conddisp 64-32-64 at dropout 0.1 on ``dev`` from
+    ``state``, through the CUDA graphs; returns (history, launches,
+    network)."""
+    import torch
+
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.train.loop import train
+
+    net = get_ae_type("zinb-conddisp")(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                       hidden_dropout=ART_DROPOUT, device=dev).build()
+    net.model.load_state_dict(state)
+    fl.reset_launches()
+    hist = train(adata, net, epochs=epochs, verbose=False, **kw)
+    torch.cuda.synchronize()
+    _check(hist.capture_s is not None, "phase 11: a fit replayed no graph")
+    return hist, dict(fl.launches), net
+
+
+def _same_state(a, b):
+    import torch
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _initial_state(dev, n_genes):
+    from dca_tpu_torch.models.network import get_ae_type
+
+    return {k: v.clone() for k, v in get_ae_type("zinb-conddisp")(
+        input_size=n_genes, hidden_size=(64, 32, 64), hidden_dropout=ART_DROPOUT,
+        device=dev).build().model.state_dict().items()}
+
+
+def phase_artefacts(dev, card):
+    """Phase 11: the fit's artefacts at 2730 x 3451, zinb-conddisp 64-32-64,
+    dropout 0.1, through the CUDA graphs (module docstring)."""
+    import glob
+    import importlib.util
+
+    import torch
+
+    from dca_tpu_torch.data.io import scale_stats, size_factors
+    from dca_tpu_torch.models.network import get_ae_type, load_model
+
+    out = os.path.join(OUT_DIR, "artefacts")
+    shutil.rmtree(out, ignore_errors=True)
+    adata = _prepped_paul15()
+    n_cells = adata.n_obs
+    state = _initial_state(dev, adata.n_vars)
+    has_h5 = importlib.util.find_spec("h5py") is not None
+    res = {}
+
+    # (a) checkpoints and resume
+    whole_dir, seg_dir = os.path.join(out, "whole"), os.path.join(out, "segments")
+    whole, l_whole, whole_net = _art_fit(dev, adata, state, 4, output_dir=whole_dir,
+                                         checkpoint_every=1, save_weights=has_h5)
+    seg1, l_seg1, _ = _art_fit(dev, adata, state, 2, output_dir=seg_dir, checkpoint_every=1)
+    seg2, l_seg2, seg_net = _art_fit(dev, adata, state, 4, output_dir=seg_dir,
+                                     checkpoint_every=1, resume=True)
+    for key in ("loss", "val_loss", "lr"):
+        _check(seg1.history[key] + seg2.history[key] == whole.history[key],
+               f"phase 11 (a): {key}: 2 epochs {seg1.history[key]} and the resumed "
+               f"{seg2.history[key]} are not the uninterrupted fit's {whole.history[key]}")
+    _check(_same_state(seg_net, whole_net),
+           "phase 11 (a): the resumed fit's final parameters are not the uninterrupted fit's")
+    steps, warm = _steps(n_cells), _warmups(n_cells)
+    for name, launches, epochs in (("4 epochs", l_whole, 4), ("2 epochs", l_seg1, 2),
+                                   ("resumed to 4", l_seg2, 2)):
+        want = _want_launches("zinb", epochs, steps, warm)
+        _check(launches == want, f"phase 11 (a): {name}: launches {launches}, expected {want}")
+    npz = os.path.join(whole_dir, "checkpoints", "ckpt_3.npz")
+    res["ckpt_bytes"] = os.path.getsize(npz)
+    res["ckpt_s"] = whole.checkpoint_s
+    res["restore_s"] = seg2.restore_s
+    res["resume_capture_s"] = seg2.capture_s
+    res["launches"] = {"4 epochs": l_whole, "2 epochs": l_seg1, "resumed to 4": l_seg2}
+    print(f"phase 11 (a) on {card}: 2 epochs + resume=True to 4 give the uninterrupted "
+          f"fit's bits (history and parameters) at dropout {ART_DROPOUT}; K1/K2 launches "
+          f"{l_whole['zinb_nll_fwd']}/{l_whole['zinb_nll_bwd']} (4 epochs), "
+          f"{l_seg1['zinb_nll_fwd']}/{l_seg1['zinb_nll_bwd']} + {l_seg2['zinb_nll_fwd']}/"
+          f"{l_seg2['zinb_nll_bwd']} (the segments; {warm} warm-ups each); a checkpoint "
+          f"{res['ckpt_bytes']} bytes, saved in "
+          f"{[round(t * 1e3, 2) for t in whole.checkpoint_s]} ms (read-back and npz); the "
+          f"resume's restore {seg2.restore_s * 1e3:.2f} ms, its capture "
+          f"{seg2.capture_s * 1e3:.1f} ms")
+
+    # (b) model.pickle and weights.hdf5
+    whole_net.file_path = whole_dir
+    whole_net.save()
+    loaded = load_model(os.path.join(whole_dir, "model.pickle"))
+    _check(next(loaded.model.parameters()).is_cuda and _same_state(loaded, whole_net),
+           "phase 11 (b): load_model did not rebuild the trained network on the card")
+    res["weights"] = None
+    if has_h5:
+        best = int(np.argmin(whole.history["val_loss"]))
+        fresh = get_ae_type("zinb-conddisp")(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                             device=dev).build()
+        fresh.load_weights(os.path.join(whole_dir, "weights.hdf5"))
+        if best == 3:
+            _check(_same_state(fresh, whole_net),
+                   "phase 11 (b): weights.hdf5 does not hold the best (last) epoch's weights")
+            sf, (mean, std) = size_factors(adata), scale_stats(adata)
+            got = fresh.forward(adata.X, sf, mean, std)
+            want = whole_net.forward(adata.X, sf, mean, std)
+            _check(all(np.array_equal(got[k], want[k]) for k in want),
+                   "phase 11 (b): the loaded network's predict is not the fit's bits")
+        res["weights"] = {"best_epoch": best + 1, "save_s": whole.weights_s,
+                          "bytes": os.path.getsize(os.path.join(whole_dir, "weights.hdf5"))}
+        compared = ("the fit's bits" if best == 3
+                    else "not compared (the best epoch is not the last)")
+        print(f"phase 11 (b) on {card}: load_model on the card; weights.hdf5 "
+              f"({res['weights']['bytes']} "
+              f"bytes, saved at {len(whole.weights_s)} improved epochs in "
+              f"{[round(t * 1e3, 2) for t in whole.weights_s]} ms) holds the best epoch "
+              f"({best + 1}); load_weights and the forward: {compared}")
+    else:
+        print("phase 11 (b): save_weights and load_weights not run: h5py is not installed "
+              "on this machine (weights.hdf5 needs it, as in the JAX package); load_model "
+              "rebuilt the trained network on the card")
+
+    # (c) TensorBoard
+    tb_dir = os.path.join(out, "tb")
+    with recording_k2() as calls:
+        tb, l_tb, tb_net = _art_fit(dev, adata, state, 4, output_dir=tb_dir, tensorboard=True)
+    _check(tb.history == whole.history,
+           f"phase 11 (c): the TensorBoard fit's history {tb.history} is not the plain fit's "
+           f"{whole.history}")
+    want = _want_launches("zinb", 4, steps, warm)
+    want["zinb_nll_fwd"] += 4
+    want["zinb_nll_bwd"] += 4
+    _check(l_tb == want, f"phase 11 (c): launches {l_tb}, expected {want}")
+    val_calls = [c for c in calls if c[0][1].shape[0] == n_cells - int(n_cells * 0.9)]
+    _check(len(val_calls) == 4, f"phase 11 (c): {len(val_calls)} K2 launches at the "
+                                "validation shape, expected 4")
+    res["tb_k2_tol"] = max(check_k2_call("phase 11 (c): K2 of the TensorBoard gradient", *c)
+                           for c in val_calls)
+    paths = [n.replace(".", "/") for n, _ in tb_net.model.named_parameters()]
+    _tb_events(tb_dir, 4, paths)
+    _check(bool(glob.glob(os.path.join(tb_dir, "tb", "*.pt.trace.json"))),
+           "phase 11 (c): no profiler trace")
+    res["epoch_ms"] = [t * 1e3 for t in whole.epoch_s]
+    res["tb_epoch_ms"] = [t * 1e3 for t in tb.epoch_s]
+    res["tb_log_ms"] = [t * 1e3 for t in tb.tb_s]
+    print(f"phase 11 (c) on {card}: the TensorBoard fit is the plain fit's bits; every tag "
+          f"at every epoch; K2 of its gradient at (273, 3451) within "
+          f"{res['tb_k2_tol']:.3f} of K2's tolerance; launches {l_tb}; epochs "
+          f"{[round(t, 2) for t in res['tb_epoch_ms']]} ms (profiled) + logging "
+          f"{[round(t, 2) for t in res['tb_log_ms']]} ms, against "
+          f"{[round(t, 2) for t in res['epoch_ms']]} ms without TensorBoard")
+
+    # (d) the streaming trainer's resume, host and resident tiers
+    lazy = _lazy_adata(make_paul15_like())
+    sstate = _initial_state(dev, lazy.n_vars)
+    res["stream"] = {}
+    for tier in ("host", "resident"):
+        d = os.path.join(out, f"stream-{tier}")
+        with _switches(STREAM_TIERS[tier]):
+            ref, _, ref_net = _art_fit(dev, lazy, sstate, 2, max_device_cells=512)
+            a, _, _ = _art_fit(dev, lazy, sstate, 1, max_device_cells=512, output_dir=d,
+                               checkpoint_every=1)
+            b, lb, b_net = _art_fit(dev, lazy, sstate, 2, max_device_cells=512, output_dir=d,
+                                    checkpoint_every=1, resume=True)
+        for key in ("loss", "val_loss", "lr"):
+            _check(a.history[key] + b.history[key] == ref.history[key],
+                   f"phase 11 (d): {tier}: {key} {a.history[key]} + {b.history[key]} is not "
+                   f"the uninterrupted streamed fit's {ref.history[key]}")
+        _check(_same_state(b_net, ref_net),
+               f"phase 11 (d): {tier}: the resumed parameters are not the uninterrupted fit's")
+        want = _want_stream_launches(1, n_cells, 512)
+        _check(lb == want, f"phase 11 (d): {tier}: resumed launches {lb}, expected {want}")
+        res["stream"][tier] = {"restore_s": b.restore_s, "checkpoint_s": a.checkpoint_s}
+        print(f"phase 11 (d) on {card}: streamed ({tier} tier, parts of 512): 1 epoch + "
+              f"resume=True to 2 give the uninterrupted fit's bits; restore "
+              f"{b.restore_s * 1e3:.2f} ms")
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
 def _card():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -2466,12 +2940,16 @@ def main():
         dense_err = phase_dense_compare(dev)
         times = phase_timings(dev, parent)
         times.update(weighted_timings(dev))
+        tb_times = tb_k2_timings(dev)
         dense_times = dense_timings(dev)
         phase_zoo()
-        launches, zinb_net, zinb_hist, zinb_bits = phase_api("zinb-conddisp", 5)
-        nb_launches, nb_net, _, nb_bits = phase_api("nb-conddisp", 2)
+        launches, zinb_net, zinb_hist, zinb_bits, zinb_tb = phase_api("zinb-conddisp", 5,
+                                                                      tensorboard=True)
+        nb_launches, nb_net, _, nb_bits, _ = phase_api("nb-conddisp", 2)
         stream_small = phase_stream_small(dev)
         stream_corpus = phase_stream_corpus(dev)
+        card = _card()
+        art = phase_artefacts(dev, card)
         epochs = epoch_timings()
         launches.update({k: v for k, v in nb_launches.items() if k.startswith("nb_")})
         phase_options()
@@ -2480,8 +2958,7 @@ def main():
         nat = phase_native()
         phase_cli()
         den = phase_denoise(zinb_net, nb_net)
-        dp = phase_data_parallel(zinb_hist)
-        card = _card()
+        dp = phase_data_parallel(zinb_hist, zinb_tb["histograms"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2505,6 +2982,16 @@ def main():
                 "phase 10 (b)": stream_corpus["launches"][name]}}
             if name == "zinb_nll_fwd":
                 streamed["validation_chunk"] = stream_corpus["k1_val"]
+            if fam == "zinb":
+                streamed["launches_tensorboard"] = {
+                    "phase 4 (tensorboard)": zinb_tb["launches"][name],
+                    "phase 11": {k: v[name] for k, v in art["launches"].items()}}
+            if name == "zinb_nll_bwd":
+                ms_v, plain_v, bound_v, by_v = tb_times["zinb_bwd"]
+                streamed["tensorboard_gradient"] = {
+                    "shape": [273, 3451], "ms": ms_v, "plain_ms": plain_v,
+                    "bound_ms": bound_v, "bound_by": by_v,
+                    "max_err_over_tol": art["tb_k2_tol"]}
             kernels.append({**streamed,
                 "name": name, "route": "cuda",
                 "source": "dca_tpu_torch/csrc/fused_nll.cu",
@@ -2530,7 +3017,7 @@ def main():
         ):
             ms, plain_ms, bound_ms, bound_by, extra = times[f"{fam}_{kind}_w"]
             name = f"{fam}_nll_{kind}_w"
-            per_rank = [rk[name] for rk in dp_launches]
+            per_rank = [a[name] + b[name] for a, b in zip(dp_launches, dp["tensorboard"])]
             entry = {
                 "name": name, "route": "cuda", "source": "dca_tpu_torch/csrc/fused_nll.cu",
                 "replaces": f"dca_tpu/ops/fused_loss.py:{line}",
@@ -2542,11 +3029,20 @@ def main():
                                   f"theta/pi cases of K1/K2; weights {', '.join(WEIGHT_KINDS)}",
                 "tolerance": tol, "card": card, **extra,
             }
-            if kind == "bwd":
+            if kind == "bwd" and fam == "nb":
                 entry["not_launched_because"] = (
-                    "no path of the fit differentiates a weighted loss: the weighted "
-                    "validation is evaluated without gradients, as in the JAX package, "
-                    "where only TensorBoard's gradients of a padded run launch it (not ported)")
+                    "only TensorBoard's gradient of a padded data-parallel validation "
+                    "differentiates a weighted loss, and phase 7's nb-conddisp run logs none")
+            if kind == "bwd" and fam == "zinb":
+                ms_v, plain_v, bound_v, by_v = tb_times["zinb_bwd_w"]
+                entry["main_path"] += (", then zinb-conddisp again with tensorboard=True: "
+                                       "the gradient of each rank's padded validation block, "
+                                       "once an epoch")
+                entry["tensorboard_gradient"] = {
+                    "shape": [137, 3451], "ms": ms_v, "plain_ms": plain_v,
+                    "bound_ms": bound_v, "bound_by": by_v,
+                    "grads_rel_same_params": dp["grads_rel_same_params"],
+                    "grads_rel_phase4": dp["grads_rel_phase4"]}
             kernels.append(entry)
     timings = {f"{name} {act}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms"), t[:5]), plan=t[5]._asdict())
@@ -2600,6 +3096,12 @@ def main():
           f"medians {np.median(opt_epochs['RMSprop']):.2f} against "
           f"{np.median(opt_epochs['Adam']):.2f} ms; PReLU + Adam dca() launches "
           f"{full_launches['zinb_nll_fwd']}/{full_launches['zinb_nll_bwd']}")
+    print(f"artefacts (phase 11, 2730 x 3451 zinb-conddisp, RMSprop) on {card}: a checkpoint "
+          f"{art['ckpt_bytes']} bytes, saved in {[round(t * 1e3, 2) for t in art['ckpt_s']]} ms; "
+          f"restore {art['restore_s'] * 1e3:.2f} ms; epoch "
+          f"{[round(t, 2) for t in art['epoch_ms']]} ms plain, "
+          f"{[round(t, 2) for t in art['tb_epoch_ms']]} ms with TensorBoard (profiled) + "
+          f"{[round(t, 2) for t in art['tb_log_ms']]} ms of logging")
     for tier in ("host", "resident"):
         c = stream_corpus[tier]
         print(f"streaming trainer at {CORPUS[0]} x {CORPUS[1]} ({tier}) on {card}: epochs "

@@ -5,9 +5,11 @@ defaults, paired --x/--no-x booleans), plus ``--device``: the run goes to
 the CUDA device unless ``--device cpu`` is given.  ``--devices`` trains data
 parallel over the ranks of a process group, one process per device:
 ``torchrun --nproc-per-node N -m dca_tpu_torch in.tsv out/ --devices all``
-(rank 0 writes the outputs).  Flags whose paths are not ported yet
-(--hyper, --tensorboard, --saveweights, --modelparallel above 1) are
-parsed and then refused with an error that names ROADMAP.md.
+(rank 0 writes the outputs).  ``--saveweights`` writes the best epoch's
+``weights.hdf5`` (needs h5py) and ``--tensorboard`` the event files and a
+profiler trace under ``<outputdir>/tb``.  Flags whose paths are not ported
+yet (--hyper, --modelparallel above 1) are parsed and then refused with an
+error that names ROADMAP.md.
 Every ``--type``, ``--activation`` (PReLU included) and ``--optimizer``
 (SGD, RMSprop, Adam, Adamax, Nadam, Adagrad, Adadelta) of the JAX package
 runs; the input is read and the TSVs are written through the native C++

@@ -34,6 +34,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .ops.special import lgamma as stirling_lgamma
+
 EPS = 1e-10
 THETA_CLIP = 1e6
 ZERO_THRESHOLD = 1e-8
@@ -203,3 +205,22 @@ def zinb_nll(
         else:
             result = _mean(torch.sum(result), result.new_tensor(float(result.numel())), group)
     return _nan2inf(result)
+
+
+def nb_terms(y_true, y_pred, theta, *, scale_factor: float = 1.0):
+    """The two NB NLL summands the reference's debug mode histograms to
+    TensorBoard: ``t1``, the lgamma terms, and ``t2``, the log-ratio terms.
+    The trainer's ``--debug --tensorboard`` logs them each epoch
+    (``train/loop.py::_TBLogger``).  lgamma is the Stirling series of
+    ``ops/special.py``, the one the fused kernels inline, where the JAX
+    package calls ``jax.lax.lgamma``."""
+    eps = EPS
+    y_true = _nan2zero(y_true.to(torch.float32))
+    y_pred = y_pred.to(torch.float32) * scale_factor
+    theta = torch.clamp(theta.to(torch.float32), max=THETA_CLIP)
+    t1 = (stirling_lgamma(theta + eps) + stirling_lgamma(y_true + 1.0)
+          - stirling_lgamma(y_true + theta + eps))
+    t2 = (theta + y_true) * torch.log(1.0 + y_pred / (theta + eps)) + (
+        y_true * (torch.log(theta + eps) - torch.log(y_pred + eps))
+    )
+    return t1, t2

@@ -37,6 +37,7 @@ other ranks return from them at once.
 
 from __future__ import annotations
 
+import collections
 import os
 import pickle
 from concurrent.futures import ThreadPoolExecutor
@@ -46,6 +47,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import losses
+from ..bridge import copy_tree_into, flatten_tree
 from ..config import use_device_densify
 from ..data.io import densify, scale_stats, size_factors, write_text_matrix
 from ..device import resolve_device
@@ -53,6 +55,10 @@ from ..ops.densify import device_densify_flat, flat_payload_from_csr, flat_slots
 from ..ops.fused_loss import nb_nll_fused, nb_nll_fused_w, zinb_nll_fused, zinb_nll_fused_w
 from ..parallel.multihost import is_primary
 from . import core
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def _fetch_dtype():
@@ -462,6 +468,51 @@ class Autoencoder:
     # ------------------------------------------------------------------
     # persistence
     # ------------------------------------------------------------------
+    def trees(self):
+        """(params, state): the module's tensors, the live ones, in the JAX
+        package's two trees: params ``{'trunk': {layer: {'kernel', 'bias',
+        'bn_beta', 'prelu_alpha'}}, 'branches': {branch: {layer: ...}},
+        'heads': {head: {'kernel', 'bias'} or {'theta'}}}``, state the BN
+        statistics of each trunk and branch layer (an empty dict for a layer
+        without BN).  Their "/"-joined paths are the keys of
+        ``weights.hdf5`` and of the checkpoints; joined by dots, the
+        module's state-dict names."""
+        assert self.model is not None, "call build() first"
+        m = self.model
+
+        def stack(layers, p, s):
+            for name, d in layers.items():
+                p[name] = dict(d.named_parameters(recurse=False))
+                s[name] = dict(d.named_buffers(recurse=False))
+
+        params = {"trunk": {}, "branches": {}, "heads": {}}
+        state = {"trunk": {}, "branches": {}}
+        stack(m.trunk, params["trunk"], state["trunk"])
+        for b, layers in m.branches.items():
+            stack(layers, params["branches"].setdefault(b, {}),
+                  state["branches"].setdefault(b, {}))
+        for h, head in m.heads.items():
+            params["heads"][h] = dict(head.named_parameters(recurse=False))
+        return params, state
+
+    def numpy_trees(self):
+        """``trees()`` as numpy copies on the host."""
+        return tuple(_map_tree(lambda t: t.detach().cpu().numpy(), tree)
+                     for tree in self.trees())
+
+    def _live(self):
+        """{path: tensor} of ``trees()`` under ``params/`` and ``state/``:
+        the keys of ``weights.hdf5``."""
+        params, state = self.trees()
+        return flatten_tree({"params": params, "state": state})
+
+    def load_trees(self, params, state):
+        """Copy the arrays of a (params, state) pair of trees (numpy or
+        tensors, the layout of ``trees()``) into the module's tensors, in
+        place: a CUDA graph captured before reads them at its next replay.
+        Every tensor must have its array, of its shape."""
+        copy_tree_into(self._live(), flatten_tree({"params": params, "state": state}))
+
     def save(self):
         """Pickle the network to <file_path>/model.pickle, in the JAX
         package's payload format (ae_type, constructor arguments, and the
@@ -471,21 +522,124 @@ class Autoencoder:
             return
         params = state = None
         if self.model is not None:
-            sd = {k: v.detach().cpu().numpy() for k, v in self.model.state_dict().items()}
-            params, state = {"trunk": {}, "branches": {}, "heads": {}}, \
-                {"trunk": {}, "branches": {}}
-            for key, value in sd.items():
-                # group.layer.leaf, or branches.branch.layer.leaf
-                *path, leaf = key.split(".")
-                node = state if leaf in ("moving_mean", "moving_var") else params
-                for part in path:
-                    node = node.setdefault(part, {})
-                node[leaf] = value
+            params, state = self.numpy_trees()
         payload = dict(ae_type=self.ae_type, ctor=self._ctor_config(),
                        params=params, state=state)
         os.makedirs(self.file_path, exist_ok=True)
         with open(os.path.join(self.file_path, "model.pickle"), "wb") as f:
             pickle.dump(payload, f)
+
+    def save_weights(self, filename):
+        """The flat HDF5 of the JAX package's ``save_weights``: one dataset a
+        tensor, keyed by its "/"-joined path under ``params/`` or
+        ``state/``.  Needs h5py; rank 0 alone writes."""
+        import h5py
+
+        flat = {key: t.detach().cpu().numpy() for key, t in self._live().items()}
+        if not is_primary():
+            return
+        with h5py.File(filename, "w") as f:
+            for key, leaf in flat.items():
+                f.create_dataset(key, data=leaf)
+
+    def load_weights(self, filename):
+        """Read either weights file into the built network, in place:
+
+        * the flat HDF5 of ``save_weights`` (this package's or the JAX
+          package's), or
+        * a Keras ``weights.hdf5`` written by the reference implementation
+          (``model.save_weights``), detected by the Keras root attribute
+          ``layer_names`` and mapped layer by layer (``_load_keras_hdf5``).
+
+        The tensors keep their addresses (``load_trees``)."""
+        import h5py
+
+        live = self._live()
+        with h5py.File(filename, "r") as f:
+            if "layer_names" in f.attrs:
+                self._load_keras_hdf5(f)
+                return
+            flat = {key: np.asarray(f[key]) for key in live}
+        copy_tree_into(live, flat)
+
+    def _load_keras_hdf5(self, f):
+        """Map a reference Keras ``weights.hdf5`` onto the parameters (the
+        JAX package's mapping, on numpy copies of the trees).
+
+        Layer names are shared with the reference by construction
+        (``core.build_definition``): trunk ``enc*/center/dec*``, fork
+        branches ``*_last_{mean,disp,pi}``, heads ``mean``/``dispersion``/
+        ``pi``.  Keras's unnamed BatchNormalization layers are assigned to
+        dense layers in model order (Keras lists layers topologically, and
+        each trunk BN immediately follows its Dense)."""
+        params, state = self.numpy_trees()
+
+        by_name = {}  # keras layer name -> (param dict, state dict)
+        for lname, p in params["trunk"].items():
+            by_name[lname] = (p, state["trunk"][lname])
+        for bname, branch in params.get("branches", {}).items():
+            for lname, p in branch.items():
+                by_name[lname] = (p, state["branches"][bname][lname])
+        for hname, head in self.definition.heads.items():
+            by_name[head.name] = (params["heads"][hname], None)
+
+        def _s(x):
+            return x.decode() if isinstance(x, bytes) else str(x)
+
+        layer_names = [_s(n) for n in f.attrs["layer_names"]]
+        # dense layers awaiting their following BatchNormalization, in order
+        bn_queue = collections.deque()
+        matched = set()
+        for lname in layer_names:
+            weight_names = [_s(w) for w in f[lname].attrs.get("weight_names", [])]
+            if not weight_names:
+                continue
+            arrays = {w: np.asarray(f[lname][w]) for w in weight_names}
+            if any(w.rsplit("/", 1)[-1].startswith(("beta", "moving_mean"))
+                   for w in weight_names):
+                assert bn_queue, (
+                    f"BatchNormalization layer {lname!r} has no preceding "
+                    f"dense layer to attach to")
+                p, s = bn_queue.popleft()
+                for w, arr in arrays.items():
+                    leaf = w.rsplit("/", 1)[-1].split(":")[0]
+                    if leaf == "beta":
+                        p["bn_beta"] = arr.astype(np.float32)
+                    elif leaf == "moving_mean":
+                        s["moving_mean"] = arr.astype(np.float32)
+                    elif leaf == "moving_variance":
+                        s["moving_var"] = arr.astype(np.float32)
+                    else:
+                        raise ValueError(
+                            f"unexpected BatchNorm weight {w!r} in {lname!r} "
+                            f"(reference uses center=True, scale=False)")
+                continue
+            if lname not in by_name:
+                raise ValueError(
+                    f"Keras layer {lname!r} has weights but no counterpart "
+                    f"in this {self.ae_type!r} network — wrong ae_type or "
+                    f"architecture for this weights file?")
+            p, s = by_name[lname]
+            matched.add(lname)
+            for w, arr in arrays.items():
+                leaf = w.rsplit("/", 1)[-1].split(":")[0]
+                if leaf not in p:
+                    raise ValueError(f"unexpected weight {w!r} in layer {lname!r}")
+                if p[leaf].shape != arr.shape:
+                    raise ValueError(
+                        f"shape mismatch for {lname}/{leaf}: file "
+                        f"{arr.shape} vs model {p[leaf].shape}")
+                p[leaf] = arr.astype(np.float32)
+            if s is not None and "moving_mean" in s:
+                bn_queue.append((p, s))
+
+        missing = {n for n, (p, _) in by_name.items()
+                   if "kernel" in p or "theta" in p} - matched
+        if missing:
+            raise ValueError(
+                f"weights file is missing layers {sorted(missing)} for "
+                f"ae_type {self.ae_type!r}")
+        self.load_trees(params, state)
 
     def _ctor_config(self):
         return dict(
@@ -891,3 +1045,66 @@ def get_ae_type(name):
     if name not in AE_types:
         raise ValueError(f"ae_type {name!r} is not one of {sorted(AE_types)}")
     return AE_types[name]
+
+
+class _KerasStubUnpickler(pickle.Unpickler):
+    """Unpickle a reference ``model.pickle`` without keras or TensorFlow.
+
+    The reference pickles its (pre-build) Autoencoder object whole; its
+    class lives in ``dca.network`` and drags keras symbols along.  Classes
+    from those modules are replaced with attribute-bag stubs, so the plain
+    constructor attributes (input_size, hidden_size, ...) survive the
+    load."""
+
+    STUB_PREFIXES = ("dca", "keras", "tensorflow", "tf_keras")
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in self.STUB_PREFIXES:
+            stub = type(name, (), {"__module__": module})
+            stub._keras_class = name
+            return stub
+        return super().find_class(module, name)
+
+
+def _net_from_reference_pickle(obj, device=None):
+    """Build a network from an unpickled reference Autoencoder stub."""
+    cls_name = getattr(type(obj), "_keras_class", type(obj).__name__)
+    by_class = {cls.__name__: key for key, cls in AE_types.items()}
+    if cls_name not in by_class:
+        raise ValueError(f"model.pickle holds unknown reference class {cls_name!r}")
+    d = obj.__dict__
+    cfg = {
+        k: d[k]
+        for k in (
+            "input_size", "output_size", "hidden_size", "l2_coef", "l1_coef",
+            "l2_enc_coef", "l1_enc_coef", "ridge", "hidden_dropout",
+            "input_dropout", "batchnorm", "activation", "init", "file_path",
+            "debug",
+        )
+        if k in d
+    }
+    if "sharedpi" in d:
+        cfg["sharedpi"] = d["sharedpi"]
+    return AE_types[by_class[cls_name]](device=device, **cfg).build()
+
+
+def load_model(path, device=None):
+    """Rebuild a network from a ``model.pickle``: this package's or the JAX
+    package's payload (``save()``: ae_type, constructor arguments and the
+    numpy trees, loaded into the network when present), or one written by
+    the reference implementation (its pre-build Keras object, read without
+    keras through ``_KerasStubUnpickler``; ``load_weights`` of its
+    ``weights.hdf5`` then gives the trained state).  The network is built
+    on the CUDA device unless ``device="cpu"``."""
+    with open(path, "rb") as f:
+        try:
+            payload = pickle.load(f)
+        except Exception:
+            f.seek(0)
+            payload = _KerasStubUnpickler(f).load()
+    if not isinstance(payload, dict):
+        return _net_from_reference_pickle(payload, device)
+    net = AE_types[payload["ae_type"]](device=device, **payload["ctor"]).build()
+    if payload.get("params") is not None:
+        net.load_trees(payload["params"], payload["state"])
+    return net

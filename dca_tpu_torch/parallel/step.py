@@ -111,6 +111,14 @@ class StepBuffers:
             0, self.step_i).view(-1)
 
 
+def all_reduce_grads(grads, params, group):
+    """The gradients summed over the ranks of ``group``, as one flat
+    buffer: each rank's are its share of the batch's."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    return [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in params]), params)]
+
+
 def make_sharded_train_step(network, opt, group=None):
     """One training step: ``step(X, T, SF, bufs, opt_state, generator,
     trailing=False)`` fits ``network`` on the next batch of rows of the
@@ -124,7 +132,6 @@ def make_sharded_train_step(network, opt, group=None):
     its block of the batch and the loss it writes is its share; without
     one the step is the single-device step."""
     params = list(network.model.parameters())
-    sizes = [p.numel() for p in params]
 
     def step(X, T, SF, bufs, opt_state, generator, trailing=False):
         idx = bufs.rows(trailing)
@@ -136,9 +143,7 @@ def make_sharded_train_step(network, opt, group=None):
                                           shard=shard)
         grads = torch.autograd.grad(loss, params)
         if group is not None:
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=group)
-            grads = [g.view_as(p) for g, p in zip(flat.split(sizes), params)]
+            grads = all_reduce_grads(grads, params, group)
         opt.update(grads, opt_state, params, bufs.lr)
         network.model.load_bn_state(new_state)
         loss = loss.detach().view(1)

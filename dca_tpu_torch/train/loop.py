@@ -56,16 +56,33 @@ the matrix stays on the host and shuffled parts of it are staged, by one
 of the JAX package's tiers, into two part buffers on the device while the
 captured steps run on the other; its epochs print ``[streaming]``.
 
-The whole-fit-as-one-program path (``dca_tpu/train/compiled.py``),
-checkpoint/resume, TensorBoard, saved weights, gene-dim model parallelism
-and streaming under a process group wait for later slices (ROADMAP.md,
-Queue 1): ``train`` takes the JAX package's keywords for them and raises
+The fit's artefacts, on every trainer, as the JAX package writes them
+under ``output_dir``: ``checkpoint_every=N`` saves the whole training
+state every N epochs (``checkpoints/``, ``train/checkpoint.py``: the
+parameters, BN statistics, optimizer state, learning rate, callback
+counters and the dropout generator) and ``resume=True`` restores the
+latest in place before the steps are captured, replaying the permutation
+stream, so the resumed epochs are the uninterrupted fit's; a checkpoint of
+either package resumes in the other.  ``save_weights`` writes
+``weights.hdf5`` at every improved monitor (``network.save_weights``).
+``tensorboard`` writes ``tb/events.out.tfevents.*`` (``_TBLogger``:
+scalars, weight and gradient histograms, the gradient taken on the
+validation split in eval mode through the loss kernels) and a
+``torch.profiler`` trace of the fit's set-up and first epochs beside it
+(``_fit_trace``).  Under a process group only
+the primary rank writes; every rank takes part in the collectives.
+
+The whole-fit-as-one-program path (``dca_tpu/train/compiled.py``), which
+the JAX package takes only on a TPU, gene-dim model parallelism and
+streaming under a process group wait for later slices (ROADMAP.md, Queue
+1): ``train`` takes the JAX package's keywords for them and raises
 ``NotImplementedError`` where the JAX package would run one of those
 paths, before anything is densified or copied to the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -81,16 +98,20 @@ import torch
 import torch.distributed as dist
 
 from .. import native
+from ..bridge import copy_tree_into, flatten_tree
 from ..config import use_device_densify
 from ..data.io import densify, scale_stats, size_factors
 from ..data.loader import Flat8Chunk, FlatChunk, SparseChunk, StreamingData, canonicalize_csr
 from ..device import resolve_device
+from ..losses import nb_terms
 from ..ops.densify import device_densify, device_densify_flat, device_densify_flat8, upload
 from ..ops.resident import PART_BYTES_PER_SLOT, ResidentCSR, derive_input
 from ..parallel.mesh import resolve_mesh
 from ..parallel.multihost import initialize, is_primary
-from ..parallel.step import (StepBuffers, batch_shard, make_sharded_train_step,
-                             place_train_state, shard_train_data)
+from ..parallel.step import (StepBuffers, all_reduce_grads, batch_shard,
+                             make_sharded_train_step, place_train_state, shard_train_data)
+from ..tbevents import EventWriter
+from .checkpoint import TrainCheckpoint, optimizer_tree
 from .graphs import EagerEpoch, GraphEpoch, GraphSteps
 from .optim import get_optimizer, state_tensors
 
@@ -105,40 +126,188 @@ class History:
     ``epoch_s``: each epoch's wall time, the steps, the validation and the
     read-back of its losses; ``capture_s``: the wall time of the CUDA
     graphs' warm-up and capture before the first epoch, None for an eager
-    fit."""
+    fit; ``tb_s``: each epoch's TensorBoard logging (gradient, read-back,
+    histograms and write; the streaming trainer takes its gradient inside
+    the epoch); ``checkpoint_s`` and ``weights_s``: each checkpoint's and
+    each ``weights.hdf5``'s save (read-back and file); ``restore_s``: a
+    resume's restore (file read and copies in place), None without one."""
 
     def __init__(self):
         self.history = {}
         self.epoch_s = []
         self.capture_s = None
+        self.restore_s = None
+        self.tb_s = []
+        self.checkpoint_s = []
+        self.weights_s = []
 
     def append(self, key, value):
         self.history.setdefault(key, []).append(float(value))
 
 
+class _TBLogger:
+    """Per-epoch TensorBoard logging, the counterpart of the reference's
+    Keras ``TensorBoard(histogram_freq=1, write_grads=True)``, written with
+    the TensorFlow-free writer of ``tbevents.py`` under the JAX package's
+    tags: scalars ``loss``, ``val_loss`` and ``lr``, histograms
+    ``weights/<path>`` and ``grads/<path>`` (the "/"-joined pytree paths of
+    the parameters), and under ``debug`` ``debug/t1`` and ``debug/t2``, the
+    NB summands of the reference's debug summaries.  The primary rank
+    alone holds one."""
+
+    def __init__(self, logdir):
+        self.writer = EventWriter(logdir)
+
+    def epoch(self, step, scalars, params, grads):
+        """``params``/``grads``: {path: tensor}."""
+        for k, v in scalars.items():
+            if v is not None:
+                self.writer.scalar(k, float(v), step)
+        for prefix, tree in (("weights/", params), ("grads/", grads)):
+            for path, t in tree.items():
+                self.writer.histogram(prefix + path, t.detach().cpu().numpy(), step)
+        self.writer.flush()
+
+    def loss_terms(self, step, t1, t2):
+        self.writer.histogram("debug/t1", t1.cpu().numpy(), step)
+        self.writer.histogram("debug/t2", t2.cpu().numpy(), step)
+        self.writer.flush()
+
+    def close(self):
+        self.writer.close()
+
+
+def _tb_grads(network, x, sf, t, w=None, shard=None):
+    """{path: gradient} of the eval-mode loss on (x, sf, t), as the JAX
+    package's ``jax.grad`` of ``loss_fn(..., training=False)``: no dropout,
+    BN on its moving statistics, nothing accumulated into ``.grad``, no BN
+    statistics moved and no draw from the fit's generator, so the fit
+    trains as it would without it.  On a CUDA device the NB/ZINB loss's
+    backward is K2, K2w with ``w``.  Under a ``shard`` each rank's
+    gradient is its share, summed over the ranks."""
+    named = list(network.model.named_parameters())
+    params = [p for _, p in named]
+    loss, _ = network.loss_fn(x, sf, t, False, sample_weights=w, shard=shard)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    if shard is not None:
+        grads = all_reduce_grads(grads, params, shard.group)
+    return {name.replace(".", "/"): g for (name, _), g in zip(named, grads)}
+
+
+@torch.no_grad()
+def _loss_terms(network, x, sf, t):
+    """The NB summands (t1, t2) of the eval forward on (x, sf, t), or None
+    for a likelihood or a network without a dispersion."""
+    if network.definition.likelihood not in ("nb", "zinb"):
+        return None
+    out, _ = network.apply(x, sf)
+    if out["disp"] is None:
+        return None
+    return nb_terms(t, out["output"], out["disp"])
+
+
+# epochs of a TensorBoard fit that its profiler trace records
+TRACE_EPOCHS = 2
+
+
+def _fit_trace(logdir, device):
+    """The counterpart of the JAX package's ``jax.profiler`` trace of a
+    TensorBoard fit (``_FitTrace``), or a null context without
+    ``logdir``."""
+    return contextlib.nullcontext() if logdir is None else _FitTrace(logdir, device)
+
+
+class _FitTrace:
+    """A ``torch.profiler`` trace, the card's kernels included, of the
+    fit's set-up (the graphs' capture among it) and its first
+    ``TRACE_EPOCHS`` epochs (the trainers call ``step()`` after each
+    epoch), written into ``logdir`` as a ``*.pt.trace.json`` when they
+    end.  Not the whole fit: on the card the trace grows by ~25 MB and
+    slows a replayed epoch by 25-90% for every epoch it records, and an
+    eager data-parallel one eightfold (PERF.md)."""
+
+    def __init__(self, logdir, device):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.logdir = logdir
+        self.epochs = 0
+        # one recording: acc_events keeps it from warning that a second
+        # would drop the first's events
+        self.prof = profile(activities=acts, acc_events=True)
+
+    def __enter__(self):
+        self.prof.start()
+        return self
+
+    def step(self):
+        self.epochs += 1
+        if self.epochs == TRACE_EPOCHS:
+            self._finish()
+
+    def _finish(self):
+        if self.prof is not None:
+            from torch.profiler import tensorboard_trace_handler
+
+            self.prof.stop()
+            tensorboard_trace_handler(self.logdir)(self.prof)
+            self.prof = None
+
+    def __exit__(self, *exc):
+        self._finish()
+
+
 class _FitCallbacks:
-    """Keras-parity per-epoch callbacks: EarlyStopping (patience) and
-    ReduceLROnPlateau (factor=0.1, min_delta=1e-4, min_lr=0)."""
+    """Keras-parity per-epoch callbacks: EarlyStopping (patience),
+    ReduceLROnPlateau (factor=0.1, min_delta=1e-4, min_lr=0) and the
+    best-monitor ``weights.hdf5`` of ``save_weights``; with ``restore`` and
+    ``state_dict`` for the checkpoints."""
 
     FACTOR, MIN_DELTA, MIN_LR = 0.1, 1e-4, 0.0
 
-    def __init__(self, lr, reduce_lr, early_stop, verbose, monitor_name):
+    def __init__(self, lr, reduce_lr, early_stop, save_weights, output_dir, network,
+                 verbose, monitor_name, hist):
         self.lr = lr
         self.reduce_lr = reduce_lr
         self.early_stop = early_stop
+        self.save_weights = save_weights
+        self.output_dir = output_dir
+        self.network = network
         self.verbose = verbose
         self.monitor_name = monitor_name
+        self.hist = hist
         self.best_monitor = math.inf
         self.es_wait = 0
         self.rlr_best = math.inf  # ReduceLROnPlateau tracks its own best
         self.rlr_wait = 0
 
+    def restore(self, meta):
+        self.lr = meta["lr"]
+        cb = meta.get("callback_state", {})
+        self.best_monitor = cb.get("best_monitor", self.best_monitor)
+        self.es_wait = cb.get("es_wait", 0)
+        self.rlr_best = cb.get("rlr_best", self.rlr_best)
+        self.rlr_wait = cb.get("rlr_wait", 0)
+
+    def state_dict(self):
+        return dict(best_monitor=self.best_monitor, es_wait=self.es_wait,
+                    rlr_best=self.rlr_best, rlr_wait=self.rlr_wait)
+
     def end_epoch(self, epoch, monitor) -> bool:
-        """Apply all callbacks for one finished epoch; True => stop."""
+        """Apply all callbacks for one finished epoch; True => stop.  An
+        improved monitor writes ``weights.hdf5`` from the live parameters,
+        after the epoch's read-back."""
         stop = False
         if monitor < self.best_monitor:
             self.best_monitor = monitor
             self.es_wait = 0
+            if self.save_weights and self.output_dir is not None:
+                t0 = time.perf_counter()
+                self.network.save_weights(os.path.join(self.output_dir, "weights.hdf5"))
+                self.hist.weights_s.append(time.perf_counter() - t0)
         else:
             self.es_wait += 1
             if self.early_stop and self.es_wait >= self.early_stop:
@@ -160,6 +329,78 @@ class _FitCallbacks:
                     self.lr = new_lr
                     self.rlr_wait = 0
         return stop
+
+
+class _Checkpoints:
+    """The fit's checkpoints (``checkpoint.TrainCheckpoint`` under
+    ``<output_dir>/checkpoints``): the live training state as the JAX
+    package's trees, restored in place (before any CUDA graph is captured
+    on it) and saved with the JAX package's rule."""
+
+    def __init__(self, output_dir, every, network, opt_state, generator, cbs, seed, hist):
+        self.ckpt = TrainCheckpoint(os.path.join(output_dir, "checkpoints"))
+        self.every = every
+        self.network = network
+        self.opt_state = opt_state
+        self.generator = generator
+        self.cbs = cbs
+        self.seed = seed
+        self.hist = hist
+
+    def _tree(self):
+        params, state = self.network.trees()
+        names = [n for n, _ in self.network.model.named_parameters()]
+        return {"params": params, "state": state,
+                "opt_state": optimizer_tree(self.opt_state, names)}
+
+    def restore(self):
+        """Restore the latest checkpoint in place: the parameters, the BN
+        statistics, every optimizer state tensor, the dropout generator
+        (where the checkpoint has it), the learning rate and the callback
+        counters.  Returns the epoch to start from (0 without one)."""
+        live = self._tree()
+        tree, meta = self.ckpt.restore({**live, "rng": {"generator": self.generator.get_state()}})
+        if tree is None:
+            return 0
+        copy_tree_into(flatten_tree(live), flatten_tree({k: tree.get(k, {}) for k in live}))
+        if "rng" in tree:
+            self.generator.set_state(tree["rng"]["generator"])
+        self.cbs.restore(meta)
+        return int(meta["step"]) + 1
+
+    def after_epoch(self, epoch, epochs, stop):
+        """Save after the callbacks, every ``every`` epochs, at a stop and
+        at the last epoch."""
+        if self.every and ((epoch + 1) % self.every == 0 or stop or epoch == epochs - 1):
+            t0 = time.perf_counter()
+            tree = self._tree()
+            self.ckpt.save(epoch, tree["params"], tree["state"], tree["opt_state"],
+                           lr=self.cbs.lr, seed=self.seed, callback_state=self.cbs.state_dict(),
+                           extra={"rng/generator": self.generator.get_state()})
+            self.hist.checkpoint_s.append(time.perf_counter() - t0)
+
+
+def _start_fit(output_dir, checkpoint_every, resume, network, opt_state, generator, cbs,
+               seed, hist, rng_np, n_train, verbose, tag=""):
+    """The fit's checkpoints (None without ``output_dir``, or when neither
+    ``checkpoint_every`` nor ``resume`` is given) and the epoch to start
+    from: with ``resume``, the epoch after the latest checkpoint, whose
+    state is restored in place, and ``rng_np`` replays the permutations of
+    the epochs before it, so the resumed epochs see the same row orders."""
+    if not (checkpoint_every or resume) or output_dir is None:
+        return None, 0
+    ckpts = _Checkpoints(output_dir, checkpoint_every, network, opt_state, generator, cbs,
+                         seed, hist)
+    start = 0
+    if resume:
+        t0 = time.perf_counter()
+        start = ckpts.restore()
+        hist.restore_s = time.perf_counter() - t0
+    for _ in range(start):
+        rng_np.permutation(n_train)
+    if start and verbose:
+        print(f"dca_tpu_torch: resumed from epoch {start}{tag}")
+    return ckpts, start
 
 
 def _pad_rows(arr, n_pad):
@@ -207,7 +448,11 @@ def train(
     from CUDA graphs here (the JAX package's "auto" takes its whole-fit
     program only on a TPU); True raises, unless the network is in
     ``debug`` mode, where the JAX package runs its eager loop too.
-    ``checkpoint_every > 0`` and ``resume`` raise.  The size gate of the
+    ``checkpoint_every``/``resume`` set ``compiled`` to False, as in the
+    JAX package; with ``output_dir`` they save and restore
+    ``<output_dir>/checkpoints``, without it they do nothing.
+    ``save_weights`` and ``tensorboard`` write ``weights.hdf5`` and ``tb/``
+    under ``output_dir`` (see the module's docstring).  The size gate of the
     JAX package: an input of more than ``max_device_cells`` cells, or
     without it one whose input and target, n_cells * n_genes * 4 * 2
     bytes, exceed DCA_TPU_DEVICE_BYTES (default 6e9), takes the streaming
@@ -224,12 +469,8 @@ def train(
     CUDA graphs captured at the start of the fit (``train/graphs.py``);
     ``_graphs=False``, for the tests, calls them from Python there too."""
     assert network.model is not None, "network.build() must be called before train()"
-    if save_weights:
-        raise _not_ported("save_weights (weights.hdf5)")
-    if tensorboard:
-        raise _not_ported("TensorBoard logging")
     if checkpoint_every or resume:
-        raise _not_ported("checkpoint/resume (checkpoint_every, resume)")
+        compiled = False  # as in the JAX package: the Python-epoch loop
     if compiled != "auto" and compiled and not network.definition.debug:
         raise _not_ported("the whole-fit compiled program (train/compiled.py)")
     n_cells, n_genes = adata.n_obs, adata.n_vars
@@ -252,17 +493,46 @@ def train(
     lr = float(learning_rate) if learning_rate is not None else opt.default_lr
     device = network.device
     verbose = verbose and is_primary()
-    if stream:
-        if group is not None:
-            raise _not_ported("the streaming trainer under a process group (the JAX "
-                              "package's multi-process staging)")
-        return _train_streaming(
-            adata, network, opt, lr, epochs=epochs, reduce_lr=reduce_lr,
-            early_stop=early_stop, batch_size=batch_size,
-            validation_split=validation_split, use_raw_as_output=use_raw_as_output,
-            output_subset=output_subset, seed=seed, verbose=verbose,
-            max_device_cells=max_device_cells or 131072, graphs=_graphs)
+    if stream and group is not None:
+        raise _not_ported("the streaming trainer under a process group (the JAX "
+                          "package's multi-process staging)")
+    # TensorBoard: every rank computes the gradients (their sum is a
+    # collective), the primary rank alone writes
+    tb_dir = os.path.join(output_dir, "tb") if tensorboard and output_dir is not None else None
+    tb = _TBLogger(tb_dir) if tb_dir is not None and is_primary() else None
+    artefacts = dict(output_dir=output_dir, save_weights=save_weights,
+                     checkpoint_every=checkpoint_every, resume=resume, tb_log=tb)
+    try:
+        with _fit_trace(tb_dir if tb is not None else None, device) as trace:
+            if stream:
+                return _train_streaming(
+                    adata, network, opt, lr, epochs=epochs, reduce_lr=reduce_lr,
+                    early_stop=early_stop, batch_size=batch_size,
+                    validation_split=validation_split, use_raw_as_output=use_raw_as_output,
+                    output_subset=output_subset, seed=seed, verbose=verbose,
+                    max_device_cells=max_device_cells or 131072, graphs=_graphs,
+                    trace=trace, **artefacts)
+            return _train_in_memory(
+                adata, network, opt, lr, group, epochs=epochs, reduce_lr=reduce_lr,
+                early_stop=early_stop, batch_size=batch_size,
+                validation_split=validation_split, use_raw_as_output=use_raw_as_output,
+                output_subset=output_subset, seed=seed, verbose=verbose, graphs=_graphs,
+                tb=tb_dir is not None, trace=trace, **artefacts)
+    finally:
+        if tb is not None:
+            tb.close()
 
+
+def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early_stop,
+                     batch_size, validation_split, use_raw_as_output, output_subset, seed,
+                     verbose, graphs, output_dir, save_weights, checkpoint_every, resume, tb,
+                     tb_log, trace=None):
+    """The fit of a split that the device holds (the JAX package's
+    ``_train_inner``): see the module's docstring.  ``tb``: log to
+    TensorBoard (``tb_log``, the primary rank's logger, or None on the
+    other ranks); ``trace``: the fit's profiler (``_fit_trace``), stepped
+    after each epoch."""
+    device = network.device
     # ----- host arrays -----
     X = densify(adata.X)
     mean, std = scale_stats(adata)
@@ -316,11 +586,26 @@ def train(
     def step(trailing=False):
         train_step(X_tr, T_tr, sf_tr, bufs, opt_state, generator, trailing)
 
+    def tb_grads():
+        """The gradients on the validation split (its padded block and
+        weights under a process group), or without one on the train split
+        (this rank's block of it)."""
+        if has_val:
+            return _tb_grads(network, X_val, sf_val, T_val, w_val, val_shard)
+        if group is None:
+            return _tb_grads(network, X_tr, sf_tr, T_tr)
+        shard = batch_shard(group, n_train)
+        rows = slice(shard.lo, shard.hi)
+        return _tb_grads(network, X_tr[rows], sf_tr[rows], T_tr[rows], shard=shard)
+
     rng_np = np.random.RandomState(seed)
     hist = History()
-    cbs = _FitCallbacks(lr, reduce_lr, early_stop, verbose,
-                        "val_loss" if has_val else "loss")
-    if (_graphs and epochs > 0 and device.type == "cuda" and group is None
+    cbs = _FitCallbacks(lr, reduce_lr, early_stop, save_weights, output_dir, network, verbose,
+                        "val_loss" if has_val else "loss", hist)
+    # a resumed state is in place before the graphs capture the steps on it
+    ckpts, start_epoch = _start_fit(output_dir, checkpoint_every, resume, network, opt_state,
+                                    generator, cbs, seed, hist, rng_np, n_train, verbose)
+    if (graphs and epochs > start_epoch and device.type == "cuda" and group is None
             and not network.definition.debug):
         written = params + list(network.model.buffers()) + state_tensors(opt_state)
         run_epoch = GraphEpoch(step, bufs, rem, written, generator)
@@ -328,7 +613,7 @@ def train(
     else:
         run_epoch = EagerEpoch(step, bufs, rem)
 
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         bufs.lr.fill_(cbs.lr)
         run_epoch(rng_np.permutation(n_train))
@@ -347,6 +632,7 @@ def train(
         train_loss = (sums[0] * bs + sums[1] * rem) / max(n_train, 1)
         hist.append("loss", train_loss)
         hist.append("lr", cbs.lr)
+        val_loss = None
         if has_val:
             val_loss = sums[2]
             hist.append("val_loss", val_loss)
@@ -360,9 +646,37 @@ def train(
                 msg += f" - val_loss: {val_loss:.4f}"
             print(msg + f" - lr: {cbs.lr:.2e}")
 
-        if cbs.end_epoch(epoch, monitor):
+        if tb:
+            t_tb = time.perf_counter()
+            grads = tb_grads()
+            terms = None
+            if network.definition.debug and has_val:
+                terms = _loss_terms(network, X_val, sf_val, T_val)
+                if terms is not None and group is not None:
+                    terms = [_gather_rows(t, group, n_val) for t in terms]
+            if tb_log is not None:
+                tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr, "val_loss": val_loss},
+                             flatten_tree(network.trees()[0]), grads)
+                if terms is not None:
+                    tb_log.loss_terms(epoch, *terms)
+            hist.tb_s.append(time.perf_counter() - t_tb)
+
+        stop = cbs.end_epoch(epoch, monitor)
+        if ckpts is not None:
+            ckpts.after_epoch(epoch, epochs, stop)
+        if trace is not None:
+            trace.step()
+        if stop:
             break
     return hist
+
+
+def _gather_rows(t, group, n):
+    """The first ``n`` rows of the ranks' equal blocks of ``t``, in rank
+    order."""
+    blocks = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(blocks, t.contiguous(), group=group)
+    return torch.cat(blocks)[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +827,8 @@ def _stream_tasks(tr, va, perm, bs):
 
 def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, batch_size,
                      validation_split, use_raw_as_output, output_subset, seed, verbose,
-                     max_device_cells, graphs=True):
+                     max_device_cells, graphs=True, output_dir=None, save_weights=False,
+                     checkpoint_every=0, resume=False, tb_log=None, trace=None):
     """The fit for inputs larger than the device (the JAX package's
     ``_train_streaming``, single device).  The count matrix stays on the
     host, sparse as it came; each epoch, shuffled parts of ``chunk`` cells
@@ -555,7 +870,13 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     A prefetch thread stages DCA_TPU_PREFETCH parts ahead (default 1; 0
     stages on the main thread), on a side stream on a CUDA device; the
     resident tier stages on the main thread, at most
-    DCA_TPU_RESIDENT_AHEAD parts (default 1) ahead of the device."""
+    DCA_TPU_RESIDENT_AHEAD parts (default 1) ahead of the device.
+
+    Checkpoints, ``weights.hdf5`` and TensorBoard as in the in-memory fit;
+    the TensorBoard gradients are taken on the first validation chunk, or
+    without a split on the last staged train part, as in the JAX package,
+    while the part is in its buffer: after its last step or its loss and
+    before the buffer is handed back to the staging."""
     device = network.device
     cuda = device.type == "cuda"
     X = adata.X
@@ -644,7 +965,13 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                                     slots[key[0]].sf, bufs, opt_state, generator, key[1])
              for key in sorted(kinds)}
     hist = History()
-    if graphs and epochs > 0 and cuda and not network.definition.debug:
+    rng_np = np.random.RandomState(seed)
+    cbs = _FitCallbacks(lr, reduce_lr, early_stop, save_weights, output_dir, network, verbose,
+                        "val_loss" if has_val else "loss", hist)
+    ckpts, start_epoch = _start_fit(output_dir, checkpoint_every, resume, network, opt_state,
+                                    generator, cbs, seed, hist, rng_np, n_train, verbose,
+                                    " [streaming]")
+    if graphs and epochs > start_epoch and cuda and not network.definition.debug:
         written = params + list(network.model.buffers()) + state_tensors(opt_state)
         runner = GraphSteps(steps, written + [bufs.step_i, bufs.losses], generator, device)
         hist.capture_s = runner.capture_s
@@ -793,10 +1120,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             tl.rec(ppi, pkind, "wait", t0, time.perf_counter())
         return slots[ppi % 2]
 
-    rng_np = np.random.RandomState(seed)
-    cbs = _FitCallbacks(lr, reduce_lr, early_stop, verbose, "val_loss" if has_val else "loss")
     try:
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             t_ep = time.perf_counter()
             perm = rng_np.permutation(n_train)
             bufs.lr.fill_(cbs.lr)
@@ -805,6 +1130,11 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             if tl is not None:
                 tl.epoch = epoch
             val_losses, val_rows = [], []
+            grads = None
+            # the part whose rows the TensorBoard gradients are taken on:
+            # the first validation chunk, or the last train part
+            n_parts = sum(kind != "val" for kind, _, _ in tasks)
+            grad_part = (n_parts if has_val else n_parts - 1) if tb_log is not None else -1
             for pi, ((kind, _, idx), slot) in enumerate(zip(tasks, staged(tasks))):
                 t0 = time.perf_counter()
                 if cuda:
@@ -820,6 +1150,9 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                         loss, _ = network.loss_fn(slot.x[:k], slot.sf[:k], slot.t[:k], False)
                     val_losses.append(loss.detach().reshape(1))
                     val_rows.append(k)
+                if pi == grad_part:
+                    k = len(idx)
+                    grads = _tb_grads(network, slot.x[:k], slot.sf[:k], slot.t[:k])
                 if tl is not None:
                     tl.device_span(pi, kind, "device", t0, start)
                 if cuda:
@@ -856,7 +1189,18 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 if has_val:
                     msg += f" - val_loss: {val_loss:.4f}"
                 print(msg + f" - lr: {cbs.lr:.2e} [streaming]")
-            if cbs.end_epoch(epoch, monitor):
+            if tb_log is not None:
+                t_tb = time.perf_counter()
+                tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr,
+                                     "val_loss": val_loss if has_val else None},
+                             flatten_tree(network.trees()[0]), grads or {})
+                hist.tb_s.append(time.perf_counter() - t_tb)
+            stop = cbs.end_epoch(epoch, monitor)
+            if ckpts is not None:
+                ckpts.after_epoch(epoch, epochs, stop)
+            if trace is not None:
+                trace.step()
+            if stop:
                 break
     finally:
         closing.set()
@@ -876,10 +1220,8 @@ def train_with_args(args):
     from ..data import io as dio
     from ..models.network import get_ae_type
 
-    for flag, what in (("hyper", "--hyper"), ("tensorboard", "--tensorboard"),
-                       ("saveweights", "--saveweights")):
-        if getattr(args, flag):
-            raise _not_ported(what)
+    if args.hyper:
+        raise _not_ported("--hyper")
     ae_cls = get_ae_type(args.type)
     devices = args.devices
     if devices is not None:
@@ -957,6 +1299,8 @@ def train_with_args(args):
         output_subset=genelist,
         optimizer=args.optimizer,
         clip_grad=args.gradclip,
+        save_weights=args.saveweights,
+        tensorboard=args.tensorboard,
         threads=args.threads,
         devices=devices,
         model_parallel=args.modelparallel,

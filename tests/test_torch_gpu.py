@@ -11,8 +11,12 @@ step replayed from CUDA graphs (``train/graphs.py``) against the eager
 loop on the card (``_graphs=False``), for every optimizer and for PReLU,
 its launch counts, and a capture that fails raising; the forward's outputs
 fetched through a page-locked ring the same bits as pageable copies,
-block by block, with nothing page-locked beyond the ring; and PReLU
-layers kept off K4.
+block by block, with nothing page-locked beyond the ring; PReLU
+layers kept off K4; and the fit's artefacts: a resumed graph fit the
+uninterrupted fit's bits at dropout 0.1, in memory and streamed, a
+TensorBoard fit the plain fit's, the TensorBoard gradient's K2 and K2w
+against their plain versions, and ``load_weights`` reaching a graph
+captured before it (with h5py).
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -31,8 +35,8 @@ import torch
 
 from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, OPTIONS, STEP_COUNTED, _grad_check,
                         _loss_inputs, _on, _small_counts, _steps, _ulps, _want_launches,
-                        _warmups, _weights, check_dense_case, check_weighted_case, dense_inputs,
-                        options_fit)
+                        _warmups, _weights, check_dense_case, check_k2_call,
+                        check_weighted_case, dense_inputs, options_fit, recording_k2)
 from dca_tpu_torch.data import io
 from dca_tpu_torch.data.adata import AnnData
 from dca_tpu_torch.models import network
@@ -904,3 +908,115 @@ def test_part_buffers_not_overwritten_while_read_on_card(cuda, monkeypatch, stre
 
         monkeypatch.setattr(graphs_mod.GraphSteps, "replay", slow)
     assert _stream_fit(cuda, stream_state).history == want
+
+
+# ---------------------------------------------------------------------------
+# the fit's artefacts: checkpoints, TensorBoard, loaded weights
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["in_memory", "streaming"])
+def test_resumed_graph_fit_is_the_uninterrupted_fit_on_card(cuda, tmp_path, where):
+    """At dropout 0.1, through the CUDA graphs: 2 epochs with checkpoints,
+    then resume=True to 4, give the uninterrupted fit's epochs 3-4 and final
+    parameters bit for bit: the dropout generator's state, read after
+    replays and set before the capture, carries the masks across."""
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(400, 300, 5))))
+    kw = dict(verbose=False, max_device_cells=128 if where == "streaming" else None)
+    state = None
+    nets, hists = [], []
+    for epochs, resume, out in ((4, False, None), (2, False, "run"), (4, True, "run")):
+        net = get_ae_type("zinb-conddisp")(input_size=300, hidden_size=(64, 32, 64),
+                                           hidden_dropout=0.1, device=cuda).build()
+        if state is None:
+            state = {k: v.clone() for k, v in net.model.state_dict().items()}
+        net.model.load_state_dict(state)
+        extra = {} if out is None else dict(output_dir=str(tmp_path / out), checkpoint_every=1,
+                                            resume=resume)
+        hist = train(adata, net, epochs=epochs, **kw, **extra)
+        assert hist.capture_s is not None
+        nets.append(net)
+        hists.append(hist)
+    assert hists[2].restore_s is not None
+    for key in ("loss", "val_loss", "lr"):
+        assert hists[2].history[key] == hists[0].history[key][2:], key
+    for k, v in nets[0].model.state_dict().items():
+        assert torch.equal(nets[2].model.state_dict()[k], v), k
+
+
+@pytest.mark.gpu
+def test_tb_graph_fit_same_bits_as_plain_fit_on_card(cuda, tmp_path):
+    """tensorboard=True trains as the fit without it through the graphs, at
+    dropout 0.1; its gradients add one K1 and one K2 an epoch, eagerly."""
+    epochs = 3
+    plain, plain_launches, state = _fit(cuda, "zinb-conddisp", True, epochs=epochs,
+                                        dropout=0.1)
+    tb, tb_launches, _ = _fit(cuda, "zinb-conddisp", True, state, epochs=epochs, dropout=0.1,
+                              output_dir=str(tmp_path), tensorboard=True)
+    assert tb.history == plain.history
+    want = dict(plain_launches)
+    want["zinb_nll_fwd"] += epochs
+    want["zinb_nll_bwd"] += epochs
+    assert tb_launches == want
+    assert len(tb.tb_s) == epochs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,weighted", [(273, False), (137, True)], ids=["K2", "K2w"])
+def test_tb_gradients_through_k2_match_plain_version_on_card(cuda, rows, weighted):
+    """The TensorBoard gradient of zinb-conddisp 64-32-64 at the validation
+    shapes of phase 4 (273 rows) and of a rank of phase 7 (137 rows, the
+    last at weight 0): one K2 or K2w launch, held against its plain version
+    on the same tensors at K2's tolerance."""
+    from dca_tpu_torch.train.loop import _tb_grads
+
+    G = 3451
+    net = get_ae_type("zinb-conddisp")(input_size=G, hidden_size=(64, 32, 64),
+                                       device=cuda).build()
+    rs = np.random.RandomState(rows)
+    y = rs.negative_binomial(2, 0.4, size=(rows, G)).astype(np.float32)
+    y[rs.uniform(size=y.shape) < 0.7] = 0.0
+    x = torch.from_numpy(np.log1p(y)).to(cuda)
+    sf = torch.from_numpy(rs.uniform(0.5, 2.0, rows).astype(np.float32)).to(cuda)
+    w = None
+    if weighted:
+        w = torch.ones(rows, device=cuda)
+        w[-1] = 0.0
+    name = "zinb_nll_bwd" + ("_w" if weighted else "")
+    before = dict(fused_loss.launches)
+    with recording_k2() as calls:
+        grads = _tb_grads(net, x, sf, torch.from_numpy(y).to(cuda), w)
+    assert fused_loss.launches[name] == before[name] + 1 and len(calls) == 1
+    assert check_k2_call(name, *calls[0]) <= 1.0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+@pytest.mark.gpu
+def test_load_weights_reaches_a_graph_captured_before_on_card(cuda, tmp_path):
+    """load_weights copies into the parameters in place: a forward captured
+    in a CUDA graph before the load replays on the loaded weights, the
+    same bits as the saving network's forward."""
+    pytest.importorskip("h5py", reason="weights.hdf5 needs h5py, as in the JAX package")
+    src = get_ae_type("zinb-conddisp")(input_size=300, hidden_size=(64, 32, 64), seed=1,
+                                       device=cuda).build()
+    dst = get_ae_type("zinb-conddisp")(input_size=300, hidden_size=(64, 32, 64), seed=2,
+                                       device=cuda).build()
+    path = str(tmp_path / "weights.hdf5")
+    src.save_weights(path)
+    x = torch.from_numpy(np.log1p(_small_counts(64, 300, 3))).to(cuda)
+    sf = torch.ones(64, device=cuda)
+    with torch.no_grad():
+        want = src.apply(x, sf)[0]["output"].clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dst.apply(x, sf)  # warm-up: cuBLAS's handle
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = dst.apply(x, sf)[0]["output"]
+    dst.load_weights(path)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

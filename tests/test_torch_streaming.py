@@ -21,6 +21,8 @@ its order: the host and payload tiers give the in-memory fit's history
 bit for bit, and the resident tier the derived tier's.
 """
 
+import os
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -249,13 +251,27 @@ def test_dca_and_cli_reach_the_streaming_trainer(tmp_path, capsys, monkeypatch):
     assert mean.shape == (N_GENES, N_CELLS) and np.isfinite(mean.values).all()
 
 
+def _listing(out):
+    """The relative files under ``out``, the event file and the profiler
+    trace folded to their directory (their names carry time and host)."""
+    files = set()
+    for root, _, names in os.walk(out):
+        for name in names:
+            rel = os.path.relpath(os.path.join(root, name), out)
+            files.add(rel.split(os.sep)[0] + "/*" if rel.startswith("tb" + os.sep) else rel)
+    return files
+
+
 @pytest.mark.parametrize("kwds", [{"save_weights": True}, {"tensorboard": True},
                                   {"checkpoint_every": 1}, {"resume": True}], ids=str)
-def test_streaming_refusals_still_raise_by_name(kwds, tmp_path):
-    ad = io.normalize(io.read_dataset(AnnData(_counts())))
-    net = AE_types["nb-conddisp"](input_size=N_GENES, hidden_size=(8, 4, 8), device="cpu").build()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train(ad, net, output_dir=str(tmp_path), **{**FIT, **kwds})
+def test_streaming_writes_the_fit_artefacts_as_jax(kwds, tmp_path, monkeypatch):
+    """The keywords the streaming trainer refused before this slice run and
+    write the files the JAX package's streaming fit writes for them."""
+    monkeypatch.setenv("DCA_TPU_FUSED_LOSS", "1")
+    hist = _port_fit(_weights(), output_dir=str(tmp_path / "port"), **kwds)
+    jhist = _jax_fit(output_dir=str(tmp_path / "jax"), **kwds)
+    assert _listing(str(tmp_path / "port")) == _listing(str(tmp_path / "jax"))
+    assert len(hist["loss"]) == len(jhist["loss"]) == FIT["epochs"]
 
 
 def test_streaming_under_a_process_group_raises_by_name(monkeypatch):

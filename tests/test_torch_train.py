@@ -170,11 +170,48 @@ def test_cli_prelu_adam_on_cpu(input_tsv, tmp_path, capsys):
         assert pickle.load(f)["ctor"]["activation"] == "PReLU"
 
 
-@pytest.mark.parametrize("flags", [["--hyper"], ["--saveweights"], ["--tensorboard"],
-                                   ["--modelparallel", "2"]])
+@pytest.mark.parametrize("flags", [["--hyper"], ["--modelparallel", "2"]])
 def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
     with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
         main([input_tsv, str(tmp_path / "out"), "-e", "1", "--device", "cpu", *flags])
+
+
+def _artefacts(out):
+    """The files of a fit's output directory, relative, with the event
+    file's and the profiler trace's run-dependent names (time, host,
+    process) folded: {path: sorted dataset keys of an HDF5, or None}."""
+    import h5py
+
+    files = {}
+    for root, _, names in os.walk(out):
+        for name in names:
+            rel = os.path.relpath(os.path.join(root, name), out)
+            if rel.startswith("tb" + os.sep):
+                rel = "tb/events" if name.startswith("events.out.tfevents.") else "tb/trace"
+            keys = None
+            if name.endswith(".hdf5"):
+                with h5py.File(os.path.join(root, name)) as f:
+                    keys = []
+                    f.visit(lambda k: keys.append(k) if isinstance(f[k], h5py.Dataset)
+                            else None)
+                keys = sorted(keys)
+            files[rel] = keys
+    return files
+
+
+@pytest.mark.parametrize("flag", ["--saveweights", "--tensorboard"])
+def test_cli_writes_the_fit_artefacts(input_tsv, tmp_path, flag):
+    """--saveweights and --tensorboard run (they were refused before this
+    slice) and write the JAX package's CLI's files: weights.hdf5 with its
+    keys, or the tb/ event file and the fit's trace."""
+    from dca_tpu.__main__ import main as jmain
+
+    args = ["-e", "2", "-s", "16,8,16", flag]
+    main([input_tsv, str(tmp_path / "port"), "--device", "cpu", *args])
+    jmain([input_tsv, str(tmp_path / "jax"), *args])
+    got, want = _artefacts(str(tmp_path / "port")), _artefacts(str(tmp_path / "jax"))
+    assert got == want
+    assert ("weights.hdf5" if flag == "--saveweights" else "tb/events") in got
 
 
 def test_cli_flag_surface_matches_jax():
@@ -198,9 +235,7 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, input_t
         train(adata, NBAutoencoder(input_size=10).build(), epochs=1)
 
 
-@pytest.mark.parametrize("kwds", [{"compiled": True}, {"checkpoint_every": 2},
-                                  {"resume": True}, {"checkpoint_every": 1, "compiled": True}],
-                         ids=str)
+@pytest.mark.parametrize("kwds", [{"compiled": True}], ids=str)
 def test_train_refuses_paths_not_ported_by_name(kwds):
     """The JAX package's train keywords for paths the port lacks raise
     NotImplementedError naming ROADMAP.md, where they used to be a
@@ -212,6 +247,39 @@ def test_train_refuses_paths_not_ported_by_name(kwds):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         dca_tpu_torch.dca(AnnData(make_counts(40, 10, seed=3)), epochs=1, device="cpu",
                           hidden_size=(8, 4, 8), training_kwds=kwds)
+
+
+@pytest.mark.parametrize("kwds", [{"checkpoint_every": 2}, {"resume": True},
+                                  {"checkpoint_every": 1, "compiled": True}], ids=str)
+def test_train_takes_the_checkpoint_keywords_as_jax(tmp_path, kwds):
+    """checkpoint_every and resume run, where they were refused before this
+    slice, and (with compiled=True too, which they turn off) write the JAX
+    package's files for the same keywords, through train() and through
+    dca(training_kwds=...)."""
+    import jax
+
+    from dca_tpu import api as japi
+
+    counts = make_counts(40, 10, seed=3)
+    adata = io.normalize(io.read_dataset(AnnData(counts.copy())))
+    net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
+    jnet = JNBAutoencoder(input_size=10, hidden_size=(8, 4, 8)).build()
+    net.model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jnet.params),
+        jax.tree_util.tree_map(np.asarray, jnet.state)))
+    fit = dict(epochs=3, verbose=False, **kwds)
+    hist = train(adata, net, output_dir=str(tmp_path / "port"), **fit)
+    jhist = jtrain(jio.normalize(jio.read_dataset(JAnnData(counts.copy()))), jnet,
+                   output_dir=str(tmp_path / "jax"), **fit)
+    assert _artefacts(str(tmp_path / "port")) == _artefacts(str(tmp_path / "jax"))
+    np.testing.assert_allclose(hist.history["loss"], jhist.history["loss"], rtol=1e-4)
+    ret = dca_tpu_torch.dca(AnnData(counts.copy()), epochs=2, device="cpu",
+                            hidden_size=(8, 4, 8), copy=True, return_info=True,
+                            training_kwds={**kwds, "output_dir": str(tmp_path / "dca")})
+    japi.dca(JAnnData(counts.copy()), epochs=2, hidden_size=(8, 4, 8), copy=True,
+             training_kwds={**kwds, "output_dir": str(tmp_path / "jdca")})
+    assert len(ret.uns["dca_loss_history"]["loss"]) == 2
+    assert _artefacts(str(tmp_path / "dca")) == _artefacts(str(tmp_path / "jdca"))
 
 
 @pytest.mark.parametrize("gate", ["device_bytes", "max_device_cells"])
