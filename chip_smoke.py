@@ -140,7 +140,11 @@ Phases, each of which must pass:
    card and on two ranks, and the eval-mode gradient reads those biases
    (val_loss is 4e-4 to 8e-4 apart for the same reason);
    the denoised matrices equal on both ranks and finite; rank 0 alone
-   writes (its model.pickle).  A rank that fails or outlives its time
+   writes (its model.pickle).  Then nb-conddisp with ``tensorboard=True``
+   for 1 epoch on the first 546 cells and the genes they express (16 steps,
+   55 validation rows padded to 56): the same history on both ranks,
+   16 / 16 K1/K2, 2 K1w and 1 K2w a rank (the NB K2w's launch in a fit),
+   rank 0's event file.  A rank that fails or outlives its time
    limit fails the phase.  The data-parallel epoch time is printed: two
    ranks sharing one card measure no scaling.
 
@@ -219,7 +223,33 @@ Phases, each of which must pass:
    epochs against 1 epoch with a checkpoint and a resume to 2, on the host
    and the resident tiers: the same bits.
 
-The phases run in the order 1-4, 10, 11, 9, 8, 5-7.  Prints the card's name and
+12. The hyperparameter search, the diagnostics and the quality oracle, on
+   the card.  (a) One trial's objective (``hyper._objective``: zinb-conddisp
+   64-32-64, relu, BN, dropout 0, ridge 0.01, lr 1e-3, 2 epochs, a 20% tail
+   validation) on phase 4's 2730 x 3451 matrix: the bits of min(val_loss)
+   of ``train()`` called directly with the same arguments, and exactly the
+   K1/K2 of 2 epochs of 69 steps (68 full, a trailing 8 rows) and their 2
+   warm-ups; ZINB K1 at the trial's validation shape (546, 3451) against
+   its plain version (loss rel err <= 1e-5, count exact), timed beside its
+   byte bound.  (b) ``hyper_search`` on the same matrix, reference_space(2),
+   seed 0, 3 trials and the pre-flight, sequential and with 2 threads on
+   the one card in turns (sequential, 2, 2, sequential): the same configs,
+   every loss finite and within rtol 1e-5 (whether they are the same bits
+   is printed), the same ``best.json`` where they are, both artefacts
+   written, the K1/K2 of the 4 trials' schedules exactly; each search's
+   wall time and the ratio.  (c) ``python -m dca_tpu_torch counts.tsv out
+   --hyper --hypern 2 --hyperepoch 1``: exit 0 and both artefacts.  (d)
+   ``fit_zinb``, ``zero_inflation_test`` and ``optimize_zinb`` on the
+   samples of tests/test_diagnostics.py on the card and on the CPU, within
+   the CPU tests' tolerances of each other, that file's assertions on the
+   card's (the plots where matplotlib imports); each timed.  (e)
+   tests/test_quality.py's two checks through ``dca()`` on the card at
+   their sizes, seeds and thresholds (silhouettes by sklearn where it
+   imports, else by this file's numpy PCA and silhouette), and the
+   ``sim-drop3-group2`` case of ``simulation_grid`` through ``to_anndata``
+   and ``dca()``, its silhouettes printed.
+
+The phases run in the order 1-4, 10, 11, 12, 9, 8, 5-7.  Prints the card's name and
 power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
 non-zero, with no result line, when there is no CUDA device or a phase
@@ -1932,6 +1962,7 @@ def optimizer_epoch_timings(epochs=3):
 DP_RANKS = 2
 DP_TIMEOUT = 480  # seconds for both ranks, start-up included
 DP_RUNS = (("zinb-conddisp", 2), ("nb-conddisp", 1))
+DP_NB_TB_CELLS = 546  # 16 steps (15 full, a trailing 11 rows) and 55 validation rows
 
 
 def _dp_rank(rank, world, port, out_dir, backend):
@@ -1992,6 +2023,17 @@ def _dp_rank(rank, world, port, out_dir, backend):
             if rank == 0:
                 np.savez(os.path.join(out_dir, f"{ae_type}-params.npz"),
                          **{k: v.cpu().numpy() for k, v in net.model.state_dict().items()})
+    # nb-conddisp logging to TensorBoard, on the first DP_NB_TB_CELLS cells
+    # and the genes they express (a traced data-parallel epoch is slow): its
+    # gradient on the padded validation block is the NB K2w's launch in a fit
+    sub = counts[:DP_NB_TB_CELLS]
+    fl.reset_launches()
+    ret, _ = dca_tpu_torch.dca(
+        AnnData(sub[:, sub.sum(0) > 0].copy()), ae_type="nb-conddisp", epochs=1,
+        training_kwds={"output_dir": os.path.join(out_dir, "tb_nb"), "tensorboard": True}, **kw)
+    torch.cuda.synchronize()
+    res["tensorboard_nb"] = {"history": ret.uns["dca_loss_history"],
+                             "launches": dict(fl.launches)}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -2136,6 +2178,25 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
                f"phase 7: rank {rk}'s TensorBoard fit launched {r['tensorboard']['launches']}, "
                f"expected {tb_want}")
     out["tensorboard"] = [r["tensorboard"]["launches"] for r in ranks]
+    # the nb-conddisp TensorBoard fit: the 55 validation rows padded to 56,
+    # one K1w an epoch, and the gradient's K1w and K2w
+    nb_tb = [r["tensorboard_nb"] for r in ranks]
+    nb_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), nb_nll_fwd=16, nb_nll_bwd=16,
+                   nb_nll_fwd_w=2, nb_nll_bwd_w=1)
+    for rk, r in enumerate(nb_tb):
+        _check(r["history"] == nb_tb[0]["history"]
+               and bool(np.all(np.isfinite(r["history"]["val_loss"]))),
+               f"phase 7: the nb-conddisp TensorBoard fit's history on rank {rk}: "
+               f"{r['history']}, rank 0's {nb_tb[0]['history']}")
+        _check(r["launches"] == nb_want, f"phase 7: rank {rk}'s nb-conddisp TensorBoard fit "
+               f"launched {r['launches']}, expected {nb_want}")
+    _check(any(n.startswith("events.out.tfevents.")
+               for n in os.listdir(os.path.join(out_dir, "tb_nb", "tb"))),
+           "phase 7: the nb-conddisp TensorBoard fit wrote no event file")
+    out["tensorboard_nb"] = [r["launches"] for r in nb_tb]
+    print(f"phase 7: nb-conddisp with tensorboard=True on the first {DP_NB_TB_CELLS} cells, "
+          f"1 epoch: the same history on every rank, launches {nb_tb[0]['launches']} a rank "
+          "(the NB K2w in a fit)")
     out["tb_per_epoch_s"] = (ranks[0]["tensorboard"]["t_run"]
                              - ranks[0]["zinb-conddisp"]["t_zero"]) / epochs
     # rank 0 alone wrote the events; its gradients are the global batch's:
@@ -2905,6 +2966,428 @@ def phase_artefacts(dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the hyperparameter search, the diagnostics, the quality oracle
+# ---------------------------------------------------------------------------
+
+# phase 12 (a)'s trial: the main path's network under the search's fit
+HYPER_CFG = {"norm_input_log": True, "norm_input_zeromean": True, "norm_input_sf": True,
+             "lr": 1e-3, "ridge": 0.01, "l1_enc_coef": 0.0, "hidden_size": (64, 32, 64),
+             "activation": "relu", "aetype": "zinb-conddisp", "batchnorm": True,
+             "dropout": 0.0, "input_dropout": 0.0, "epochs": 2}
+HYPER_TRIALS = 3
+HYPER_RTOL = 1e-5  # the JAX package's parallel-against-sequential test
+# the diagnostics' CPU-against-card tolerances, those of the CPU tests
+# against the JAX package (tests/test_torch_diagnostics.py)
+DIAG_PARAM_RTOL, DIAG_NLL_RTOL, DIAG_OBJ_RTOL = 1e-3, 1e-5, 1e-5
+
+
+def pvalue_log_tol(res, n):
+    """The bound on |log p - log p'| of two ``zero_inflation_test`` p-values
+    whose NLLs agree within DIAG_NLL_RTOL: p is chi2's tail at 2 n (nb_nll
+    - zinb nll), whose log moves by n times the NLLs' difference."""
+    return n * DIAG_NLL_RTOL * (abs(res["zinb"]["nll"]) + abs(res["nb_nll"]))
+
+
+def _trial_launches(n_cells, epochs):
+    """K1/K2 of one trial's fit: ZINB (every aetype of the space), a 20%
+    tail validation, the graph path's warm-ups."""
+    return _want_launches("zinb", epochs, _steps(n_cells, val_split=0.2),
+                          _warmups(n_cells, val_split=0.2))
+
+
+def _read_search(out):
+    import pickle
+
+    results = os.path.join(out, "hyperopt_results")
+    with open(os.path.join(results, "trials.pickle"), "rb") as f:
+        trials = pickle.load(f)
+    with open(os.path.join(results, "best.json")) as f:
+        best = f.read()
+    return trials, best
+
+
+def phase_hyper(dev, card):
+    """Phase 12 (a)-(c): a trial's objective at full width against a direct
+    ``train()``, K1 at the trial's validation shape, the search sequential
+    and with 2 threads on the one card in turns, and the CLI's search."""
+    import torch
+
+    from dca_tpu_torch import hyper as H
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.data.io import normalize
+    from dca_tpu_torch.models.network import AE_types
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.train.loop import train
+
+    counts = make_paul15_like()
+    n_cells, n_genes = counts.shape
+    adata = AnnData(counts)
+    res = {}
+
+    # (a) one trial against the same fit called directly
+    fl.reset_launches()
+    t0 = time.perf_counter()
+    loss = H._objective(adata, HYPER_CFG, seed=0, device=dev)
+    res["trial_s"] = time.perf_counter() - t0
+    res["trial_launches"] = dict(fl.launches)
+    want = _trial_launches(n_cells, HYPER_CFG["epochs"])
+    _check(res["trial_launches"] == want, f"phase 12 (a): the trial launched "
+           f"{res['trial_launches']}, expected {want}")
+    c = HYPER_CFG
+    ad = normalize(adata.copy(), filter_min_counts=True, size_factors=c["norm_input_sf"],
+                   logtrans_input=c["norm_input_log"], normalize_input=c["norm_input_zeromean"])
+    net = AE_types[c["aetype"]](
+        input_size=ad.n_vars, hidden_size=c["hidden_size"], l2_coef=0.0, l1_coef=0.0,
+        l2_enc_coef=0.0, l1_enc_coef=c["l1_enc_coef"], ridge=c["ridge"],
+        hidden_dropout=c["dropout"], input_dropout=c["input_dropout"],
+        batchnorm=c["batchnorm"], activation=c["activation"], init="glorot_uniform",
+        seed=0, device=dev).build()
+    hist = train(ad, net, optimizer="RMSprop", learning_rate=c["lr"], epochs=c["epochs"],
+                 batch_size=32, clip_grad=5.0, validation_split=0.2, reduce_lr=0,
+                 early_stop=0, verbose=False, seed=0)
+    direct = min(hist.history["val_loss"])
+    _check(loss == direct, f"phase 12 (a): the trial's loss {loss!r} is not the direct "
+                           f"train()'s min(val_loss) {direct!r}")
+    print(f"phase 12 (a) on {card}: the trial (zinb-conddisp 64-32-64, {n_cells} x {n_genes}, "
+          f"2 epochs) {loss!r} = min(val_loss) of train() called directly, the same bits; "
+          f"{res['trial_s']:.3f} s; launches {res['trial_launches']}")
+
+    # K1 at the trial's validation shape
+    B = n_cells - int(n_cells * 0.8)
+    y, mu, th, pi = _big_loss_inputs(dev, B, n_genes)
+    ridge = c["ridge"]
+    got = fl._fwd_out_kernel(y, mu, th, pi, ridge)
+    ref = fl._fwd_out_reference(y, mu, th, pi, ridge)
+    rel = abs(got[2].item() - ref[2].item()) / abs(ref[2].item())
+    _check(rel <= LOSS_RTOL and got[1].item() == ref[1].item(),
+           f"phase 12 (a): K1 at {(B, n_genes)}: loss rel err {rel:.3e} (at most {LOSS_RTOL}), "
+           f"count {got[1].item()} against {ref[1].item()}")
+    ms = _device_ms(lambda: fl._fwd_kernel(y, mu, th, pi, ridge))
+    plain_ms = _device_ms(lambda: fl._fwd_reference(y, mu, th, pi, ridge), n=10, warmup=2)
+    n_bytes = 4 * 4 * y.numel() + 4 * 4
+    bound, by = _bound_ms(n_bytes, _k1_ops(y, mu, th, True))
+    res["k1_trial_val"] = {"shape": [B, n_genes], "rel_err": rel,
+                           "abs_err": abs(got[2].item() - ref[2].item()), "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                           "bytes": n_bytes}
+    print(f"phase 12 (a) on {card}: ZINB K1 at ({B}, {n_genes}) (the trial's validation): "
+          f"loss rel err {rel:.3e}, count {got[1].item():.0f} exact; {ms * 1e3:.2f} us "
+          f"(plain {plain_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us by {by}, "
+          f"{n_bytes / 1e6:.1f} MB)")
+    del y, mu, th, pi
+
+    # (b) the search, sequential and 2 threads on the one card, in turns
+    searches = []
+    for k, n_par in enumerate((1, 2, 2, 1)):
+        out = os.path.join(OUT_DIR, f"hyper{k}")
+        shutil.rmtree(out, ignore_errors=True)
+        fl.reset_launches()
+        t0 = time.perf_counter()
+        best_cfg, best_loss, trials = H.hyper_search(
+            adata, n_trials=HYPER_TRIALS, output_dir=out, seed=0,
+            space=H.reference_space(HYPER_CFG["epochs"]), verbose=False, n_parallel=n_par,
+            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fl.launches)
+        saved, best = _read_search(out)
+        _check(saved == trials, f"phase 12 (b): trials.pickle holds {saved}, not {trials}")
+        searches.append({"n_parallel": n_par, "wall_s": wall, "launches": launches,
+                         "trials": trials, "best": best})
+        shutil.rmtree(out)
+    first = searches[0]
+    cfgs = [t["config"] for t in first["trials"]]
+    losses = np.array([t["loss"] for t in first["trials"]])
+    _check(len(cfgs) == HYPER_TRIALS + 1 and bool(np.isfinite(losses).all()),
+           f"phase 12 (b): the search's losses {losses.tolist()}: a trial failed")
+    want = {k: v * len(cfgs) for k, v in _trial_launches(n_cells, HYPER_CFG["epochs"]).items()}
+    dist = 0.0
+    for s in searches:
+        _check([t["config"] for t in s["trials"]] == cfgs,
+               f"phase 12 (b): n_parallel={s['n_parallel']} suggested other configs")
+        got_l = np.array([t["loss"] for t in s["trials"]])
+        dist = max(dist, float(np.max(np.abs(got_l - losses) / np.abs(losses))))
+        _check(np.allclose(got_l, losses, rtol=HYPER_RTOL, atol=0.0),
+               f"phase 12 (b): n_parallel={s['n_parallel']} losses {got_l.tolist()} against "
+               f"{losses.tolist()}, beyond rtol {HYPER_RTOL}")
+        _check(s["launches"] == want, f"phase 12 (b): n_parallel={s['n_parallel']} launched "
+               f"{s['launches']}, expected the trials' {want}")
+    same_bits = all([t["loss"] for t in s["trials"]] == losses.tolist() for s in searches)
+    _check(all(s["best"] == first["best"] for s in searches) or not same_bits,
+           "phase 12 (b): best.json differs between the searches")
+    seq = [s["wall_s"] for s in searches if s["n_parallel"] == 1]
+    par = [s["wall_s"] for s in searches if s["n_parallel"] == 2]
+    res.update(search_launches=first["launches"], search_seq_s=seq, search_par_s=par,
+               search_ratio=float(np.median(seq) / np.median(par)), search_same_bits=same_bits,
+               search_rel_dist=dist, search_losses=losses.tolist(),
+               search_configs=[(c["aetype"], list(c["hidden_size"]), c["activation"],
+                                c["batchnorm"]) for c in cfgs])
+    print(f"phase 12 (b) on {card}: hyper_search reference_space(2), seed 0, {HYPER_TRIALS} "
+          f"trials + the pre-flight on {n_cells} x {n_genes}: configs {res['search_configs']}, "
+          f"losses {losses.tolist()}; sequential and 2 threads on the one card "
+          f"{'the same bits' if same_bits else f'within rel {dist:.3e}'}, best.json "
+          f"{'the same' if same_bits else 'compared by loss'}; wall sequential {seq} s, "
+          f"2 threads {par} s, ratio {res['search_ratio']:.3f}; launches a search "
+          f"{first['launches']}")
+
+    # (c) the CLI's search
+    import pandas as pd
+
+    work = os.path.join(OUT_DIR, "hyper_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    small = _small_counts(300, 120, 5)
+    tsv = os.path.join(work, "counts.tsv")
+    pd.DataFrame(small.T.astype(int), index=[f"gene{i}" for i in range(120)],
+                 columns=[f"cell{i}" for i in range(300)]).to_csv(tsv, sep="\t")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = os.path.join(work, "out")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dca_tpu_torch", tsv, out, "--hyper",
+                           "--hypern", "2", "--hyperepoch", "1"],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    res["cli_s"] = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"phase 12 (c): the CLI's --hyper exited {proc.returncode}:\n"
+           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    trials, best = _read_search(out)
+    _check(len(trials) == 3 and json.loads(best)["config"] is not None,
+           f"phase 12 (c): the CLI's search wrote {trials} and {best}")
+    print(f"phase 12 (c) on {card}: python -m dca_tpu_torch counts.tsv out --hyper --hypern 2 "
+          f"--hyperepoch 1 exited 0 in {res['cli_s']:.1f} s and wrote "
+          f"hyperopt_results/trials.pickle (3 trials) and best.json")
+    shutil.rmtree(work)
+    return res
+
+
+def _diag_samples():
+    """The samples of tests/test_diagnostics.py: a ZINB sample, a
+    zero-inflated NB sample, and NB counts without and with extra zeros."""
+    rs = np.random.RandomState(1)
+    y = rs.negative_binomial(2.0, 2.0 / 6.0, size=5000)
+    y = np.where(rs.uniform(size=y.shape) < 0.3, 0, y).astype(np.float32)
+    rs = np.random.RandomState(2)
+    y_zi = rs.negative_binomial(2.0, 2.0 / 6.0, size=3000)
+    y_zi = np.where(rs.uniform(size=y_zi.shape) < 0.4, 0, y_zi).astype(np.float32)
+
+    def sim(pi, n=2000, g=200, seed=5):
+        rs = np.random.RandomState(seed)
+        mu = rs.gamma(3.0, 1.5, size=(1, g))
+        c = rs.negative_binomial(2.0, 2.0 / (2.0 + mu), size=(n, g))
+        if pi > 0:
+            c = np.where(rs.uniform(size=c.shape) < pi, 0, c)
+        return c.astype(np.float32)
+
+    return y, y_zi, sim(0.0), sim(0.35)
+
+
+def _zero_model_loss(mu, dropout, a, b, t):
+    """optimize_zinb's objective in float64 at (a, b, t)."""
+    mu, dropout = mu.astype(np.float64), dropout.astype(np.float64)
+    pi = 1.0 / (1.0 + np.exp(-(np.log(mu + 1e-7) * a + b)))
+    pred = pi + (1.0 - pi) * (t / (mu + t)) ** t
+    return float(-np.mean(dropout * np.log(pred + 1e-7)
+                          + (1.0 - dropout) * np.log(1.0 - pred + 1e-7)))
+
+
+def phase_diagnostics(dev, card):
+    """Phase 12 (d): ``fit_zinb``, ``zero_inflation_test`` and
+    ``optimize_zinb`` on the samples of tests/test_diagnostics.py on the card
+    and on the CPU: within the CPU tests' tolerances of each other, and the
+    test file's assertions on the card's; each timed."""
+    import torch
+
+    from dca_tpu_torch import diagnostics as dg
+
+    y, y_zi, nb_counts, zi_counts = _diag_samples()
+    cpu = torch.device("cpu")
+    res = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn(dev)
+        res[name + "_s"] = time.perf_counter() - t0
+        return out, fn(cpu)
+
+    fit, fit_cpu = timed("fit_zinb", lambda d: dg.fit_zinb(y, maxiter=1500, device=d))
+    _check(abs(fit["mu"] - 4.0) / 4.0 < 0.15 and abs(fit["pi"] - 0.3) < 0.1
+           and abs(fit["theta"] - 2.0) / 2.0 < 0.5, f"phase 12 (d): fit_zinb {fit}")
+    for k, rtol in (("mu", DIAG_PARAM_RTOL), ("theta", DIAG_PARAM_RTOL),
+                    ("pi", DIAG_PARAM_RTOL), ("nll", DIAG_NLL_RTOL)):
+        _check(abs(fit[k] - fit_cpu[k]) <= rtol * abs(fit_cpu[k]),
+               f"phase 12 (d): fit_zinb {k} {fit[k]!r} on the card, {fit_cpu[k]!r} on the CPU")
+    zi, zi_cpu = timed("zero_inflation_test",
+                       lambda d: dg.zero_inflation_test(y_zi, maxiter=1200, device=d))
+    _check(zi["pvalue"] < 0.01, f"phase 12 (d): zero_inflation_test {zi}")
+    log_d = abs(np.log(zi["pvalue"]) - np.log(zi_cpu["pvalue"]))
+    res["pvalue_rel"] = abs(zi["pvalue"] - zi_cpu["pvalue"]) / zi_cpu["pvalue"]
+    _check(log_d <= pvalue_log_tol(zi_cpu, y_zi.size),
+           f"phase 12 (d): p-value {zi['pvalue']!r} on the card, {zi_cpu['pvalue']!r} on "
+           f"the CPU: log distance {log_d:.3e} beyond {pvalue_log_tol(zi_cpu, y_zi.size):.3e}")
+    fits = {}
+    for label, c in (("nb", nb_counts), ("zi", zi_counts)):
+        mu, dropout = c.mean(0), (c == 0).mean(0)
+        theta = dg.estimate_theta_moments(c)
+        got, want = timed(f"optimize_zinb_{label}",
+                          lambda d: dg.optimize_zinb(mu, dropout, theta=theta, device=d))
+        close = all(abs(g - w) <= DIAG_PARAM_RTOL * abs(w) for g, w in zip(got, want))
+        obj, obj_cpu = (_zero_model_loss(mu, dropout, *p) for p in (got, want))
+        _check(close or abs(obj - obj_cpu) <= DIAG_OBJ_RTOL * obj_cpu,
+               f"phase 12 (d): optimize_zinb ({label}) {got} on the card, {want} on the CPU, "
+               f"objective {obj!r} against {obj_cpu!r}")
+        fits[label] = float(dg.sigmoid(np.log(np.median(mu) + 1e-7) * got[0] + got[1]))
+        res[f"optimize_zinb_{label}"] = {"card": got, "cpu": want, "params_close": close,
+                                         "objective_rel": abs(obj - obj_cpu) / obj_cpu}
+    _check(fits["zi"] > 0.1 and fits["nb"] < 0.05 and fits["zi"] > fits["nb"] + 0.08,
+           f"phase 12 (d): fitted pi {fits}")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        res["plots"] = "not run: no matplotlib on this machine"
+    else:
+        from dca_tpu_torch.data.adata import AnnData
+
+        ret_zi = dg.plot_mean_dropout(AnnData(zi_counts), device=dev)
+        ret_nb = dg.plot_mean_dropout(AnnData(nb_counts), device=dev)
+        _check(ret_zi["pvalue"] < 0.01 and ret_zi["zinb_ll"] < ret_zi["nb_ll"]
+               and ret_zi["nb_ll"] - ret_zi["zinb_ll"] > ret_nb["nb_ll"] - ret_nb["zinb_ll"],
+               f"phase 12 (d): plot_mean_dropout {ret_zi} / {ret_nb}")
+        res["plots"] = "plot_mean_dropout's assertions held"
+    print(f"phase 12 (d) on {card}: fit_zinb {fit} (CPU {fit_cpu}) in {res['fit_zinb_s']:.2f} "
+          f"s; zero_inflation_test p {zi['pvalue']:.4e} (CPU {zi_cpu['pvalue']:.4e}, rel "
+          f"{res['pvalue_rel']:.2e}) in "
+          f"{res['zero_inflation_test_s']:.2f} s; optimize_zinb nb {res['optimize_zinb_nb']} "
+          f"in {res['optimize_zinb_nb_s']:.2f} s, zi {res['optimize_zinb_zi']} in "
+          f"{res['optimize_zinb_zi_s']:.2f} s; fitted pi {fits}; plots: {res['plots']}")
+    return res
+
+
+def make_grouped_counts(n_cells=600, n_genes=120, seed=42, dropout=0.35):
+    """tests/test_quality.py's generator, copied (that file imports the JAX
+    package): two cell groups with differential genes and dropout."""
+    rs = np.random.RandomState(seed)
+    n_half = n_cells // 2
+    base = rs.gamma(2.0, 1.0, size=(1, n_genes))
+    de = np.ones((2, n_genes))
+    de_genes = rs.choice(n_genes, n_genes // 4, replace=False)
+    de[0, de_genes[: len(de_genes) // 2]] = 5.0
+    de[1, de_genes[len(de_genes) // 2:]] = 5.0
+    groups = np.repeat([0, 1], [n_half, n_cells - n_half])
+    depth = rs.lognormal(0.0, 0.3, size=(n_cells, 1))
+    mu = base * de[groups] * depth * 3.0
+    theta = 2.0
+    true_counts = rs.negative_binomial(theta, theta / (theta + mu)).astype(np.float32)
+    drop = rs.uniform(size=true_counts.shape) < dropout
+    noisy = np.where(drop, 0.0, true_counts).astype(np.float32)
+    noisy[:, noisy.sum(0) == 0] += 1.0
+    noisy[noisy.sum(1) == 0, 0] += 1.0
+    return noisy, true_counts, groups
+
+
+def silhouette_score(X, labels):
+    """sklearn.metrics.silhouette_score (Euclidean), in numpy: the card's
+    machine may lack sklearn."""
+    X = np.asarray(X, np.float64)
+    labels = np.asarray(labels)
+    d = np.sqrt(np.maximum(np.square(X).sum(1)[:, None] + np.square(X).sum(1)[None, :]
+                           - 2.0 * X @ X.T, 0.0))
+    np.fill_diagonal(d, 0.0)
+    ids = np.unique(labels)
+    sums = np.stack([d[:, labels == k].sum(1) for k in ids], 1)
+    sizes = np.array([(labels == k).sum() for k in ids], np.float64)
+    own = np.searchsorted(ids, labels)
+    n_own = sizes[own]
+    a = sums[np.arange(len(X)), own] / np.maximum(n_own - 1.0, 1.0)
+    means = sums / sizes
+    means[np.arange(len(X)), own] = np.inf
+    b = means.min(1)
+    s = np.where(n_own > 1, (b - a) / np.maximum(a, b), 0.0)
+    return float(s.mean())
+
+
+def pca(X, n_components=10):
+    """The projection onto the top principal components by an exact SVD
+    (sklearn's PCA takes its randomized solver at 600 x 120, whose
+    silhouettes are within 2e-3 of these: tests/test_torch_quality.py)."""
+    X = np.asarray(X, np.float64)
+    Xc = X - X.mean(0)
+    _, _, vt = np.linalg.svd(Xc, full_matrices=False)
+    return Xc @ vt[:n_components].T
+
+
+def _sil(X, labels):
+    """sklearn's silhouette_score where it imports, else this file's."""
+    try:
+        from sklearn.metrics import silhouette_score as sk_silhouette
+    except ImportError:
+        return silhouette_score(X, labels)
+    return float(sk_silhouette(X, labels))
+
+
+def _silhouette(X, groups):
+    """tests/test_quality.py's silhouette of PCA(log1p X) (sklearn's PCA
+    where it imports, else this file's)."""
+    Xl = np.log1p(X)
+    try:
+        from sklearn.decomposition import PCA
+    except ImportError:
+        return _sil(pca(Xl), groups)
+    return _sil(PCA(n_components=10, random_state=0).fit_transform(Xl), groups)
+
+
+def phase_quality(dev, card):
+    """Phase 12 (e): tests/test_quality.py's two checks through the port's
+    ``dca()`` on the card, at their sizes, seeds and thresholds, then one
+    case of ``simulation_grid`` through ``to_anndata`` and ``dca()``."""
+    import pandas as pd
+
+    import dca_tpu_torch
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.data.simulate import simulation_grid, to_anndata
+
+    try:
+        import sklearn  # noqa: F401
+        res = {"silhouette_by": "sklearn"}
+    except ImportError:
+        res = {"silhouette_by": "numpy, exact PCA (no sklearn on this machine)"}
+    noisy, true_counts, groups = make_grouped_counts()
+    adata = AnnData(noisy.copy(), pd.DataFrame(index=[f"c{i}" for i in range(noisy.shape[0])]),
+                    pd.DataFrame(index=[f"g{i}" for i in range(noisy.shape[1])]))
+    t0 = time.perf_counter()
+    ret = dca_tpu_torch.dca(adata, mode="denoise", ae_type="zinb-conddisp", copy=True,
+                            epochs=80, verbose=False, random_state=0, device=dev)
+    res["denoise_s"] = time.perf_counter() - t0
+    sil = {"noisy": _silhouette(noisy, groups), "denoised": _silhouette(ret.X, groups),
+           "true": _silhouette(true_counts, groups)}
+    res["silhouettes"] = sil
+    _check(sil["denoised"] > sil["noisy"] + 0.15 and sil["denoised"] > 0.8 * sil["true"],
+           f"phase 12 (e): silhouettes {sil}: the denoised matrix must exceed the noisy one "
+           "by 0.15 and 0.8 of the true one (tests/test_quality.py)")
+    noisy, _, groups = make_grouped_counts(seed=7)
+    t0 = time.perf_counter()
+    ret = dca_tpu_torch.dca(AnnData(noisy.copy()), mode="latent", copy=True, epochs=80,
+                            verbose=False, random_state=0, device=dev)
+    res["latent_s"] = time.perf_counter() - t0
+    res["latent"] = _sil(ret.obsm["X_dca"], groups)
+    _check(res["latent"] > 0.06, f"phase 12 (e): latent silhouette {res['latent']} not above "
+                                 "0.06 (tests/test_quality.py)")
+    name, sim = next((n, s) for n, s in simulation_grid() if n == "sim-drop3-group2")
+    t0 = time.perf_counter()
+    ret = dca_tpu_torch.dca(to_anndata(sim), mode="denoise", ae_type="zinb-conddisp", copy=True,
+                            epochs=80, verbose=False, random_state=0, device=dev)
+    res["grid_s"] = time.perf_counter() - t0
+    res["grid"] = {"case": name, "noisy": _silhouette(sim.counts, sim.groups),
+                   "denoised": _silhouette(ret.X, sim.groups),
+                   "true": _silhouette(sim.true_counts, sim.groups)}
+    print(f"phase 12 (e) on {card}: silhouettes by {res['silhouette_by']}: noisy "
+          f"{sil['noisy']:.4f}, denoised {sil['denoised']:.4f}, true {sil['true']:.4f} "
+          f"(600 x 120, 80 epochs, {res['denoise_s']:.2f} s); latent {res['latent']:.4f} "
+          f"({res['latent_s']:.2f} s); {name} ({sim.counts.shape[0]} x {sim.counts.shape[1]}, "
+          f"80 epochs, {res['grid_s']:.2f} s): noisy {res['grid']['noisy']:.4f}, denoised "
+          f"{res['grid']['denoised']:.4f}, true {res['grid']['true']:.4f}")
+    return res
+
+
 def _card():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -2914,14 +3397,21 @@ def _card():
 
 
 def main():
+    sys.path.insert(0, REPO)
+    try:
+        import dca_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        if e.name != "dca_tpu_torch":
+            raise
+        print(f"chip_smoke: no dca_tpu_torch package beside this script in {REPO}; run it "
+              "from a checkout of the repo", file=sys.stderr)
+        return 1
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
-    import dca_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     parent = None
     if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
@@ -2950,6 +3440,11 @@ def main():
         stream_corpus = phase_stream_corpus(dev)
         card = _card()
         art = phase_artefacts(dev, card)
+        t12 = time.perf_counter()
+        hyp = phase_hyper(dev, card)
+        diag = phase_diagnostics(dev, card)
+        qual = phase_quality(dev, card)
+        t12 = time.perf_counter() - t12
         epochs = epoch_timings()
         launches.update({k: v for k, v in nb_launches.items() if k.startswith("nb_")})
         phase_options()
@@ -2982,10 +3477,14 @@ def main():
                 "phase 10 (b)": stream_corpus["launches"][name]}}
             if name == "zinb_nll_fwd":
                 streamed["validation_chunk"] = stream_corpus["k1_val"]
+                streamed["trial_validation"] = hyp["k1_trial_val"]
             if fam == "zinb":
                 streamed["launches_tensorboard"] = {
                     "phase 4 (tensorboard)": zinb_tb["launches"][name],
                     "phase 11": {k: v[name] for k, v in art["launches"].items()}}
+                streamed["launches_hyper"] = {
+                    "phase 12 (a) trial": hyp["trial_launches"][name],
+                    "phase 12 (b) search (4 trials)": hyp["search_launches"][name]}
             if name == "zinb_nll_bwd":
                 ms_v, plain_v, bound_v, by_v = tb_times["zinb_bwd"]
                 streamed["tensorboard_gradient"] = {
@@ -3017,7 +3516,8 @@ def main():
         ):
             ms, plain_ms, bound_ms, bound_by, extra = times[f"{fam}_{kind}_w"]
             name = f"{fam}_nll_{kind}_w"
-            per_rank = [a[name] + b[name] for a, b in zip(dp_launches, dp["tensorboard"])]
+            per_rank = [a[name] + b[name] + c[name] for a, b, c in
+                        zip(dp_launches, dp["tensorboard"], dp["tensorboard_nb"])]
             entry = {
                 "name": name, "route": "cuda", "source": "dca_tpu_torch/csrc/fused_nll.cu",
                 "replaces": f"dca_tpu/ops/fused_loss.py:{line}",
@@ -3029,10 +3529,10 @@ def main():
                                   f"theta/pi cases of K1/K2; weights {', '.join(WEIGHT_KINDS)}",
                 "tolerance": tol, "card": card, **extra,
             }
-            if kind == "bwd" and fam == "nb":
-                entry["not_launched_because"] = (
-                    "only TensorBoard's gradient of a padded data-parallel validation "
-                    "differentiates a weighted loss, and phase 7's nb-conddisp run logs none")
+            if fam == "nb":
+                entry["main_path"] += (f", then nb-conddisp on the first {DP_NB_TB_CELLS} cells "
+                                       "with tensorboard=True: the gradient of each rank's "
+                                       "padded validation block, once an epoch")
             if kind == "bwd" and fam == "zinb":
                 ms_v, plain_v, bound_v, by_v = tb_times["zinb_bwd_w"]
                 entry["main_path"] += (", then zinb-conddisp again with tensorboard=True: "
@@ -3102,6 +3602,13 @@ def main():
           f"{[round(t, 2) for t in art['epoch_ms']]} ms plain, "
           f"{[round(t, 2) for t in art['tb_epoch_ms']]} ms with TensorBoard (profiled) + "
           f"{[round(t, 2) for t in art['tb_log_ms']]} ms of logging")
+    print(f"phase 12 on {card} in {t12:.1f} s: a trial of the search (2730 x 3451, 2 epochs) "
+          f"{hyp['trial_s']:.3f} s; the search of 4 trials {hyp['search_seq_s']} s sequential, "
+          f"{hyp['search_par_s']} s with 2 threads on the one card (sequential over 2 threads "
+          f"{hyp['search_ratio']:.3f}); the CLI's search {hyp['cli_s']:.1f} s; diagnostics "
+          f"fit_zinb {diag['fit_zinb_s']:.2f} s, zero_inflation_test "
+          f"{diag['zero_inflation_test_s']:.2f} s; silhouettes noisy / denoised / true "
+          f"{qual['silhouettes']}, latent {qual['latent']:.4f}, {qual['grid']}")
     for tier in ("host", "resident"):
         c = stream_corpus[tier]
         print(f"streaming trainer at {CORPUS[0]} x {CORPUS[1]} ({tier}) on {card}: epochs "

@@ -7,9 +7,12 @@ parallel over the ranks of a process group, one process per device:
 ``torchrun --nproc-per-node N -m dca_tpu_torch in.tsv out/ --devices all``
 (rank 0 writes the outputs).  ``--saveweights`` writes the best epoch's
 ``weights.hdf5`` (needs h5py) and ``--tensorboard`` the event files and a
-profiler trace under ``<outputdir>/tb``.  Flags whose paths are not ported
-yet (--hyper, --modelparallel above 1) are parsed and then refused with an
-error that names ROADMAP.md.
+profiler trace under ``<outputdir>/tb``.  ``--hyper`` runs the TPE search
+of ``hyper.py`` instead of one fit (``--hypern`` trials of ``--hyperepoch``
+epochs), writing ``<outputdir>/hyperopt_results/{trials.pickle,best.json}``;
+DCA_TPU_HYPER_PARALLEL trials run at once (default: the CUDA device count
+when above 1, else 2).  ``--modelparallel`` above 1 is not ported yet: it
+is parsed and then refused with an error that names ROADMAP.md.
 Every ``--type``, ``--activation`` (PReLU included) and ``--optimizer``
 (SGD, RMSprop, Adam, Adamax, Nadam, Adagrad, Adadelta) of the JAX package
 runs; the input is read and the TSVs are written through the native C++
@@ -131,12 +134,12 @@ def parse_args(argv=None):
                         help="Initial learning rate (default: 0.001)")
     parser.add_argument("--saveweights", dest="saveweights", action="store_true",
                         help="Checkpoint the best-validation weights to the output "
-                        "directory (not ported yet; default: False)")
+                        "directory (default: False)")
     parser.add_argument("--no-saveweights", dest="saveweights", action="store_false",
                         help="Skip weight checkpointing")
     parser.add_argument("--hyper", dest="hyper", action="store_true",
                         help="Run the hyperparameter search instead of a single "
-                        "training run (not ported yet; default: False)")
+                        "training run (default: False)")
     parser.add_argument("--hypern", dest="hypern", type=int, default=1000,
                         help="Trial budget for the hyperparameter search "
                         "(default: 1000)")
@@ -148,8 +151,7 @@ def parse_args(argv=None):
                         "finite each step and abort with the failing term "
                         "otherwise. (default: False)")
     parser.add_argument("--tensorboard", dest="tensorboard", action="store_true",
-                        help="TensorBoard logging of training (not ported yet; "
-                        "default: False)")
+                        help="TensorBoard logging of training (default: False)")
     parser.add_argument("--checkcounts", dest="checkcounts", action="store_true",
                         help="Verify the input looks like raw integer counts before "
                         "training (default: True)")

@@ -175,9 +175,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // writes out = (sum, count, sum / denom, denom) and sets the counter back to
 // 0.  This is CUDA's threadfence-reduction pattern: the ticket is the only
 // atomic, and it orders nothing in the sum, so the loss is the same bits on
-// every run.  The workspace is one per device, so two streams of one device
-// must not run K1 at once (the port never does: its data-parallel ranks
-// are separate processes).
+// every run.  Two K1 launches that share a workspace must not overlap, so the
+// wrapper keeps one workspace for each thread and device
+// (ops/fused_loss.py::_fwd_workspace), and a graph captured in a thread
+// keeps that thread's: the K1 launches of one thread, eager or replayed,
+// follow each other in its stream's order, and fits that run at once in
+// several threads (the trials of the hyperparameter search) or processes
+// (the data-parallel ranks) never share a workspace.
 template <bool WITH_PI, bool WITH_W>
 __global__ void __launch_bounds__(kFwdThreads)
 nll_fwd_kernel(const float* __restrict__ y, const float* __restrict__ mu,
@@ -335,9 +339,21 @@ const char* dca_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// Floats of K1's workspace, which the caller allocates once per device,
-// zeroed, and passes to every K1 launch on that device.
+// Floats of K1's workspace, which the caller allocates once per thread and
+// device, zeroed, and passes to every K1 launch of that thread on that device.
 long long dca_nll_fwd_workspace_floats() { return kFwdWorkspaceFloats; }
+
+// A new non-blocking stream on `device` in *out: train/graphs.py captures
+// its graphs on streams of its own, outside PyTorch's pool, which hands the
+// same 32 streams to every thread in turn.
+int dca_stream_create(int device, void** out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t st;
+    err = cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking);
+    if (err == cudaSuccess) *out = (void*)st;
+    return (int)err;
+}
 
 // out: 4 floats, (sum, count, loss, denom).  pi is not read (and may be
 // NULL) unless with_pi, nor w unless with_w.

@@ -4,7 +4,8 @@
 sources at once in parallel processes, and links them into one shared
 library with a plain C interface, in ``dca_tpu_torch/_build/<hash>/``.  The
 hash covers the sources and the flags, so an edited source builds anew and
-an unchanged one is loaded from the earlier build.  A failed build raises.
+an unchanged one is loaded from the earlier build.  A failed build or load
+raises ``KernelError``, as the wrappers do for a failed launch.
 Nothing here runs at import time: this module is imported on machines with
 no ``nvcc`` and no card.
 """
@@ -30,11 +31,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build, to load or to launch: a fault
+    of the toolchain or of the card, never of a fit's configuration, so the
+    hyperparameter search lets it end the search (``hyper.py``)."""
+
+
 _P = ctypes.c_void_p
 _LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dca_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "dca_nll_fwd_workspace_floats": ([], ctypes.c_longlong),
+    # device, out: a new non-blocking stream on that device
+    "dca_stream_create": ([_I, ctypes.POINTER(_P)], _I),
     # y, mu, theta, pi, w, workspace, out, n, G, theta mode, pi mode, ridge,
     # with_pi, with_w, stream
     "dca_nll_fwd": ([_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _I, _P], _I),
@@ -57,7 +66,7 @@ def _nvcc() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
             "PATH): the CUDA kernels of dca_tpu_torch cannot be built"
         )
@@ -108,7 +117,7 @@ def build() -> str:
         failed = [(c, r) for c, r in zip(cmds + [link], results) if r[0] != 0]
         if failed:
             (cmd, (rc, text)) = failed[0]
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed with exit code {rc}: {' '.join(cmd)}\n{text}")
         os.replace(tmp_lib, lib_path)
     finally:
@@ -119,7 +128,11 @@ def build() -> str:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(build())
+    path = build()
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelError(f"the kernel library {path} does not load: {e}") from e
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import matmul_dtype
+from . import counters
 from .activations import MeanAct
 
 BN_EPS = 1e-3  # Keras BatchNormalization default (models/core.py BN_EPS)
@@ -37,14 +38,13 @@ _ACT_CODES = {"mean": 0, "disp": 1, "sigmoid": 2, "relu": 3, "selu": 4,
 SELU_SCALE = 1.0507009873554805
 SELU_ALPHA = 1.6732632423543772
 
-# Launches of the kernel, counted by its wrapper where it launches: all of
-# them, and those of each tiling of the plan.
+# Launches of the kernel, counted by its wrapper where it launches
+# (``counters.record``): all of them, and those of each tiling of the plan.
 launches = {"fused_dense": 0, "wide": 0, "splitk": 0}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    counters.reset(launches)
 
 
 def supported_activation(name) -> bool:
@@ -121,7 +121,7 @@ def max_clusters(device):
     a device."""
     import ctypes
 
-    from ._build import library
+    from ._build import KernelError, library
 
     table = _resident.get(device)
     if table is None:
@@ -133,7 +133,7 @@ def max_clusters(device):
                 err = lib.dca_fused_dense_max_clusters(s, ctypes.byref(n))
                 if err != 0:
                     msg = lib.dca_cuda_error_string(err).decode()
-                    raise RuntimeError(f"fused_dense (K4): cluster occupancy query failed: "
+                    raise KernelError(f"fused_dense (K4): cluster occupancy query failed: "
                                        f"CUDA error {err} ({msg})")
                 table.append(n.value)
         _resident[device] = table
@@ -246,7 +246,7 @@ def _kernel(x, kernel, bias, bn, activation, size_factors, launch_plan=None):
     """Launch K4 on CUDA tensors; see ``fused_dense_block``.  ``launch_plan``
     (default ``plan`` for this shape and device) lets a measurement try
     another split."""
-    from ._build import library
+    from ._build import KernelError, library
 
     lib = library()
     (B, K), N = x.shape, kernel.shape[1]
@@ -257,20 +257,19 @@ def _kernel(x, kernel, bias, bn, activation, size_factors, launch_plan=None):
     s = t = None
     if bn is not None:
         s, t = fold_bn(bn)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.dca_fused_dense(
             x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
             None if s is None else s.data_ptr(), None if t is None else t.data_ptr(),
             None if size_factors is None else size_factors.data_ptr(), out.data_ptr(),
             B, K, N, _ACT_CODES[activation], bn is not None,
-            size_factors is not None, matmul_dtype() is not None, *p,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            size_factors is not None, matmul_dtype() is not None, *p, stream,
         )
     if err != 0:
         msg = lib.dca_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_dense (K4) launch failed: CUDA error {err} ({msg})")
-    launches["fused_dense"] += 1
-    launches["wide" if p.kind == WIDE else "splitk"] += 1
+        raise KernelError(f"fused_dense (K4) launch failed: CUDA error {err} ({msg})")
+    counters.record(launches, ["fused_dense", "wide" if p.kind == WIDE else "splitk"], stream)
     return out
 
 

@@ -44,16 +44,19 @@ CUDA tensor they launch the kernels or raise.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from . import counters
 from .special import digamma, lgamma
 
 EPS = 1e-10
 THETA_CLIP = 1e6
 ZERO_THRESHOLD = 1e-8
 
-# Launches of each kernel, counted by its wrapper where it launches; the
-# _w names count the weighted variants.
+# Launches of each kernel, counted by its wrapper where it launches
+# (``counters.record``); the _w names count the weighted variants.
 launches = {f"{fam}_nll_{kind}{w}": 0 for fam in ("nb", "zinb")
             for kind in ("fwd", "bwd") for w in ("", "_w")}
 
@@ -62,8 +65,7 @@ _FULL, _ROW, _COLUMN, _SCALAR = 0, 1, 2, 3
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    counters.reset(launches)
 
 
 def _check(y, mu, theta, pi=None, w=None, allow_empty=False):
@@ -339,28 +341,36 @@ def zinb_nll_fused_w_reference(y, mu, theta, pi, w, ridge=0.0):
 
 def _raise_on(lib, err, what):
     if err != 0:
+        from ._build import KernelError
+
         msg = lib.dca_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+        raise KernelError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def _name(pi, w, kind):
     return f"{'nb' if pi is None else 'zinb'}_nll_{kind}{'' if w is None else '_w'}"
 
 
-# K1's workspace on each device: the per-block partials and the ticket
-# counter, zeroed once and never freed (csrc/fused_nll.cu)
-_workspaces = {}
+# K1's workspace, the per-block partials and the ticket counter
+# (csrc/fused_nll.cu), one for each thread and device, zeroed once and kept
+# for the thread's life: the K1 launches of two fits that run at once in
+# two threads, eager or replayed from their graphs, never share one
+_workspaces = threading.local()
 
 
 def _fwd_workspace(lib, device):
-    """K1's workspace on ``device``, allocated and zeroed at its first call,
-    which must come before any CUDA-graph capture that launches K1."""
-    work = _workspaces.get(device)
+    """This thread's K1 workspace on ``device``, allocated and zeroed at
+    the thread's first call there, which must come before any CUDA-graph
+    capture in this thread that launches K1 (the graph keeps its address)."""
+    mine = _workspaces.__dict__.setdefault("by_device", {})
+    work = mine.get(device)
     if work is None:
         work = torch.zeros(lib.dca_nll_fwd_workspace_floats(), device=device,
                            dtype=torch.float32)
-        torch.cuda.synchronize(device)  # zeroed before any stream uses it
-        _workspaces[device] = work
+        # zeroed before any of this thread's streams uses it; a stream's
+        # synchronization, not the device's: another thread may be capturing
+        torch.cuda.current_stream(device).synchronize()
+        mine[device] = work
     return work
 
 
@@ -374,6 +384,7 @@ def _fwd_out_kernel(y, mu, theta, pi, ridge, w=None):
     if not mu.is_cuda:
         raise ValueError("the K1 wrapper needs CUDA tensors")
     lib = library()
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
     with torch.cuda.device(mu.device):
         work = _fwd_workspace(lib, mu.device)
         out = torch.empty(4, device=mu.device, dtype=torch.float32)
@@ -382,12 +393,11 @@ def _fwd_out_kernel(y, mu, theta, pi, ridge, w=None):
             None if pi is None else pi.data_ptr(), None if w is None else w.data_ptr(),
             work.data_ptr(), out.data_ptr(), mu.numel(), mu.shape[1],
             _mode(theta, mu.shape), 0 if pi is None else _mode(pi, mu.shape),
-            float(ridge), pi is not None, w is not None,
-            torch.cuda.current_stream(mu.device).cuda_stream,
+            float(ridge), pi is not None, w is not None, stream,
         )
     name = _name(pi, w, "fwd")
     _raise_on(lib, err, f"{name} (K1{'' if w is None else 'w'})")
-    launches[name] += 1
+    counters.record(launches, [name], stream)
     return out
 
 
@@ -413,6 +423,7 @@ def _bwd_kernel(y, mu, theta, pi, ridge, g, denom, w=None):
     dmu = torch.empty_like(mu)
     dth = torch.empty_like(mu)
     dpi = None if pi is None else torch.empty_like(mu)
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
     with torch.cuda.device(mu.device):
         err = lib.dca_nll_bwd(
             y.data_ptr(), mu.data_ptr(), theta.data_ptr(),
@@ -421,12 +432,11 @@ def _bwd_kernel(y, mu, theta, pi, ridge, g, denom, w=None):
             dmu.data_ptr(), dth.data_ptr(), None if dpi is None else dpi.data_ptr(),
             mu.numel(), mu.shape[1], _mode(theta, mu.shape),
             0 if pi is None else _mode(pi, mu.shape),
-            float(ridge), pi is not None, w is not None,
-            torch.cuda.current_stream(mu.device).cuda_stream,
+            float(ridge), pi is not None, w is not None, stream,
         )
     name = _name(pi, w, "bwd")
     _raise_on(lib, err, f"{name} (K2{'' if w is None else 'w'})")
-    launches[name] += 1
+    counters.record(launches, [name], stream)
     # the broadcast operands' cotangents, summed outside the kernel as the
     # JAX package's _reduce_to sums them outside its Pallas kernel
     dth = _reduce_to(dth, theta.shape)

@@ -14,9 +14,10 @@ there, and run one epoch for a permutation of the train rows:
   * ``GraphEpoch`` captures the full step and the trailing step once, as
     two CUDA graphs, and replays the full one n_full times and the
     trailing one once an epoch, after one host-to-device copy of the
-    permutation.  Before capturing, it runs each step once eagerly on a
-    side stream, which builds the kernel library, allocates and zeroes K1's
-    workspace (a synchronizing first call) and creates cuBLAS's handle, and
+    permutation.  Before capturing, it runs each step once eagerly on the
+    capture stream, which builds the kernel library, allocates and zeroes
+    K1's workspace (a synchronizing first call) and creates cuBLAS's handle,
+    and
     then restores in place every tensor the steps wrote and the dropout
     generator's state, so the warm-up moves nothing of the fit.  The fit's
     generator is registered with each graph, so a replay draws the dropout
@@ -32,41 +33,53 @@ trainer's full and trailing step on each of its two part buffers
 The kernels' launch counters (``ops/fused_loss.launches``,
 ``ops/fused_dense.launches``) count launches on the card: a wrapper counts
 when it enqueues its kernel, which under capture enqueues it into the graph
-and launches nothing, so ``GraphSteps`` takes each graph's counts off the
-counters after its capture and adds them back at every replay.  The
-warm-up's launches are real and stay counted.
+and launches nothing, so ``GraphSteps`` tallies each graph's launches apart
+from the counters (``ops/counters.capturing``) and adds them at every
+replay.  The warm-up's launches are real and are counted.
+
+Fits may run at once in several threads (the trials of ``hyper.py``), each
+on a stream of its own.  So a capture runs in CUDA's "thread_local" mode,
+which lets other threads allocate, synchronize their streams and read back
+meanwhile, on a stream made for the capturing thread (``_own_stream``),
+outside PyTorch's pool, whose 32 streams go to every thread in turn and
+would let another thread's work into the graph; and captures take turns
+(``_CAPTURE_LOCK``), PyTorch's rule of one capture at a time in a process.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
 import time
 
 import torch
 
-from ..ops import fused_dense, fused_loss
+from ..ops import counters
 
-_COUNTERS = (fused_loss.launches, fused_dense.launches)
-
-
-def _counts():
-    return [dict(c) for c in _COUNTERS]
+_CAPTURE_LOCK = threading.Lock()
+_own = threading.local()
 
 
-def _take_since(before):
-    """Take the launches counted since ``before`` off the counters and
-    return them."""
-    delta = []
-    for counter, was in zip(_COUNTERS, before):
-        delta.append({k: counter[k] - was[k] for k in counter})
-        counter.update(was)
-    return delta
+def _own_stream(device):
+    """This thread's capture stream on CUDA ``device``: a non-blocking
+    stream made for it by the kernel library (``dca_stream_create``), once
+    per thread and device and kept for the thread's life."""
+    from ..ops._build import KernelError, library
 
-
-def _add(delta, times):
-    for counter, d in zip(_COUNTERS, delta):
-        for k, v in d.items():
-            counter[k] += v * times
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    mine = _own.__dict__.setdefault("streams", {})
+    stream = mine.get(index)
+    if stream is None:
+        lib = library()
+        handle = ctypes.c_void_p()
+        err = lib.dca_stream_create(index, ctypes.byref(handle))
+        if err != 0:
+            raise KernelError(f"stream creation failed: CUDA error {err} "
+                              f"({lib.dca_cuda_error_string(err).decode()})")
+        stream = torch.cuda.ExternalStream(handle.value, device=torch.device("cuda", index))
+        mine[index] = stream
+    return stream
 
 
 class EagerEpoch:
@@ -96,41 +109,42 @@ class GraphSteps:
     """Captures each of ``steps`` ({key: zero-argument callable}) as a
     CUDA graph once, and replays them by key.
 
-    Before capturing, each step runs once eagerly on a side stream, which
-    builds the kernel library, allocates and zeroes K1's workspace (a
-    synchronizing first call) and creates cuBLAS's handle; then every tensor
+    Before capturing, each step runs once eagerly on the capture stream,
+    which builds the kernel library, allocates and zeroes this thread's K1
+    workspace (a synchronizing first call) and creates cuBLAS's handle and
+    workspace for the stream; then every tensor
     of ``state`` (each tensor the steps write) and the dropout
     ``generator``'s state are restored in place, so the warm-up moves
     nothing of the fit.  The generator is registered with each graph, so a
     replay draws the dropout masks an eager call would.  The graphs share
     one memory pool.  ``capture_s`` is the wall time of the warm-up and
-    the captures; a failed capture raises."""
+    the captures; a failed capture raises.  ``launches[key]`` is the tally
+    of a replay's launches (``ops/counters.capturing``)."""
 
     def __init__(self, steps, state, generator, device):
         t0 = time.perf_counter()
-        self._warm_up(steps, list(state), generator, device)
+        stream = _own_stream(device)
+        self._warm_up(steps, list(state), generator, device, stream)
         self.graphs = {}
         self.launches = {}
         pool = None
         for key, fn in steps.items():
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(generator)
-            before = _counts()
-            try:
-                with torch.cuda.graph(graph, pool=pool):
+            with _CAPTURE_LOCK, counters.capturing(stream.cuda_stream) as tally:
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
                     fn()
-            finally:
-                self.launches[key] = _take_since(before)
+            self.launches[key] = tally
             self.graphs[key] = graph
             pool = graph.pool()
-        torch.cuda.synchronize(device)
+        stream.synchronize()  # the warm-up; not the device: others may capture
         self.capture_s = time.perf_counter() - t0
 
     @staticmethod
-    def _warm_up(steps, state, generator, device):
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+    def _warm_up(steps, state, generator, device, stream):
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
             saved = [t.detach().clone() for t in state]
             rng = generator.get_state()
             for fn in steps.values():
@@ -139,7 +153,7 @@ class GraphSteps:
                 for t, s in zip(state, saved):
                     t.copy_(s)
             generator.set_state(rng)
-        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.current_stream(device).wait_stream(stream)
 
     def replay(self, key, times=1):
         """Replay the graph of ``key`` ``times`` times and count its
@@ -147,7 +161,7 @@ class GraphSteps:
         graph = self.graphs[key]
         for _ in range(times):
             graph.replay()
-        _add(self.launches[key], times)
+        counters.add(self.launches[key], times)
 
 
 class GraphEpoch(EagerEpoch):

@@ -1216,12 +1216,20 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
 def train_with_args(args):
     """The CLI's run: read -> normalize -> build -> train -> predict ->
     write, or, for h5ad output and outputs above DCA_TPU_HOST_DENSE_BYTES,
-    train -> streaming denoise and write."""
+    train -> streaming denoise and write; with ``--hyper`` the search of
+    ``hyper.py`` instead."""
     from ..data import io as dio
     from ..models.network import get_ae_type
 
+    random.seed(42)
+    np.random.seed(42)
+    os.environ["PYTHONHASHSEED"] = "0"
+
     if args.hyper:
-        raise _not_ported("--hyper")
+        from ..hyper import hyper
+
+        hyper(args)
+        return
     ae_cls = get_ae_type(args.type)
     devices = args.devices
     if devices is not None:
@@ -1231,10 +1239,6 @@ def train_with_args(args):
         if devices != "all":
             devices = int(devices)
     device = resolve_device(args.device)
-
-    random.seed(42)
-    np.random.seed(42)
-    os.environ["PYTHONHASHSEED"] = "0"
 
     adata = dio.read_dataset(
         args.input,

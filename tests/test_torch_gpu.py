@@ -16,7 +16,9 @@ layers kept off K4; and the fit's artefacts: a resumed graph fit the
 uninterrupted fit's bits at dropout 0.1, in memory and streamed, a
 TensorBoard fit the plain fit's, the TensorBoard gradient's K2 and K2w
 against their plain versions, and ``load_weights`` reaching a graph
-captured before it (with h5py).
+captured before it (with h5py); two graph fits run at once in two threads
+(the hyperparameter search's trials) each giving its solo bits and the
+launch counters exact, and K1 at a trial's validation shape.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -25,6 +27,7 @@ machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -q
 """
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -33,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, OPTIONS, STEP_COUNTED, _grad_check,
+from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, LOSS_RTOL, OPTIONS, STEP_COUNTED,
+                        _big_loss_inputs, _grad_check,
                         _loss_inputs, _on, _small_counts, _steps, _ulps, _want_launches,
                         _warmups, _weights, check_dense_case, check_k2_call,
                         check_weighted_case, dense_inputs, options_fit, recording_k2)
@@ -1020,3 +1024,81 @@ def test_load_weights_reaches_a_graph_captured_before_on_card(cuda, tmp_path):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+def _solo_or_concurrent_fit(cuda, adata, ae_type, dropout, stream=None):
+    """A 3-epoch graph fit of ``ae_type`` on ``adata``; on ``stream`` when
+    given.  Returns its history and its final parameters and buffers."""
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                   hidden_dropout=dropout, seed=3, device=cuda).build()
+        hist = train(adata, net, epochs=3, verbose=False, seed=5)
+        state = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
+    return hist.history, state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [2])
+def test_two_fits_in_two_threads_give_their_solo_bits_on_card(cuda, rounds):
+    """Two graph fits (zinb-conddisp at dropout 0.1, nb-conddisp) run at
+    once in two threads, each on a stream of its own, as the
+    hyperparameter search's trials run: each gives the bits it gives alone,
+    and the launch counters the sum of the two solo fits' launches, exactly
+    (their K1 workspaces, captures and tallies kept apart).  The switch
+    interval is shortened so that the threads interleave finely."""
+    import sys
+    import threading
+
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(1000, 300, 9))))
+    cases = [("zinb-conddisp", 0.1), ("nb-conddisp", 0.0)]
+    solo, solo_launches = [], []
+    for ae_type, dropout in cases:
+        fused_loss.reset_launches()
+        solo.append(_solo_or_concurrent_fit(cuda, adata, ae_type, dropout))
+        torch.cuda.synchronize()
+        solo_launches.append(dict(fused_loss.launches))
+    want = {k: sum(d[k] for d in solo_launches) for k in fused_loss.launches}
+    assert want["zinb_nll_fwd"] > 0 and want["nb_nll_fwd"] > 0
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for _ in range(rounds):
+            fused_loss.reset_launches()
+            results, errors = [None, None], []
+            start = threading.Barrier(2)
+
+            def run(i):
+                try:
+                    start.wait(timeout=60)
+                    results[i] = _solo_or_concurrent_fit(cuda, adata, *cases[i],
+                                                         stream=torch.cuda.Stream(cuda))
+                except Exception as e:  # reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert not any(t.is_alive() for t in threads)
+            assert not errors, errors
+            torch.cuda.synchronize()
+            assert dict(fused_loss.launches) == want
+            for (hist, state), (s_hist, s_state) in zip(results, solo):
+                assert hist == s_hist
+                assert all(torch.equal(state[k], s_state[k]) for k in s_state)
+    finally:
+        sys.setswitchinterval(interval)
+
+
+@pytest.mark.gpu
+def test_k1_at_the_trial_validation_shape_matches_plain_version_on_card(cuda):
+    """ZINB K1 at (546, 3451), the 20% validation of a hyperparameter
+    trial at 2730 cells, with the trial's ridge: loss rel err <= 1e-5 and
+    the count exact against the plain version on the same tensors."""
+    y, mu, th, pi = _big_loss_inputs(cuda, 546, 3451)
+    got = fused_loss._fwd_out_kernel(y, mu, th, pi, 0.01)
+    ref = fused_loss._fwd_out_reference(y, mu, th, pi, 0.01)
+    assert abs(got[2].item() - ref[2].item()) <= LOSS_RTOL * abs(ref[2].item())
+    assert got[1].item() == ref[1].item()

@@ -170,7 +170,7 @@ def test_cli_prelu_adam_on_cpu(input_tsv, tmp_path, capsys):
         assert pickle.load(f)["ctor"]["activation"] == "PReLU"
 
 
-@pytest.mark.parametrize("flags", [["--hyper"], ["--modelparallel", "2"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"], ["--modelparallel", "2"]])
 def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
     with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
         main([input_tsv, str(tmp_path / "out"), "-e", "1", "--device", "cpu", *flags])
