@@ -16,7 +16,10 @@ epoch of the main path, and the loss kernels' own device time.
    graph path the device operations one replay of the full step makes,
    and the kernels that take the most device time.  The profiler's own
    cost lengthens the wall time.  The whole tables go to
-   ``chiprun_out/profile_eager.txt`` and ``profile_graph.txt``.
+   ``chiprun_out/profile_eager.txt`` and ``profile_graph.txt``.  Then the
+   same for the whole fit on the device (``compiled=True``: one graph an
+   epoch, its epoch times the device's between the replays; the profile
+   starts after its capture), into ``profile_compiled.txt``.
    ``--epoch`` runs this section alone.
 2. K1, K1w, K2 and K2w alone at the training step's (32, 3451), NB and
    ZINB: the kernels' mean device time from torch.profiler's trace, and
@@ -50,6 +53,13 @@ epoch of the main path, and the loss kernels' own device time.
    (``History.epoch_s``), its mean logging time
    (``History.tb_s``) and the trace file's bytes, after an untimed
    warm-up fit.
+5. The whole-epoch graph (``profile_whole_epoch``, with section 1 and
+   ``--epoch``): ``compiled=True``'s graph with its IF node, the same
+   graph with the epoch captured in line, and the Python-epoch loop's
+   step graphs, three 6-epoch fits each in turns: each fit's median epoch,
+   its capture, and the device memory it leaves allocated; then the
+   host's enqueue of a replay of the whole-epoch graph before and after a
+   short ``torch.profiler`` session in the process.
 
 Prints the card's name and power limit first.  Nothing here imports JAX
 or the JAX package.
@@ -89,20 +99,22 @@ def _profiled_ms(fn, name, n=N_PROFILED):
     return None
 
 
-def _fit_profiled(adata, ae_type, graphs, epochs):
+def _fit_profiled(adata, ae_type, graphs, epochs, compiled=False):
     """One ``train()`` of ``epochs`` epochs with torch.profiler started once
-    the epoch runner exists (after the graph path's warm-up and capture)
-    and stopped after the fit; returns (the profile, its wall seconds, the
-    runner)."""
+    the epoch runner exists (after the graph path's warm-up and capture;
+    with ``compiled``, the whole-fit graph's) and stopped after the fit;
+    returns (the profile, its wall seconds, the runner)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.train import compiled as whole
     from dca_tpu_torch.train import loop
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     made = {}
-    base = loop.GraphEpoch if graphs else loop.EagerEpoch
+    module = whole if compiled else loop
+    base = whole.GraphFit if compiled else loop.GraphEpoch if graphs else loop.EagerEpoch
 
     class Profiled(base):
         def __init__(self, *args, **kwargs):
@@ -112,16 +124,16 @@ def _fit_profiled(adata, ae_type, graphs, epochs):
             prof.start()
             made["t0"] = time.perf_counter()
 
-    name = "GraphEpoch" if graphs else "EagerEpoch"
-    setattr(loop, name, Profiled)
+    name = base.__name__
+    setattr(module, name, Profiled)
     try:
         net = get_ae_type(ae_type)(input_size=adata.n_vars, device="cuda").build()
-        loop.train(adata, net, epochs=epochs, verbose=False, _graphs=graphs)
+        loop.train(adata, net, epochs=epochs, verbose=False, _graphs=graphs, compiled=compiled)
         torch.cuda.synchronize()
         wall = time.perf_counter() - made["t0"]
         prof.stop()
     finally:
-        setattr(loop, name, base)
+        setattr(module, name, base)
     return prof, wall, made["runner"]
 
 
@@ -142,14 +154,15 @@ def profile_epoch(ae_type, epochs=3):
 
     adata = io.normalize(io.read_dataset(AnnData(make_paul15_like())))
     steps = -(-int(adata.n_obs * 0.9) // 32)
-    for graphs in (False, True):
-        path = "graph" if graphs else "eager"
+    for graphs, compiled in ((False, False), (True, False), (True, True)):
+        path = "compiled" if compiled else "graph" if graphs else "eager"
         walls, captures = [], []
         for _ in range(2):  # the first fit is the warm-up
             net = get_ae_type(ae_type)(input_size=adata.n_vars, device="cuda").build()
-            hist = train(adata, net, epochs=epochs, verbose=False, _graphs=graphs)
+            hist = train(adata, net, epochs=epochs, verbose=False, _graphs=graphs,
+                         compiled=compiled)
             walls, captures = hist.epoch_s, hist.capture_s
-        prof, wall, runner = _fit_profiled(adata, ae_type, graphs, epochs)
+        prof, wall, runner = _fit_profiled(adata, ae_type, graphs, epochs, compiled)
         table = prof.key_averages()
         items = [e for e in table if e.device_type == DeviceType.CUDA]
         busy = sum(e.device_time_total for e in items) / 1e6
@@ -163,7 +176,7 @@ def profile_epoch(ae_type, epochs=3):
               f"({wall / epochs * 1e3:.1f} an epoch), device busy {busy * 1e3:.1f} ms, idle "
               f"share {1 - busy / wall:.3f}, {ops} device operations "
               f"({ops / (epochs * steps):.0f} per step, validation included)")
-        if graphs:
+        if graphs and not compiled:
             full, step_i = runner.graphs[False], runner.bufs.step_i
 
             def replay():
@@ -176,6 +189,84 @@ def profile_epoch(ae_type, epochs=3):
                   f"replay of the full step: {ops_each - 1:.0f}")
         for e in sorted(items, key=lambda e: -e.device_time_total)[:6]:
             print(f"  {e.device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def profile_whole_epoch(ae_type, fits=3, epochs=6):
+    """Section 5: the whole-epoch graph of ``compiled=True`` with its IF
+    node, the same graph with the body captured in line (no IF node:
+    ``ops/conditional.if_body`` replaced for the fit), and the Python-epoch
+    loop's step graphs, ``fits`` fits of ``epochs`` epochs each, in turns,
+    from one seed's weights at dropout 0.1: each fit's median epoch over
+    epochs 2 on (device time between the replays' events for the whole
+    epoch, the host wall for the loop), its capture, and the device memory
+    left allocated after it (the graph's pool released)."""
+    import contextlib
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dca_tpu_torch.data import io
+    from dca_tpu_torch.data.adata import AnnData
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.ops import conditional
+    from dca_tpu_torch.train.loop import train
+
+    @contextlib.contextmanager
+    def in_line(stop, stream, body_stream, pool):
+        yield
+
+    adata = io.normalize(io.read_dataset(AnnData(make_paul15_like())))
+    state = {k: v.clone() for k, v in get_ae_type(ae_type)(
+        input_size=adata.n_vars, hidden_size=(64, 32, 64), device="cuda").build()
+        .model.state_dict().items()}
+    if_body = conditional.if_body
+    medians = {"IF node": [], "in line": [], "loop": []}
+    for kind in ("IF node", "in line", "loop", "loop", "in line", "IF node") * (fits // 2 + 1):
+        if len(medians[kind]) == fits:
+            continue
+        conditional.if_body = in_line if kind == "in line" else if_body
+        try:
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                       hidden_dropout=0.1, device="cuda").build()
+            net.model.load_state_dict(state)
+            hist = train(adata, net, epochs=epochs, verbose=False,
+                         compiled=kind != "loop", early_stop=0, reduce_lr=0)
+            torch.cuda.synchronize()
+        finally:
+            conditional.if_body = if_body
+        medians[kind].append(float(np.median(hist.epoch_s[1:])) * 1e3)
+        del net
+        gc.collect()
+        torch.cuda.synchronize()
+        print(f"whole epoch, {kind}: epochs {[round(t * 1e3, 2) for t in hist.epoch_s]} ms, "
+              f"capture {hist.capture_s} s, device memory left after the fit "
+              f"{(torch.cuda.memory_allocated() - base) / 2**20:.2f} MiB")
+    print("whole epoch, medians of epochs 2-" + str(epochs) + ": "
+          + "; ".join(f"{k} {[round(v, 2) for v in vals]} ms" for k, vals in medians.items()))
+    # the host's enqueue of a replay, before and after a short profiler
+    # session in the same process (CUPTI stays attached to the launches)
+    from torch.profiler import ProfilerActivity, profile
+
+    enqueue = []
+    for profiled in (False, True):
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                x = torch.ones(16, device="cuda")
+                for _ in range(10):
+                    x.add_(1.0)
+                torch.cuda.synchronize()
+        net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                   hidden_dropout=0.1, device="cuda").build()
+        net.model.load_state_dict(state)
+        hist = train(adata, net, epochs=epochs, verbose=False, compiled=True, early_stop=0,
+                     reduce_lr=0)
+        enqueue.append(hist.fit.enqueue_s / epochs * 1e3)
+    print(f"whole epoch, IF node: the host's enqueue {enqueue[0]:.3f} ms a replay, "
+          f"{enqueue[1]:.3f} ms after a profiler session of 10 kernels")
 
 
 def _device_ops(fn, n=N_PROFILED):
@@ -515,6 +606,9 @@ def main():
         profile_tensorboard(args.ae_type)
         return 0
     if not args.k2:
+        # first: after a profiler session each launch of the whole-epoch
+        # graph costs milliseconds of host time (PERF.md)
+        profile_whole_epoch(args.ae_type)
         profile_epoch(args.ae_type)
     if args.epoch:
         return 0

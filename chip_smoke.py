@@ -57,6 +57,12 @@ Phases, each of which must pass:
    under every epilogue and leaves the other rows' bits as they were; two
    runs give the same bits.  K1 and K1w also give (sum, count, loss,
    denom) in one launch: the loss and denominator come from the kernel.
+   graph_if (``csrc/graph_if.cu``, the kernel that sets the whole-fit
+   graph's IF node, no TPU counterpart) in a graph of 3 IF nodes replayed
+   with the flag false and true: each body runs exactly where its plain
+   version (``conditional.if_reference``) is true; then its time, a node
+   with its body skipped in a graph of 100, against ``logical_not`` of
+   the flag, in turns (``phase_graph_if``).
 2. Kernel timings at (32, 3451), NB and ZINB: median device time of 50
    launches after a warm-up, each launch a CUDA graph replay between CUDA
    events (see ``_device_ms``); beside them the plain version's time and
@@ -144,7 +150,12 @@ Phases, each of which must pass:
    for 1 epoch on the first 546 cells and the genes they express (16 steps,
    55 validation rows padded to 56): the same history on both ranks,
    16 / 16 K1/K2, 2 K1w and 1 K2w a rank (the NB K2w's launch in a fit),
-   rank 0's event file.  A rank that fails or outlives its time
+   rank 0's event file.  Then zinb-conddisp with ``compiled=True`` for 2
+   epochs on the first 2720 cells (2448 train and 272 validation rows,
+   which divide the ranks: the whole fit, eager under the group): the
+   same history on both ranks, within rtol 1e-3 of phase 13's one-card
+   compiled fit of the same cells, 156 / 154 K1/K2 a rank and no weighted
+   kernel.  A rank that fails or outlives its time
    limit fails the phase.  The data-parallel epoch time is printed: two
    ranks sharing one card measure no scaling.
 
@@ -249,7 +260,35 @@ Phases, each of which must pass:
    ``sim-drop3-group2`` case of ``simulation_grid`` through ``to_anndata``
    and ``dca()``, its silhouettes printed.
 
-The phases run in the order 1-4, 10, 11, 12, 9, 8, 5-7.  Prints the card's name and
+13. The whole fit on the device (``train(compiled=True)``,
+   ``train/compiled.py``): zinb-conddisp and nb-conddisp 64-32-64 at
+   phase 4's 2730 x 3451, batch 32, 10% validation, RMSprop, dropout 0.1,
+   from one seed's weights.  (a) 5 epochs: the fit from its whole-epoch
+   CUDA graph (``train/graphs.py::GraphFit``) the bits of the same fit
+   from Python on the card (``_graphs=False``): histories, epochs run,
+   final parameters.  (b) Against the Python-epoch loop's graph fit
+   (phase 4's path) under the same row orders, where no callback fires:
+   the final parameters the same bits or within rtol 1e-6, val_loss the
+   same bits, loss within rtol 1e-6 (its sums in float32, the loop's in
+   float64).  (c) ``early_stop=2``, ``reduce_lr=0``, lr 0.01 over 300
+   epochs: it stops early after as many epochs as from Python, the same
+   bits, NaN history past the stop; an epoch's time and one after the
+   stop (device time between the replays' events) printed.  (d)
+   ``save_weights=True``: the state the fit hands ``save_weights`` (its
+   file write replaced: the card's machine has no h5py) is the bits of
+   the same fit cut at its best epoch, and the network keeps the final
+   state.  (e) The launches, set to 0 just before each graph fit: K1 a
+   step and one for the validation, K2 a step, for each epoch run and
+   the warm-up epoch (468 / 462 for 5 epochs), never for an epoch after
+   the stop; graph_if once a replay (5; 300 with the early stop).  Then
+   the compiled epoch against the Python-epoch loop's graph epoch, three
+   5-epoch fits each in turns (medians of epochs 2-5), and the capture
+   times; and the one-card ``dca()`` compiled fit on the first 2720 cells
+   that phase 7 holds its ranks to.
+
+The phases run in the order 1-3, 13, 4, 10, 11, 12, 9, 8, 5-7: phase 13
+before any profiler session (phase 4's TensorBoard fit), which leaves
+each later launch of its whole-epoch graph milliseconds of host time.  Prints the card's name and
 power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
 non-zero, with no result line, when there is no CUDA device or a phase
@@ -2023,6 +2062,14 @@ def _dp_rank(rank, world, port, out_dir, backend):
             if rank == 0:
                 np.savez(os.path.join(out_dir, f"{ae_type}-params.npz"),
                          **{k: v.cpu().numpy() for k, v in net.model.state_dict().items()})
+    # the whole fit on the device (compiled=True) on a split that divides
+    # the ranks: eager under the group, one read of the stop flag an epoch
+    fl.reset_launches()
+    ret, _ = dca_tpu_torch.dca(AnnData(counts[:DP_COMPILED_CELLS].copy()),
+                               ae_type="zinb-conddisp", epochs=2,
+                               training_kwds={"compiled": True}, **kw)
+    torch.cuda.synchronize()
+    res["compiled"] = {"history": ret.uns["dca_loss_history"], "launches": dict(fl.launches)}
     # nb-conddisp logging to TensorBoard, on the first DP_NB_TB_CELLS cells
     # and the genes they express (a traced data-parallel epoch is slow): its
     # gradient on the padded validation block is the NB K2w's launch in a fit
@@ -2078,16 +2125,18 @@ def _free_port():
 
 
 def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo",
-                        val_rtol=1e-3):
+                        val_rtol=1e-3, single_compiled=None):
     """Phase 7: the data-parallel fit, by default 2 ranks on the one card
     over gloo (module docstring; ``chip_dp.py`` runs it with a card a rank
     over NCCL).  ``single_hist``: phase 4's zinb-conddisp history, which
     the loss must match within rtol 1e-3 and val_loss within
     ``val_rtol``; ``single_tb``: phase 4's TensorBoard histograms, whose
     ``grads/`` statistics (min, max, num, sum, sum of squares) rank 0's
-    must match within ``val_rtol`` too.  Returns each run's per-rank
-    launches, the per-epoch time and the gradients' largest relative
-    difference."""
+    must match within ``val_rtol`` too; ``single_compiled``: the one-card
+    ``compiled=True`` history on the first DP_COMPILED_CELLS cells (phase
+    13), which the ranks' compiled fit must match likewise.  Returns each
+    run's per-rank launches, the per-epoch time and the gradients' largest
+    relative difference."""
     import multiprocessing
 
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
@@ -2194,6 +2243,30 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
                for n in os.listdir(os.path.join(out_dir, "tb_nb", "tb"))),
            "phase 7: the nb-conddisp TensorBoard fit wrote no event file")
     out["tensorboard_nb"] = [r["launches"] for r in nb_tb]
+    # the compiled fit: 2448 train rows (76 full steps, a trailing 16) and
+    # 272 validation rows, which divide the ranks: no weighted kernel
+    comp = [r["compiled"] for r in ranks]
+    comp_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), zinb_nll_fwd=156, zinb_nll_bwd=154)
+    for rk, r in enumerate(comp):
+        _check(r["history"] == comp[0]["history"] and len(r["history"]["loss"]) == 2,
+               f"phase 7: the compiled fit's history on rank {rk}: {r['history']}, rank 0's "
+               f"{comp[0]['history']}")
+        _check(r["launches"] == comp_want, f"phase 7: rank {rk}'s compiled fit launched "
+                                           f"{r['launches']}, expected {comp_want}")
+    rel = {}
+    if single_compiled is not None:
+        for key, rtol in (("loss", 1e-3), ("val_loss", val_rtol)):
+            ref = np.asarray(single_compiled[key])
+            rel[key] = float(np.max(np.abs(np.asarray(comp[0]["history"][key]) - ref)
+                                    / np.abs(ref)))
+            _check(rel[key] <= rtol, f"phase 7: the compiled fit's {key} "
+                   f"{comp[0]['history'][key]} vs the one-card compiled fit's {ref.tolist()}, "
+                   f"relative difference {rel[key]:.3e} > {rtol}")
+    out["compiled"] = [r["launches"] for r in comp]
+    print(f"phase 7: compiled=True zinb-conddisp on the first {DP_COMPILED_CELLS} cells, 2 "
+          f"epochs: the same history on every rank {comp[0]['history']}; against the one-card "
+          f"compiled fit {single_compiled}: largest relative differences {rel}; launches "
+          f"{comp[0]['launches']} a rank")
     print(f"phase 7: nb-conddisp with tensorboard=True on the first {DP_NB_TB_CELLS} cells, "
           f"1 epoch: the same history on every rank, launches {nb_tb[0]['launches']} a rank "
           "(the NB K2w in a fit)")
@@ -3388,6 +3461,270 @@ def phase_quality(dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the whole fit on the device (compiled=True)
+# ---------------------------------------------------------------------------
+
+COMPILED_DROPOUT = 0.1
+COMPILED_EPOCHS = 5
+COMPILED_STOP = dict(epochs=300, early_stop=2, reduce_lr=0, learning_rate=0.01)
+DP_COMPILED_CELLS = 2720  # 2448 train and 272 validation rows: no padding on 2 or 4 ranks
+
+
+def graph_if_graph(dev, n_nodes):
+    """A CUDA graph of ``n_nodes`` IF nodes (``ops/conditional.py``), each
+    read from one ``stop`` flag and each with a body that adds 1 to its
+    own element of ``counts``.  Returns (graph, stop, counts)."""
+    import torch
+
+    from dca_tpu_torch.ops.conditional import if_body
+    from dca_tpu_torch.ops import counters
+    from dca_tpu_torch.train.graphs import _own_stream
+
+    stop = torch.zeros(1, dtype=torch.bool, device=dev)
+    counts = torch.zeros(n_nodes, device=dev)
+    stream, inner = _own_stream(dev), _own_stream(dev, "body")
+    graph = torch.cuda.CUDAGraph()
+    pool = torch.cuda.graph_pool_handle()
+    with counters.capturing(stream.cuda_stream), counters.capturing(inner.cuda_stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            for i in range(n_nodes):
+                with if_body(stop, stream, inner, pool):
+                    counts[i:i + 1].add_(1.0)
+    return graph, stop, counts
+
+
+def phase_graph_if(dev):
+    """The kernel that sets the IF node's condition (``csrc/graph_if.cu``)
+    against its plain version (``conditional.if_reference``): over replays
+    with ``stop`` false, true and false again, each body runs exactly where
+    the plain condition is true (every count equal, error 0).  Then its
+    time: the median replay of a graph of 100 IF nodes with ``stop`` set
+    (each the kernel and a skipped body) over 100, against a graph of 100
+    ``torch.logical_not`` of the flag (the plain version) over 100, in
+    turns.  Returns {max_abs_err, ms, plain_ms, bound_ms, bound_by}."""
+    import torch
+
+    from dca_tpu_torch.ops.conditional import if_reference
+
+    graph, stop, counts = graph_if_graph(dev, 3)
+    want = torch.zeros_like(counts)
+    for flag in (False, True, False, True, True):
+        stop.fill_(flag)
+        graph.replay()
+        want += if_reference(stop).float()
+    torch.cuda.synchronize()
+    err = float((counts - want).abs().max())
+    _check(err == 0.0, f"phase 1: the IF nodes ran {counts.tolist()} times, the plain "
+                       f"condition {want.tolist()}")
+
+    n = 100
+    graph, stop, counts = graph_if_graph(dev, n)
+    stop.fill_(True)
+    out = torch.empty(1, dtype=torch.bool, device=dev)
+    plain = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(plain):
+        for _ in range(n):
+            torch.logical_not(stop, out=out)
+
+    def timed(g):
+        for _ in range(5):
+            g.replay()
+        torch.cuda.synchronize()
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(N_TIMED)]
+        torch.cuda._sleep(50_000_000)
+        for s, e in events:
+            s.record()
+            g.replay()
+            e.record()
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in events])) / n
+
+    times = {True: [], False: []}
+    for kernel in IN_TURNS:
+        times[kernel].append(timed(graph if kernel else plain))
+    torch.cuda.synchronize()
+    _check(float(counts.sum()) == 0.0, "phase 1: a body ran with stop set")
+    bound_ms, bound_by = _bound_ms(1, 1)  # one byte read, one comparison
+    res = {"max_abs_err": err, "ms": float(np.median(times[True])),
+           "plain_ms": float(np.median(times[False])), "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    print(f"phase 1: graph_if (the IF node's condition) the plain condition's over 5 replays "
+          f"of 3 nodes; {res['ms'] * 1e3:.2f} us a node with its body skipped against "
+          f"{res['plain_ms'] * 1e3:.2f} us a plain logical_not (medians of {N_TIMED} replays of "
+          f"{n}, in turns)")
+    return res
+
+
+def _compiled_fit(adata, state, ae_type, graphs=True, compiled=True, **kw):
+    """``train()`` of ``ae_type`` 64-32-64 at dropout 0.1 on the card from
+    ``state``; returns (History, launches of K1/K2 and graph_if, network)."""
+    import torch
+
+    from dca_tpu_torch.models.network import get_ae_type
+    from dca_tpu_torch.ops import conditional
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.train.loop import train
+
+    net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                               hidden_dropout=COMPILED_DROPOUT, device="cuda").build()
+    net.model.load_state_dict(state)
+    fl.reset_launches()
+    conditional.reset_launches()
+    kw.setdefault("epochs", COMPILED_EPOCHS)
+    hist = train(adata, net, verbose=False, compiled=compiled, _graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    launches = {**fl.launches, **conditional.launches}
+    return hist, launches, net
+
+
+def _state_of(net):
+    return {k: v.detach().clone() for k, v in net.model.state_dict().items()}
+
+
+def phase_compiled(dev, card):
+    """Phase 13: the whole fit on the device (``train(compiled=True)``,
+    ``train/compiled.py``), zinb-conddisp and nb-conddisp 64-32-64 at
+    2730 x 3451, batch 32, 10% validation, RMSprop, dropout 0.1 (module
+    docstring).  Returns the numbers the result lines print."""
+    import torch
+
+    from dca_tpu_torch.models.network import get_ae_type
+
+    adata = _prepped_paul15()
+    steps = _steps(adata.n_obs)
+    res = {"launches": {}, "capture_s": {}}
+    for ae_type in ("zinb-conddisp", "nb-conddisp"):
+        lk = ae_type.split("-")[0]
+        state = _state_of(get_ae_type(ae_type)(input_size=adata.n_vars,
+                                                hidden_size=(64, 32, 64), device=dev).build())
+        # (a) the graph against the same fit from Python on the card, and
+        # (e) the graph fit's launches: each epoch run's, and the warm-up's
+        graph, launches, g_net = _compiled_fit(adata, state, ae_type)
+        eager, _, e_net = _compiled_fit(adata, state, ae_type, graphs=False)
+        _check(graph.fit is not None and graph.capture_s is not None,
+               f"phase 13 {ae_type}: the fit did not run the whole-fit graph")
+        _check(graph.history == eager.history and graph.fit.epochs_run == eager.fit.epochs_run
+               == COMPILED_EPOCHS and _same_state(g_net, e_net),
+               f"phase 13 {ae_type}: the graph fit {graph.history} is not the bits of the "
+               f"same fit from Python {eager.history}")
+        want = _want_launches(lk, COMPILED_EPOCHS + 1, steps)  # + the warm-up epoch
+        want["graph_if"] = COMPILED_EPOCHS
+        _check(launches == want, f"phase 13 {ae_type}: launches {launches}, expected {want}")
+        res["launches"][ae_type] = launches
+        res["capture_s"][ae_type] = graph.capture_s
+        # (b) the Python-epoch loop's graph fit: the same row orders and
+        # steps, and no callback fires in 5 epochs
+        loop, _, l_net = _compiled_fit(adata, state, ae_type, compiled=False)
+        same = _same_state(g_net, l_net)
+        worst = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    for a, b in zip(_state_of(g_net).values(), _state_of(l_net).values())
+                    if a.is_floating_point())
+        _check(same or worst <= 1e-6, f"phase 13 {ae_type}: final parameters {worst:.3e} "
+               "from the Python-epoch loop's graph fit, beyond rtol 1e-6")
+        _check(graph.history["val_loss"] == loop.history["val_loss"]
+               and np.allclose(graph.history["loss"], loop.history["loss"], rtol=1e-6, atol=0),
+               f"phase 13 {ae_type}: history {graph.history} vs the loop's {loop.history}")
+        print(f"phase 13: {ae_type} {COMPILED_EPOCHS} epochs compiled=True: the graph fit the "
+              f"bits of the same fit from Python (histories, {COMPILED_EPOCHS} epochs run, "
+              f"final parameters); against the Python-epoch loop's graph fit: parameters "
+              f"{'the same bits' if same else f'within {worst:.2e}'}, val_loss the same bits, "
+              f"loss within rtol 1e-6 (float32 against float64 sums); capture "
+              f"{graph.capture_s:.2f} s; launches {launches}")
+        if ae_type != "zinb-conddisp":
+            continue
+        # (c) an early stop: the same epochs as from Python, NaN past them
+        stop_g, stop_launches, sg_net = _compiled_fit(adata, state, ae_type, **COMPILED_STOP)
+        stop_e, _, se_net = _compiled_fit(adata, state, ae_type, graphs=False, **COMPILED_STOP)
+        n_run = stop_g.fit.epochs_run
+        _check(n_run < COMPILED_STOP["epochs"] and n_run == stop_e.fit.epochs_run
+               and stop_g.history == stop_e.history
+               and _same_state(sg_net, se_net),
+               f"phase 13: the early-stopped graph fit ran {n_run} epochs {stop_g.history}, "
+               f"from Python {stop_e.fit.epochs_run} {stop_e.history}")
+        _check(bool(np.isnan(stop_g.fit.loss[n_run:]).all()
+                    and np.isnan(stop_g.fit.val_loss[n_run:]).all()),
+               "phase 13: history written past the early stop")
+        want = _want_launches(lk, n_run + 1, steps)
+        want["graph_if"] = COMPILED_STOP["epochs"]
+        _check(stop_launches == want, f"phase 13: early-stopped fit launches {stop_launches}, "
+                                      f"expected {want} (the epochs run and the warm-up)")
+        res["stop"] = {"epochs_run": n_run, "epoch_ms": float(np.median(stop_g.epoch_s)) * 1e3,
+                       "after_stop_us": float(np.median(stop_g.fit.after_stop_s)) * 1e6,
+                       "all_after_stop_ms": float(np.sum(stop_g.fit.after_stop_s)) * 1e3,
+                       "enqueue_ms": stop_g.fit.enqueue_s * 1e3, "launches": stop_launches}
+        print(f"phase 13: early_stop=2 over 300 epochs (lr 0.01): stopped after {n_run} epochs, "
+              f"the same as from Python, the same bits, NaN past the stop; an epoch "
+              f"{res['stop']['epoch_ms']:.2f} ms, an epoch after the stop "
+              f"{res['stop']['after_stop_us']:.2f} us ({300 - n_run} of them "
+              f"{res['stop']['all_after_stop_ms']:.2f} ms in all, device time between the "
+              f"replays' events); the host enqueued the 300 replays in "
+              f"{res['stop']['enqueue_ms']:.2f} ms; on {card}; launches {stop_launches}")
+        # (d) the state the fit hands save_weights: the best epoch's, the
+        # bits of the same fit cut at that epoch
+        best = int(np.argmin(stop_g.history["val_loss"]))
+        saved = {}
+        net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
+                                   hidden_dropout=COMPILED_DROPOUT, device=dev).build()
+        net.model.load_state_dict(state)
+        net.save_weights = lambda path: saved.update(_state_of(net))
+        from dca_tpu_torch.train.loop import train
+
+        out = os.path.join(OUT_DIR, "compiled-weights")
+        hist = train(adata, net, verbose=False, compiled=True, save_weights=True,
+                     output_dir=out, **COMPILED_STOP)
+        cut, _, c_net = _compiled_fit(adata, state, ae_type,
+                                      **dict(COMPILED_STOP, epochs=best + 1))
+        _check(hist.history == stop_g.history and _same_state(net, sg_net),
+               "phase 13: the save_weights fit is not the early-stopped fit's bits, or the "
+               "network did not keep its final state")
+        cut_state = c_net.model.state_dict()
+        _check(bool(saved) and all(torch.equal(v, cut_state[k]) for k, v in saved.items()),
+               f"phase 13: the state handed to save_weights is not epoch {best + 1}'s")
+        print(f"phase 13: save_weights=True: the state written is the best epoch's ({best + 1} "
+              f"of {n_run}), the bits of the fit cut there, and the network keeps the final "
+              f"state; the write took {hist.weights_s[0] * 1e3:.2f} ms")
+        shutil.rmtree(out, ignore_errors=True)
+
+    # the compiled epoch against the Python-epoch loop's graph epoch, in turns
+    times = {True: [], False: []}
+    state = _state_of(get_ae_type("zinb-conddisp")(input_size=adata.n_vars,
+                                                   hidden_size=(64, 32, 64), device=dev).build())
+    first = []
+    for compiled in IN_TURNS:
+        hist, _, _ = _compiled_fit(adata, state, "zinb-conddisp", compiled=compiled)
+        times[compiled].append(float(np.median(hist.epoch_s[1:])) * 1e3)
+        if compiled:
+            first.append(hist.epoch_s[0] * 1e3)
+    res["epoch_ms"], res["first_epoch_ms"] = times, first
+    print(f"phase 13: zinb-conddisp epoch on {card}, {COMPILED_EPOCHS}-epoch fits in turns, the "
+          f"median of epochs 2-{COMPILED_EPOCHS} of each: compiled "
+          f"{[round(t, 3) for t in times[True]]} ms (device time between the replays; the first "
+          f"replay, which uploads the graph, {[round(t, 2) for t in first]} ms), the "
+          f"Python-epoch loop's graphs {[round(t, 3) for t in times[False]]} ms (host wall with "
+          f"the eager validation and the losses' read-back); medians "
+          f"{np.median(times[True]):.3f} against {np.median(times[False]):.3f} ms")
+
+    res["dp_reference"] = dp_compiled_reference()
+    return res
+
+
+def dp_compiled_reference():
+    """The one-card history that phase 7 holds its ranks' compiled fit to:
+    ``dca()`` zinb-conddisp 64-32-64, ``compiled=True``, 2 epochs on the
+    first DP_COMPILED_CELLS cells of phase 4's matrix."""
+    import dca_tpu_torch
+    from dca_tpu_torch.data.adata import AnnData
+
+    ret = dca_tpu_torch.dca(AnnData(make_paul15_like()[:DP_COMPILED_CELLS].copy()),
+                            ae_type="zinb-conddisp", epochs=2, hidden_size=(64, 32, 64),
+                            batch_size=32, copy=True, return_info=True,
+                            training_kwds={"compiled": True})
+    return ret.uns["dca_loss_history"]
+
+
 def _card():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -3428,17 +3765,24 @@ def main():
         worst = phase_compare(dev)
         worst_w = phase_weighted_compare(dev)
         dense_err = phase_dense_compare(dev)
+        graph_if = phase_graph_if(dev)
         times = phase_timings(dev, parent)
         times.update(weighted_timings(dev))
         tb_times = tb_k2_timings(dev)
         dense_times = dense_timings(dev)
         phase_zoo()
+        # before any profiler runs (phase 4's TensorBoard fit, phase 11):
+        # a torch.profiler session leaves each later launch of the
+        # whole-epoch graph milliseconds of host time (PERF.md)
+        card = _card()
+        t13 = time.perf_counter()
+        comp = phase_compiled(dev, card)
+        t13 = time.perf_counter() - t13
         launches, zinb_net, zinb_hist, zinb_bits, zinb_tb = phase_api("zinb-conddisp", 5,
                                                                       tensorboard=True)
         nb_launches, nb_net, _, nb_bits, _ = phase_api("nb-conddisp", 2)
         stream_small = phase_stream_small(dev)
         stream_corpus = phase_stream_corpus(dev)
-        card = _card()
         art = phase_artefacts(dev, card)
         t12 = time.perf_counter()
         hyp = phase_hyper(dev, card)
@@ -3453,7 +3797,8 @@ def main():
         nat = phase_native()
         phase_cli()
         den = phase_denoise(zinb_net, nb_net)
-        dp = phase_data_parallel(zinb_hist, zinb_tb["histograms"])
+        dp = phase_data_parallel(zinb_hist, zinb_tb["histograms"],
+                                 single_compiled=comp["dp_reference"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3478,7 +3823,14 @@ def main():
             if name == "zinb_nll_fwd":
                 streamed["validation_chunk"] = stream_corpus["k1_val"]
                 streamed["trial_validation"] = hyp["k1_trial_val"]
+            streamed["launches_compiled"] = {
+                "phase 13 compiled=True, 5 epochs + the warm-up epoch":
+                    comp["launches"][f"{fam}-conddisp"][name]}
             if fam == "zinb":
+                streamed["launches_compiled"]["phase 13 early stop"] = \
+                    comp["stop"]["launches"][name]
+                streamed["launches_compiled"]["phase 7 compiled, per rank"] = \
+                    [r[name] for r in dp["compiled"]]
                 streamed["launches_tensorboard"] = {
                     "phase 4 (tensorboard)": zinb_tb["launches"][name],
                     "phase 11": {k: v[name] for k, v in art["launches"].items()}}
@@ -3544,6 +3896,25 @@ def main():
                     "grads_rel_same_params": dp["grads_rel_same_params"],
                     "grads_rel_phase4": dp["grads_rel_phase4"]}
             kernels.append(entry)
+    kernels.append({
+        "name": "graph_if", "route": "cuda", "source": "dca_tpu_torch/csrc/graph_if.cu",
+        "replaces": "dca_tpu/train/compiled.py:153",
+        "tpu_kernel": None,
+        "note": "no TPU kernel: the condition of the whole-fit lax.while_loop, set on the "
+                "device at every replay of the whole-fit graph",
+        "launches": comp["launches"]["zinb-conddisp"]["graph_if"],
+        "launches_by_run": {f"phase 13 {k}": v["graph_if"]
+                            for k, v in comp["launches"].items()}
+                           | {"phase 13 early stop (300 replays)":
+                              comp["stop"]["launches"]["graph_if"]},
+        "max_abs_err": graph_if["max_abs_err"], "ms": graph_if["ms"],
+        "plain_ms": graph_if["plain_ms"], "bound_ms": graph_if["bound_ms"],
+        "bound_by": graph_if["bound_by"], "library_ms": None,
+        "timed": "a node with its body skipped, in a graph of 100; plain: logical_not",
+        "main_path": "phase 13: train(compiled=True) zinb-conddisp 5 epochs",
+        "tolerance": "exact: each body runs where the plain condition is true",
+        "card": card,
+    })
     timings = {f"{name} {act}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms"), t[:5]), plan=t[5]._asdict())
                for (name, act), t in dense_times.items()}
@@ -3609,6 +3980,13 @@ def main():
           f"fit_zinb {diag['fit_zinb_s']:.2f} s, zero_inflation_test "
           f"{diag['zero_inflation_test_s']:.2f} s; silhouettes noisy / denoised / true "
           f"{qual['silhouettes']}, latent {qual['latent']:.4f}, {qual['grid']}")
+    print(f"phase 13 on {card} in {t13:.1f} s: the whole fit on the device (compiled=True), "
+          f"zinb-conddisp epoch {np.median(comp['epoch_ms'][True]):.3f} ms against the "
+          f"Python-epoch loop's graph epoch {np.median(comp['epoch_ms'][False]):.3f} ms; capture "
+          f"{comp['capture_s']['zinb-conddisp']:.2f} s (zinb-conddisp), "
+          f"{comp['capture_s']['nb-conddisp']:.2f} s (nb-conddisp); early stop after "
+          f"{comp['stop']['epochs_run']} epochs, an epoch after it "
+          f"{comp['stop']['after_stop_us']:.2f} us")
     for tier in ("host", "resident"):
         c = stream_corpus[tier]
         print(f"streaming trainer at {CORPUS[0]} x {CORPUS[1]} ({tier}) on {card}: epochs "

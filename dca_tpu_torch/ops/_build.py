@@ -23,7 +23,7 @@ import tempfile
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("fused_nll.cu", "fused_dense.cu")
+SOURCES = ("fused_nll.cu", "fused_dense.cu", "graph_if.cu")
 HEADERS = ("special.cuh",)
 # no --use_fast_math: the kernels must agree with their plain versions
 NVCC_FLAGS = (
@@ -56,6 +56,10 @@ _SIGNATURES = {
     # the plan (kind, bm, bn, bk, splits, cluster), stream
     "dca_fused_dense": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P], _I),
+    # parent stream (capturing), body stream, stop flag: the IF node
+    "dca_graph_if_begin": ([_P, _P, _P], _I),
+    # body stream: end the IF node's body
+    "dca_graph_if_end": ([_P], _I),
 }
 
 

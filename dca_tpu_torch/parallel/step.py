@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -78,28 +79,56 @@ class StepBuffers:
       * ``losses`` (n_full + 1,) float32: each full step's loss at its
         ``step_i``, then the trailing step's (0 while there is none);
       * ``lr`` () float32: the learning rate, which ReduceLROnPlateau
-        rewrites between epochs.
+        rewrites between epochs;
+
+    and for the whole fit on the device (``train/compiled.py``), with
+    ``perms``:
+
+      * ``perms`` (epochs, n_train): every epoch's row order, uploaded once
+        before the first epoch, int32 where n_train < 2**31 (the table
+        takes epochs x n_train x 4 bytes: 2.9 MB for 300 epochs of 2457
+        rows; at the in-memory gate's largest input, input and target of
+        6e9 bytes, e.g. 217,328 cells of 3451 genes, 0.22 GiB for 300
+        epochs of its 90% train split);
+      * ``epoch`` (1,) int64: the epoch the next one is, from which
+        ``start_epoch`` takes its row of ``perms`` into ``perm``.
 
     They are what ``lax.scan`` feeds the JAX package's ``epoch_fn`` body:
-    its ``(idx, step_i)`` inputs, its stacked losses and ``lr_arr``."""
+    its ``(idx, step_i)`` inputs, its stacked losses and ``lr_arr``, and
+    the ``epoch`` of its whole-fit ``while_loop``."""
 
     perm: torch.Tensor
     step_i: torch.Tensor
     losses: torch.Tensor
     lr: torch.Tensor
     batch: int
+    perms: torch.Tensor | None = None
+    epoch: torch.Tensor | None = None
 
     @classmethod
-    def create(cls, n_train, batch, lr, device):
+    def create(cls, n_train, batch, lr, device, perms=None):
+        """``perms``: a host (epochs, n_train) array of row orders, for the
+        whole fit on the device."""
+        table = epoch = None
+        if perms is not None:
+            dtype = np.int32 if n_train < 2**31 else np.int64
+            table = torch.from_numpy(np.ascontiguousarray(perms, dtype=dtype)).to(device)
+            epoch = torch.zeros(1, dtype=torch.int64, device=device)
         return cls(perm=torch.zeros(n_train, dtype=torch.int64, device=device),
                    step_i=torch.zeros(1, dtype=torch.int64, device=device),
                    losses=torch.zeros(n_train // batch + 1, device=device),
                    lr=torch.tensor(lr, dtype=torch.float32, device=device),
-                   batch=batch)
+                   batch=batch, perms=table, epoch=epoch)
 
     @property
     def n_full(self):
         return self.losses.numel() - 1
+
+    def start_epoch(self):
+        """Take the ``epoch``-th row of ``perms`` as the epoch's row order,
+        on the device, and zero the step counter."""
+        self.perm.copy_(self.perms.index_select(0, self.epoch).view(-1))
+        self.step_i.zero_()
 
     def rows(self, trailing):
         """The rows of the next step: the ``step_i``-th batch of ``perm``

@@ -24,6 +24,12 @@ there, and run one epoch for a permutation of the train rows:
     masks an eager step would.  Capture once per fit; a failure raises,
     and nothing falls back to the eager runner.
 
+``GraphFit`` captures the whole epoch of the fit on the device
+(``train/compiled.py``, the counterpart of the JAX package's
+``dca_tpu/train/compiled.py``): the steps, the validation, the callbacks
+and the history writes, as one graph whose epoch is a conditional IF node
+opened while the fit has not stopped; the host enqueues a replay an epoch.
+
 ``GraphSteps`` does the warm-up, the captures and the replays for a set of
 keyed steps: ``GraphEpoch``'s full and trailing step, and the streaming
 trainer's full and trailing step on each of its two part buffers
@@ -61,15 +67,17 @@ _CAPTURE_LOCK = threading.Lock()
 _own = threading.local()
 
 
-def _own_stream(device):
-    """This thread's capture stream on CUDA ``device``: a non-blocking
+def _own_stream(device, role="capture"):
+    """This thread's stream of ``role`` on CUDA ``device``: a non-blocking
     stream made for it by the kernel library (``dca_stream_create``), once
-    per thread and device and kept for the thread's life."""
+    per thread, device and role and kept for the thread's life.  The roles:
+    "capture", the stream that captures a graph, and "body", the stream that
+    captures the body of ``GraphFit``'s IF node."""
     from ..ops._build import KernelError, library
 
     index = device.index if device.index is not None else torch.cuda.current_device()
     mine = _own.__dict__.setdefault("streams", {})
-    stream = mine.get(index)
+    stream = mine.get((index, role))
     if stream is None:
         lib = library()
         handle = ctypes.c_void_p()
@@ -78,8 +86,25 @@ def _own_stream(device):
             raise KernelError(f"stream creation failed: CUDA error {err} "
                               f"({lib.dca_cuda_error_string(err).decode()})")
         stream = torch.cuda.ExternalStream(handle.value, device=torch.device("cuda", index))
-        mine[index] = stream
+        mine[(index, role)] = stream
     return stream
+
+
+def _warm_up(fns, state, generator, device, stream):
+    """Run each of ``fns`` once on ``stream``, then restore in place every
+    tensor of ``state`` and the ``generator``'s state, so that the run
+    moves nothing of the fit."""
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        saved = [t.detach().clone() for t in state]
+        rng = generator.get_state()
+        for fn in fns:
+            fn()
+        with torch.no_grad():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+        generator.set_state(rng)
+    torch.cuda.current_stream(device).wait_stream(stream)
 
 
 class EagerEpoch:
@@ -124,7 +149,7 @@ class GraphSteps:
     def __init__(self, steps, state, generator, device):
         t0 = time.perf_counter()
         stream = _own_stream(device)
-        self._warm_up(steps, list(state), generator, device, stream)
+        _warm_up(steps.values(), list(state), generator, device, stream)
         self.graphs = {}
         self.launches = {}
         pool = None
@@ -140,20 +165,6 @@ class GraphSteps:
             pool = graph.pool()
         stream.synchronize()  # the warm-up; not the device: others may capture
         self.capture_s = time.perf_counter() - t0
-
-    @staticmethod
-    def _warm_up(steps, state, generator, device, stream):
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            saved = [t.detach().clone() for t in state]
-            rng = generator.get_state()
-            for fn in steps.values():
-                fn()
-            with torch.no_grad():
-                for t, s in zip(state, saved):
-                    t.copy_(s)
-            generator.set_state(rng)
-        torch.cuda.current_stream(device).wait_stream(stream)
 
     def replay(self, key, times=1):
         """Replay the graph of ``key`` ``times`` times and count its
@@ -189,3 +200,70 @@ class GraphEpoch(EagerEpoch):
             self.steps.replay(False, self.bufs.n_full)
         if self.rem:
             self.steps.replay(True)
+
+
+class GraphFit:
+    """A fit's whole epoch, ``body`` (its steps, the validation, the
+    callbacks and the history writes: ``train/compiled.py``), captured as
+    one CUDA graph whose body is a conditional IF node that the device
+    opens only while the fit's flag ``stop`` (a one-element bool tensor) is
+    false (``ops/conditional.py``).  ``run(epochs)`` enqueues one replay an
+    epoch, back to back, with no wait on the device: a replay after the
+    stop runs the kernel that reads the flag and nothing else.  Each replay
+    goes through ``CUDAGraph.replay``, which advances the registered
+    dropout generator's offset, so every epoch draws its own masks (one
+    replay of a graph that looped over the epochs would draw the same ones
+    every epoch).
+
+    As ``GraphSteps``: before the capture the body runs once eagerly on the
+    stream that captures it (``_own_stream(device, "body")``), which builds
+    the kernel library, makes this thread's K1 workspace and cuBLAS's
+    handle and workspace for the stream, then every tensor of ``state``
+    (each tensor the body writes) and the generator's state are restored
+    in place; the generator is registered with the graph; the capture runs
+    in "thread_local" mode under ``_CAPTURE_LOCK``; a failed capture
+    raises.  ``capture_s`` is the wall time of the warm-up and the capture.
+    ``node_launches`` and ``body_launches`` are the tallies of a replay's
+    launches outside the node (the flag's kernel) and inside it
+    (``credit``)."""
+
+    def __init__(self, body, state, generator, stop, device):
+        from ..ops.conditional import if_body
+
+        t0 = time.perf_counter()
+        stream = _own_stream(device)
+        inner = _own_stream(device, "body")
+        _warm_up([body], list(state), generator, device, inner)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        pool = torch.cuda.graph_pool_handle()
+        with _CAPTURE_LOCK, counters.capturing(stream.cuda_stream) as node_tally, \
+                counters.capturing(inner.cuda_stream) as body_tally:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                with if_body(stop, stream, inner, pool):
+                    body()
+        self.node_launches, self.body_launches = node_tally, body_tally
+        inner.synchronize()  # the warm-up; not the device: others may capture
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, epochs, after_epoch=None):
+        """Enqueue ``epochs`` replays on the current stream, with a CUDA
+        event before the first and after each (``after_epoch()`` is called
+        after each enqueue); returns the ``epochs + 1`` events.
+        ``enqueue_s`` is the host's wall time of the enqueue."""
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(epochs + 1)]
+        t0 = time.perf_counter()
+        events[0].record()
+        for e in range(epochs):
+            self.graph.replay()
+            events[e + 1].record()
+            if after_epoch is not None:
+                after_epoch()
+        self.enqueue_s = time.perf_counter() - t0
+        return events
+
+    def credit(self, replays, ran):
+        """Count ``replays`` replays of which the body ran in ``ran``."""
+        counters.add(self.node_launches, replays)
+        counters.add(self.body_launches, ran)

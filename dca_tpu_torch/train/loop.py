@@ -72,12 +72,16 @@ validation split in eval mode through the loss kernels) and a
 (``_fit_trace``).  Under a process group only
 the primary rank writes; every rank takes part in the collectives.
 
-The whole-fit-as-one-program path (``dca_tpu/train/compiled.py``), which
-the JAX package takes only on a TPU, gene-dim model parallelism and
-streaming under a process group wait for later slices (ROADMAP.md, Queue
-1): ``train`` takes the JAX package's keywords for them and raises
-``NotImplementedError`` where the JAX package would run one of those
-paths, before anything is densified or copied to the device.
+``compiled=True`` runs the whole fit on the device (``_train_compiled``,
+``train/compiled.py``: the JAX package's whole-fit program, which its
+``"auto"`` takes on a TPU): the epochs, their steps, the validation, the
+callbacks and the histories without a host hop, one CUDA graph replayed
+once an epoch on one CUDA device, read back once after the fit.  Here
+``"auto"`` keeps the Python-epoch loop (ROADMAP.md).  Gene-dim model
+parallelism and streaming under a process group wait for later slices
+(ROADMAP.md, Queue 1): ``train`` takes the JAX package's keywords for them
+and raises ``NotImplementedError`` where the JAX package would run one of
+those paths, before anything is densified or copied to the device.
 """
 
 from __future__ import annotations
@@ -130,7 +134,11 @@ class History:
     histograms and write; the streaming trainer takes its gradient inside
     the epoch); ``checkpoint_s`` and ``weights_s``: each checkpoint's and
     each ``weights.hdf5``'s save (read-back and file); ``restore_s``: a
-    resume's restore (file read and copies in place), None without one."""
+    resume's restore (file read and copies in place), None without one;
+    ``fit``: the ``compiled.FitResult`` of a ``compiled=True`` fit (its
+    histories NaN past the epochs run, the device times of the replays
+    after the stop), None for the Python-epoch loop; such a fit's
+    ``epoch_s`` and ``capture_s`` are its own (``FitResult``)."""
 
     def __init__(self):
         self.history = {}
@@ -140,6 +148,7 @@ class History:
         self.tb_s = []
         self.checkpoint_s = []
         self.weights_s = []
+        self.fit = None
 
     def append(self, key, value):
         self.history.setdefault(key, []).append(float(value))
@@ -437,6 +446,7 @@ def train(
     devices=None,
     model_parallel=1,
     _graphs=True,
+    _perms=None,
     **kwds,
 ):
     """Fit ``network`` (built) on ``adata``, on the network's device.
@@ -444,13 +454,15 @@ def train(
 
     The keywords are the JAX package's ``train``'s, in its order; unknown
     ones are accepted and ignored, as there.  ``compiled`` "auto" or False
-    runs this loop, whose steps are jitted in the JAX package and replayed
-    from CUDA graphs here (the JAX package's "auto" takes its whole-fit
-    program only on a TPU); True raises, unless the network is in
-    ``debug`` mode, where the JAX package runs its eager loop too.
-    ``checkpoint_every``/``resume`` set ``compiled`` to False, as in the
-    JAX package; with ``output_dir`` they save and restore
-    ``<output_dir>/checkpoints``, without it they do nothing.
+    runs the Python-epoch loop, whose steps are jitted in the JAX package
+    and replayed from CUDA graphs here (the JAX package's "auto" takes its
+    whole-fit program only on a TPU); True runs the whole fit on the device
+    (``_train_compiled``), except in ``debug`` mode and with
+    ``checkpoint_every``/``resume``, which set it to False as in the JAX
+    package, for a padded data-parallel split (as there, with a verbose
+    line) and on the streaming trainer.  ``checkpoint_every``/``resume``
+    with ``output_dir`` save and restore ``<output_dir>/checkpoints``,
+    without it they do nothing.
     ``save_weights`` and ``tensorboard`` write ``weights.hdf5`` and ``tb/``
     under ``output_dir`` (see the module's docstring).  The size gate of the
     JAX package: an input of more than ``max_device_cells`` cells, or
@@ -467,12 +479,13 @@ def train(
 
     On one CUDA device, outside ``debug``, the steps are replayed from
     CUDA graphs captured at the start of the fit (``train/graphs.py``);
-    ``_graphs=False``, for the tests, calls them from Python there too."""
+    ``_graphs=False``, for the tests, calls them from Python there too.
+    ``_perms``, for the tests, an (epochs, n_train) array of row orders,
+    replaces the ones a ``compiled=True`` fit draws."""
     assert network.model is not None, "network.build() must be called before train()"
-    if checkpoint_every or resume:
+    if checkpoint_every or resume or network.definition.debug:
         compiled = False  # as in the JAX package: the Python-epoch loop
-    if compiled != "auto" and compiled and not network.definition.debug:
-        raise _not_ported("the whole-fit compiled program (train/compiled.py)")
+    compiled = compiled != "auto" and bool(compiled)
     n_cells, n_genes = adata.n_obs, adata.n_vars
     if max_device_cells is not None:
         stream = n_cells > max_device_cells
@@ -517,7 +530,8 @@ def train(
                 early_stop=early_stop, batch_size=batch_size,
                 validation_split=validation_split, use_raw_as_output=use_raw_as_output,
                 output_subset=output_subset, seed=seed, verbose=verbose, graphs=_graphs,
-                tb=tb_dir is not None, trace=trace, **artefacts)
+                tb=tb_dir is not None, trace=trace, compiled=compiled, perms=_perms,
+                **artefacts)
     finally:
         if tb is not None:
             tb.close()
@@ -526,12 +540,13 @@ def train(
 def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early_stop,
                      batch_size, validation_split, use_raw_as_output, output_subset, seed,
                      verbose, graphs, output_dir, save_weights, checkpoint_every, resume, tb,
-                     tb_log, trace=None):
+                     tb_log, trace=None, compiled=False, perms=None):
     """The fit of a split that the device holds (the JAX package's
     ``_train_inner``): see the module's docstring.  ``tb``: log to
     TensorBoard (``tb_log``, the primary rank's logger, or None on the
     other ranks); ``trace``: the fit's profiler (``_fit_trace``), stepped
-    after each epoch."""
+    after each epoch; ``compiled``: the whole fit on the device
+    (``_train_compiled``), with the row orders ``perms`` if given."""
     device = network.device
     # ----- host arrays -----
     X = densify(adata.X)
@@ -580,6 +595,25 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
     params = list(network.model.parameters())
     opt_state = opt.init(params)
     generator = torch.Generator(device=device).manual_seed(seed)
+    if compiled and group is not None:
+        world = dist.get_world_size(group)
+        if n_train % world or (has_val and n_val % world):
+            # as the JAX package: its one-program fit has no weighted
+            # validation
+            compiled = False
+            if verbose:
+                print("dca_tpu_torch: padded multi-process split -> python-epoch fit")
+    if compiled:
+        if perms is None:
+            rng_np = np.random.RandomState(seed)
+            perms = np.array([rng_np.permutation(n_train) for _ in range(epochs)],
+                             dtype=np.int64).reshape(epochs, n_train)
+        return _train_compiled(
+            network, opt, lr, group, (X_tr, T_tr, sf_tr),
+            (X_val, T_val, sf_val) if has_val else None, val_shard, perms, opt_state,
+            generator, n_train=n_train, batch_size=bs, epochs=epochs, reduce_lr=reduce_lr,
+            early_stop=early_stop, save_weights=save_weights, output_dir=output_dir,
+            verbose=verbose, graphs=graphs, tb=tb, tb_log=tb_log, trace=trace)
     bufs = StepBuffers.create(n_train, bs, lr, device)
     train_step = make_sharded_train_step(network, opt, group)
 
@@ -668,6 +702,66 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
             trace.step()
         if stop:
             break
+    return hist
+
+
+def _train_compiled(network, opt, lr, group, train_split, val, val_shard, perms, opt_state,
+                    generator, *, n_train, batch_size, epochs, reduce_lr, early_stop,
+                    save_weights, output_dir, verbose, graphs, tb, tb_log, trace):
+    """The whole fit on the device (``train/compiled.py``), then what the
+    JAX package's ``_train_compiled`` does after its one read-back: the
+    History of the epochs run, their verbose lines, the TensorBoard scalars
+    of each epoch and, at the last, the histograms of the final parameters
+    and of their eval-mode gradient on the validation split, and with
+    ``save_weights`` the best state written once to ``weights.hdf5``, the
+    network keeping the final one."""
+    from .compiled import build_fit_fn
+
+    has_val = val is not None
+    track_best = bool(save_weights and output_dir is not None)
+    fit = build_fit_fn(network, opt, n_train=n_train, batch_size=batch_size, epochs=epochs,
+                       has_val=has_val, reduce_lr=reduce_lr, early_stop=early_stop,
+                       track_best=track_best, group=group)
+    res = fit(*train_split, val, lr, perms, opt_state, generator, graphs=graphs,
+              after_epoch=trace.step if trace is not None else None, val_shard=val_shard)
+    hist = History()
+    hist.fit, hist.capture_s, hist.epoch_s = res, res.capture_s, res.epoch_s
+    for e in range(res.epochs_run):
+        hist.append("loss", res.loss[e])
+        hist.append("lr", res.lr[e])
+        if has_val:
+            hist.append("val_loss", res.val_loss[e])
+        if verbose:
+            msg = f"Epoch {e + 1}/{epochs} - loss: {res.loss[e]:.4f}"
+            if has_val:
+                msg += f" - val_loss: {res.val_loss[e]:.4f}"
+            print(msg + f" - lr: {res.lr[e]:.2e}")
+        if tb_log is not None:
+            tb_log.epoch(e, {"loss": res.loss[e], "lr": res.lr[e],
+                             "val_loss": res.val_loss[e] if has_val else None}, {}, {})
+    if tb and res.epochs_run > 0:
+        # the final parameters, and their gradient on the validation split
+        # (a collective under a group: every rank takes part)
+        t_tb = time.perf_counter()
+        grads = {}
+        if has_val:
+            grads = _tb_grads(network, val[0], val[2], val[1], shard=val_shard)
+        if tb_log is not None:
+            tb_log.epoch(res.epochs_run - 1, {}, flatten_tree(network.trees()[0]), grads)
+        hist.tb_s.append(time.perf_counter() - t_tb)
+    if track_best:
+        t0 = time.perf_counter()
+        live = list(network.model.parameters()) + list(network.model.buffers())
+        with torch.no_grad():
+            final = [t.detach().clone() for t in live]
+            for t, b in zip(live, res.best):
+                t.copy_(b)
+            try:
+                network.save_weights(os.path.join(output_dir, "weights.hdf5"))
+            finally:
+                for t, f in zip(live, final):
+                    t.copy_(f)
+        hist.weights_s.append(time.perf_counter() - t0)
     return hist
 
 

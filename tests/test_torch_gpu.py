@@ -18,7 +18,11 @@ TensorBoard fit the plain fit's, the TensorBoard gradient's K2 and K2w
 against their plain versions, and ``load_weights`` reaching a graph
 captured before it (with h5py); two graph fits run at once in two threads
 (the hyperparameter search's trials) each giving its solo bits and the
-launch counters exact, and K1 at a trial's validation shape.
+launch counters exact, and K1 at a trial's validation shape; the whole fit
+on the device (``compiled=True``): its graph the bits of the same fit from
+Python, an epoch after the early stop changing nothing, the launch tally
+of the epochs run alone, two such fits in two threads, and the IF node's
+kernel against its plain version.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -1026,26 +1030,22 @@ def test_load_weights_reaches_a_graph_captured_before_on_card(cuda, tmp_path):
     assert torch.equal(out, want)
 
 
-def _solo_or_concurrent_fit(cuda, adata, ae_type, dropout, stream=None):
-    """A 3-epoch graph fit of ``ae_type`` on ``adata``; on ``stream`` when
-    given.  Returns its history and its final parameters and buffers."""
+def _solo_or_concurrent_fit(cuda, adata, ae_type, dropout, stream=None, **kw):
+    """A 3-epoch graph fit of ``ae_type`` on ``adata`` (``kw``: more of
+    ``train``'s keywords); on ``stream`` when given.  Returns its history
+    and its final parameters and buffers."""
     with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
         net = get_ae_type(ae_type)(input_size=adata.n_vars, hidden_size=(64, 32, 64),
                                    hidden_dropout=dropout, seed=3, device=cuda).build()
-        hist = train(adata, net, epochs=3, verbose=False, seed=5)
+        hist = train(adata, net, epochs=3, verbose=False, seed=5, **kw)
         state = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
     return hist.history, state
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rounds", [2])
-def test_two_fits_in_two_threads_give_their_solo_bits_on_card(cuda, rounds):
-    """Two graph fits (zinb-conddisp at dropout 0.1, nb-conddisp) run at
-    once in two threads, each on a stream of its own, as the
-    hyperparameter search's trials run: each gives the bits it gives alone,
-    and the launch counters the sum of the two solo fits' launches, exactly
-    (their K1 workspaces, captures and tallies kept apart).  The switch
-    interval is shortened so that the threads interleave finely."""
+def _two_threads(cuda, rounds, **kw):
+    """The two fits of the two-thread tests, alone and then ``rounds``
+    times at once: each gives its solo bits, and the launch counters the
+    sum of the two solo fits' launches."""
     import sys
     import threading
 
@@ -1054,7 +1054,7 @@ def test_two_fits_in_two_threads_give_their_solo_bits_on_card(cuda, rounds):
     solo, solo_launches = [], []
     for ae_type, dropout in cases:
         fused_loss.reset_launches()
-        solo.append(_solo_or_concurrent_fit(cuda, adata, ae_type, dropout))
+        solo.append(_solo_or_concurrent_fit(cuda, adata, ae_type, dropout, **kw))
         torch.cuda.synchronize()
         solo_launches.append(dict(fused_loss.launches))
     want = {k: sum(d[k] for d in solo_launches) for k in fused_loss.launches}
@@ -1072,7 +1072,7 @@ def test_two_fits_in_two_threads_give_their_solo_bits_on_card(cuda, rounds):
                 try:
                     start.wait(timeout=60)
                     results[i] = _solo_or_concurrent_fit(cuda, adata, *cases[i],
-                                                         stream=torch.cuda.Stream(cuda))
+                                                         stream=torch.cuda.Stream(cuda), **kw)
                 except Exception as e:  # reported below
                     errors.append(e)
 
@@ -1093,6 +1093,25 @@ def test_two_fits_in_two_threads_give_their_solo_bits_on_card(cuda, rounds):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [2])
+def test_two_fits_in_two_threads_give_their_solo_bits_on_card(cuda, rounds):
+    """Two graph fits (zinb-conddisp at dropout 0.1, nb-conddisp) run at
+    once in two threads, each on a stream of its own, as the
+    hyperparameter search's trials run: each gives the bits it gives alone,
+    and the launch counters the sum of the two solo fits' launches, exactly
+    (their K1 workspaces, captures and tallies kept apart).  The switch
+    interval is shortened so that the threads interleave finely."""
+    _two_threads(cuda, rounds)
+
+
+@pytest.mark.gpu
+def test_two_compiled_fits_in_two_threads_give_their_solo_bits_on_card(cuda):
+    """The same with compiled=True: each thread captures its whole-fit
+    graph (its IF node's body on a stream of its own) and replays it."""
+    _two_threads(cuda, 2, compiled=True)
+
+
+@pytest.mark.gpu
 def test_k1_at_the_trial_validation_shape_matches_plain_version_on_card(cuda):
     """ZINB K1 at (546, 3451), the 20% validation of a hyperparameter
     trial at 2730 cells, with the trial's ridge: loss rel err <= 1e-5 and
@@ -1102,3 +1121,128 @@ def test_k1_at_the_trial_validation_shape_matches_plain_version_on_card(cuda):
     ref = fused_loss._fwd_out_reference(y, mu, th, pi, 0.01)
     assert abs(got[2].item() - ref[2].item()) <= LOSS_RTOL * abs(ref[2].item())
     assert got[1].item() == ref[1].item()
+
+
+# ---------------------------------------------------------------------------
+# the whole fit on the device (compiled=True)
+# ---------------------------------------------------------------------------
+
+
+def _compiled_fit(cuda, ae_type, graphs, state=None, dropout=0.1, epochs=3, **kw):
+    """A compiled=True (64, 32, 64) fit on 400 cells x 300 genes; returns
+    (History, the launches of the loss kernels and graph_if, the final
+    state, the initial state)."""
+    from dca_tpu_torch.ops import conditional
+
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(400, 300, 5))))
+    net = get_ae_type(ae_type)(input_size=300, hidden_size=(64, 32, 64),
+                               hidden_dropout=dropout, device=cuda).build()
+    if state is None:
+        state = {k: v.clone() for k, v in net.model.state_dict().items()}
+    net.model.load_state_dict(state)
+    fused_loss.reset_launches()
+    conditional.reset_launches()
+    hist = train(adata, net, epochs=epochs, verbose=False, compiled=True, _graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    final = {k: v.detach().clone() for k, v in net.model.state_dict().items()}
+    return hist, {**fused_loss.launches, **conditional.launches}, final, state
+
+
+def _want_compiled(family, ran, steps, replays):
+    """The launches of a whole-fit graph: one warm-up epoch and each epoch
+    run (a K1 a step and one for the validation, a K2 a step), and the IF
+    node's kernel at every replay."""
+    want = dict.fromkeys(list(fused_loss.launches) + ["graph_if"], 0)
+    want[f"{family}_nll_fwd"] = (ran + 1) * (steps + 1)
+    want[f"{family}_nll_bwd"] = (ran + 1) * steps
+    want["graph_if"] = replays
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("ae_type", ["nb-conddisp", "zinb-conddisp"])
+def test_compiled_graph_fit_matches_compiled_eager_fit_on_card(cuda, ae_type, dropout):
+    """The whole-fit graph and the same fit from Python on the card
+    (``_graphs=False``), from the same weights and seed: the same bits in
+    the histories, the epochs run and the final state (the registered
+    generator gives each replay the eager epoch's dropout masks); the
+    graph's launches one warm-up epoch more than the epochs run, and one
+    graph_if a replay."""
+    graph, launches, final, state = _compiled_fit(cuda, ae_type, True, dropout=dropout)
+    eager, _, e_final, _ = _compiled_fit(cuda, ae_type, False, state, dropout=dropout)
+    assert graph.history == eager.history
+    assert graph.fit.epochs_run == eager.fit.epochs_run == 3
+    assert graph.capture_s is not None and eager.capture_s is None
+    assert all(torch.equal(final[k], e_final[k]) for k in final)
+    assert launches == _want_compiled(ae_type.split("-")[0], 3, 12, 3)
+
+
+STOP = dict(epochs=100, early_stop=1, reduce_lr=0, learning_rate=0.05)
+
+
+@pytest.mark.gpu
+def test_an_epoch_after_the_stop_changes_nothing_on_card(cuda, monkeypatch):
+    """An early-stopped whole-fit graph: after the fit, three more replays
+    (the flag set, each an epoch after the stop) leave every tensor the
+    epoch writes as it was, bit for bit; the history is NaN past the stop
+    and the fit the same fit from Python's bits."""
+    from dca_tpu_torch.train import compiled
+
+    runners = []
+
+    class Recording(compiled.GraphFit):
+        def __init__(self, body, state, *args):
+            super().__init__(body, state, *args)
+            runners.append((self, list(state)))
+
+    monkeypatch.setattr(compiled, "GraphFit", Recording)
+    graph, _, final, state = _compiled_fit(cuda, "zinb-conddisp", True, **STOP)
+    n_run = graph.fit.epochs_run
+    assert n_run < STOP["epochs"] and len(graph.fit.after_stop_s) == STOP["epochs"] - n_run
+    assert np.isnan(graph.fit.loss[n_run:]).all() and np.isnan(graph.fit.val_loss[n_run:]).all()
+    (runner, written), = runners
+    before = [t.detach().clone() for t in written]
+    for _ in range(3):
+        runner.graph.replay()
+    torch.cuda.synchronize()
+
+    def same_bits(a, b):  # NaN histories included
+        return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+    assert all(same_bits(t, b) for t, b in zip(written, before))
+    eager, _, e_final, _ = _compiled_fit(cuda, "zinb-conddisp", False, state, **STOP)
+    assert graph.history == eager.history and eager.fit.epochs_run == n_run
+    assert all(torch.equal(final[k], e_final[k]) for k in final)
+
+
+@pytest.mark.gpu
+def test_the_launch_tally_counts_only_the_epochs_run_on_card(cuda):
+    """The whole-fit graph of an early-stopped fit credits the loss
+    kernels' launches for the epochs run and the warm-up alone, never for
+    a replay after the stop; graph_if once a replay."""
+    graph, launches, _, _ = _compiled_fit(cuda, "nb-conddisp", True, dropout=0.0, **STOP)
+    n_run = graph.fit.epochs_run
+    assert n_run < STOP["epochs"]
+    assert launches == _want_compiled("nb", n_run, 12, STOP["epochs"])
+
+
+@pytest.mark.gpu
+def test_graph_if_matches_plain_version_on_card(cuda):
+    """The IF node's kernel (csrc/graph_if.cu) against its plain version
+    over replays with the flag false and true: each body runs exactly
+    where ``conditional.if_reference`` is true."""
+    from chip_smoke import graph_if_graph
+    from dca_tpu_torch.ops import conditional
+
+    graph, stop, counts = graph_if_graph(cuda, 4)
+    want = torch.zeros_like(counts)
+    for flag in (True, False, False, True, False):
+        stop.fill_(flag)
+        graph.replay()
+        want += conditional.if_reference(stop).float()
+    torch.cuda.synchronize()
+    assert torch.equal(counts, want) and float(want[0]) == 3.0
+    with pytest.raises(ValueError, match="bool CUDA flag"):
+        with conditional.if_body(torch.zeros(1, dtype=torch.bool), None, None, None):
+            pass

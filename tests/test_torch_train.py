@@ -235,11 +235,13 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, input_t
         train(adata, NBAutoencoder(input_size=10).build(), epochs=1)
 
 
-@pytest.mark.parametrize("kwds", [{"compiled": True}], ids=str)
+@pytest.mark.parametrize("kwds", [{"model_parallel": 2}], ids=str)
 def test_train_refuses_paths_not_ported_by_name(kwds):
     """The JAX package's train keywords for paths the port lacks raise
     NotImplementedError naming ROADMAP.md, where they used to be a
-    TypeError; through dca(training_kwds=...) too."""
+    TypeError; through dca(training_kwds=...) too.  (Gene-dim model
+    parallelism: compiled=True, refused here before, trains now, see
+    test_compiled_trains_through_both_entry_points.)"""
     adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
     net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -247,6 +249,27 @@ def test_train_refuses_paths_not_ported_by_name(kwds):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         dca_tpu_torch.dca(AnnData(make_counts(40, 10, seed=3)), epochs=1, device="cpu",
                           hidden_size=(8, 4, 8), training_kwds=kwds)
+
+
+def test_compiled_trains_through_both_entry_points():
+    """compiled=True runs the whole fit on the device (train/compiled.py)
+    through train() and through dca(training_kwds=...): the epochs asked
+    for, with the Python-epoch loop's val_loss bits at dropout 0 (the same
+    row orders and steps) and its learning rate as the float32 the device
+    holds."""
+    counts = make_counts(40, 10, seed=3)
+    adata = io.normalize(io.read_dataset(AnnData(counts.copy())))
+    net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
+    hist = train(adata, net, epochs=2, verbose=False, compiled=True)
+    assert hist.fit is not None and hist.fit.epochs_run == 2
+    rets = [dca_tpu_torch.dca(AnnData(counts.copy()), epochs=2, device="cpu",
+                              hidden_size=(8, 4, 8), copy=True, return_info=True,
+                              training_kwds={"compiled": compiled})
+            for compiled in (True, False)]
+    whole, loop = (r.uns["dca_loss_history"] for r in rets)
+    assert whole["val_loss"] == loop["val_loss"] and len(whole["loss"]) == 2
+    np.testing.assert_allclose(whole["loss"], loop["loss"], rtol=1e-6)
+    assert whole["lr"] == [float(np.float32(1e-3))] * 2 and loop["lr"] == [1e-3] * 2
 
 
 @pytest.mark.parametrize("kwds", [{"checkpoint_every": 2}, {"resume": True},
