@@ -155,7 +155,16 @@ Phases, each of which must pass:
    which divide the ranks: the whole fit, eager under the group): the
    same history on both ranks, within rtol 1e-3 of phase 13's one-card
    compiled fit of the same cells, 156 / 154 K1/K2 a rank and no weighted
-   kernel.  A rank that fails or outlives its time
+   kernel.  Then the streaming trainer under the group: phase 10 (a)'s
+   zinb-conddisp fit from its weights, ``train(devices="all",
+   max_device_cells=512)`` for 2 epochs through the host and the
+   padded-payload tiers, each rank staging its block of each batch, with
+   a checkpoint an epoch: the same history on both ranks and in both
+   tiers, within rtol 1e-3 (loss) and 1e-2 (val_loss, the BatchNorm-bias
+   noise) of phase 10's one-card host-tier fit, 154 / 154 K1/K2 and 2 K1w
+   a rank (273 validation rows padded to 274, once an epoch), rank 0 alone
+   printing its epochs and writing checkpoints; its epoch time beside
+   phase 10's one-card one.  A rank that fails or outlives its time
    limit fails the phase.  The data-parallel epoch time is printed: two
    ranks sharing one card measure no scaling.
 
@@ -566,8 +575,12 @@ def recording_k2():
         fl._bwd_kernel = real
 
 
+# the batch, the trailing batch and the validation of the 2730 x 3451 fits,
+# a small ragged case with NaN and clipped entries, and each of 2 ranks'
+# blocks of the batch and the trailing batch (phase 7)
 COMPARE_SHAPES = [((32, 3451), 0.0, 0), ((25, 3451), 0.0, 0), ((273, 3451), 0.0, 0),
-                  ((7, 50), 0.1, 3)]
+                  ((7, 50), 0.1, 3), ((16, 3451), 0.0, 0), ((13, 3451), 0.0, 0),
+                  ((12, 3451), 0.0, 0)]
 
 
 def _compare_cases(B, G):
@@ -2002,6 +2015,11 @@ DP_RANKS = 2
 DP_TIMEOUT = 480  # seconds for both ranks, start-up included
 DP_RUNS = (("zinb-conddisp", 2), ("nb-conddisp", 1))
 DP_NB_TB_CELLS = 546  # 16 steps (15 full, a trailing 11 rows) and 55 validation rows
+# the streamed fit under the group: phase 10 (a)'s, from its weights
+DP_STREAM_TIERS = ("host", "padded")
+DP_STREAM_EPOCHS = 2
+STREAM_MAX_CELLS = 512
+STREAM_VAL_RTOL = 1e-2  # the BatchNorm-bias noise (ROADMAP.md, Queue 3)
 
 
 def _dp_rank(rank, world, port, out_dir, backend):
@@ -2081,9 +2099,41 @@ def _dp_rank(rank, world, port, out_dir, backend):
     torch.cuda.synchronize()
     res["tensorboard_nb"] = {"history": ret.uns["dca_loss_history"],
                              "launches": dict(fl.launches)}
+    state_path = os.path.join(out_dir, "stream_state.npz")
+    if os.path.exists(state_path):
+        res["stream"] = _dp_stream_fits(rank, out_dir, state_path, counts,
+                                        torch.device("cuda"))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
+
+
+def _dp_stream_fits(rank, out_dir, state_path, counts, dev):
+    """Phase 7's streamed fits on this rank, on ``dev``: ``train(devices="all")`` from
+    phase 10 (a)'s weights at ``max_device_cells=STREAM_MAX_CELLS`` through
+    each of DP_STREAM_TIERS, with a checkpoint an epoch into a directory of
+    the rank's (rank 0 alone writes into it); {tier: history, launches,
+    epoch times, the streamed epochs printed, the checkpoint files}."""
+    import torch
+
+    adata = _lazy_adata(counts)
+    state = {k: torch.from_numpy(v) for k, v in np.load(state_path).items()}
+    out = {}
+    for tier in DP_STREAM_TIERS:
+        run_dir = os.path.join(out_dir, f"stream-{tier}-rank{rank}")
+        with _switches(STREAM_TIERS[tier]):
+            text = StringIO()
+            with contextlib.redirect_stdout(text):
+                hist, launches, _ = _stream_fit(dev, adata, state, DP_STREAM_EPOCHS,
+                                                verbose=True, devices="all",
+                                                max_device_cells=STREAM_MAX_CELLS,
+                                                output_dir=run_dir, checkpoint_every=1)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        out[tier] = {"history": hist.history, "launches": launches, "epoch_s": hist.epoch_s,
+                     "printed": _streamed_epochs(text.getvalue()),
+                     "wrote": sorted(os.listdir(os.path.join(run_dir, "checkpoints")))}
+    return out
 
 
 TB_DP_RTOL = 1e-3
@@ -2116,6 +2166,47 @@ def _one_card_grad_stats(state):
     return stats
 
 
+def _check_dp_stream(ranks, single, n_ranks, backend):
+    """Phase 7's streamed fits (``_dp_stream_fits``) against each other and
+    against the one-card streamed fit ``single``; returns their per-rank
+    launches and epoch times."""
+    out = {"launches": {}, "epoch_s": {}}
+    for tier in DP_STREAM_TIERS:
+        runs = [r["stream"][tier] for r in ranks]
+        hist = runs[0]["history"]
+        for rk, run in enumerate(runs):
+            want = want_group_stream_launches(DP_STREAM_EPOCHS, 2730, STREAM_MAX_CELLS, n_ranks,
+                                              rk)
+            _check(run["history"] == hist, f"phase 7 streamed {tier}: rank {rk}'s history "
+                   f"{run['history']} differs from rank 0's {hist}")
+            _check(run["launches"] == want, f"phase 7 streamed {tier}: rank {rk} launched "
+                   f"{run['launches']}, expected {want}")
+            _check(run["printed"] == (DP_STREAM_EPOCHS if rk == 0 else 0)
+                   and bool(run["wrote"]) == (rk == 0), f"phase 7 streamed {tier}: rank {rk} "
+                   f"printed {run['printed']} streamed epochs and wrote {run['wrote']}")
+        _check(hist == ranks[0]["stream"][DP_STREAM_TIERS[0]]["history"],
+               f"phase 7 streamed {tier}: history {hist} is not the "
+               f"{DP_STREAM_TIERS[0]} tier's")
+        rel = {}
+        for key, rtol in (("loss", 1e-3), ("val_loss", STREAM_VAL_RTOL)):
+            ref = np.asarray(single["history"][key])
+            rel[key] = float(np.max(np.abs(np.asarray(hist[key]) - ref) / np.abs(ref)))
+            _check(rel[key] <= rtol, f"phase 7 streamed {tier}: {key} {hist[key]} vs the "
+                   f"one-card streamed fit's {ref.tolist()}, relative difference "
+                   f"{rel[key]:.3e} > {rtol}")
+        out["launches"][tier] = [run["launches"] for run in runs]
+        out["epoch_s"][tier] = runs[0]["epoch_s"]
+        print(f"phase 7: streamed {tier} zinb-conddisp {DP_STREAM_EPOCHS} epochs, parts of "
+              f"{STREAM_MAX_CELLS}, on {n_ranks} ranks over {backend}: loss {hist['loss']}, "
+              f"val_loss {hist['val_loss']}, the same on every rank; against the one-card "
+              f"streamed fit largest relative differences {rel['loss']:.3e} (loss), "
+              f"{rel['val_loss']:.3e} (val_loss); launches {runs[0]['launches']} a rank; "
+              f"epochs {[round(t * 1e3, 1) for t in runs[0]['epoch_s']]} ms on rank 0 against "
+              f"{[round(t * 1e3, 1) for t in single['epoch_s']]} ms on one card; rank 0 alone "
+              "printed and wrote")
+    return out
+
+
 def _free_port():
     import socket
 
@@ -2124,8 +2215,34 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def run_ranks(target, n_ranks, args, timeout, what):
+    """Run ``target(rank, n_ranks, port, *args)`` in ``n_ranks`` spawned
+    processes (CUDA does not survive fork); a rank that fails or outlives
+    ``timeout`` seconds fails ``what``, and none is left running."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, n_ranks, port, *args)) for r in range(n_ranks)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        _check(not hung, f"{what}: ranks {hung} still running after {timeout} s")
+        codes = [p.exitcode for p in procs]
+        _check(codes == [0] * n_ranks, f"{what}: ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
 def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo",
-                        val_rtol=1e-3, single_compiled=None):
+                        val_rtol=1e-3, single_compiled=None, single_stream=None):
     """Phase 7: the data-parallel fit, by default 2 ranks on the one card
     over gloo (module docstring; ``chip_dp.py`` runs it with a card a rank
     over NCCL).  ``single_hist``: phase 4's zinb-conddisp history, which
@@ -2134,36 +2251,22 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
     ``grads/`` statistics (min, max, num, sum, sum of squares) rank 0's
     must match within ``val_rtol`` too; ``single_compiled``: the one-card
     ``compiled=True`` history on the first DP_COMPILED_CELLS cells (phase
-    13), which the ranks' compiled fit must match likewise.  Returns each
-    run's per-rank launches, the per-epoch time and the gradients' largest
-    relative difference."""
-    import multiprocessing
-
+    13), which the ranks' compiled fit must match likewise;
+    ``single_stream``: phase 10 (a)'s one-card streamed fit (its weights,
+    history and epoch times, ``stream_reference``), which the ranks'
+    streamed fits start from and must match, the loss within rtol 1e-3 and
+    val_loss within STREAM_VAL_RTOL.  Returns each run's per-rank
+    launches, the per-epoch times and the gradients' largest relative
+    difference."""
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"phase 7: compute mode {mode!r}; {n_ranks} ranks, backend {backend}")
     out_dir = os.path.join(OUT_DIR, "dp")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    ctx = multiprocessing.get_context("spawn")  # CUDA does not survive fork
-    port = _free_port()
-    procs = [ctx.Process(target=_dp_rank, args=(r, n_ranks, port, out_dir, backend))
-             for r in range(n_ranks)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        _check(not hung, f"phase 7: ranks {hung} still running after {DP_TIMEOUT} s")
-        codes = [p.exitcode for p in procs]
-        _check(codes == [0] * n_ranks, f"phase 7: ranks exited with {codes}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    if single_stream is not None:
+        np.savez(os.path.join(out_dir, "stream_state.npz"), **single_stream["state"])
+    run_ranks(_dp_rank, n_ranks, (out_dir, backend), DP_TIMEOUT, "phase 7")
     ranks = []
     for r in range(n_ranks):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -2307,6 +2410,8 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
           f"one-card gradient of the same parameters, largest relative differences: "
           f"{fmt(same)} (rtol {TB_DP_RTOL}); against phase 4's one-card TensorBoard fit at "
           f"epochs 1-{epochs}: {fmt(drift)} (measured, not held: the fits' parameters differ)")
+    if single_stream is not None:
+        out["stream"] = _check_dp_stream(ranks, single_stream, n_ranks, backend)
     zinb = ranks[0]["zinb-conddisp"]
     out["per_epoch_s"] = (zinb["t_run"] - zinb["t_zero"]) / DP_RUNS[0][1]
     print(f"phase 7: data-parallel zinb-conddisp epoch {out['per_epoch_s'] * 1e3:.1f} ms on "
@@ -2396,6 +2501,30 @@ def _stream_schedule(n_cells, max_cells, batch=32, val_split=0.1):
     n_val = n_cells - n_train
     val_chunks = -(-n_val // chunk)
     return n_train // batch + (n_train % batch > 0), val_chunks, len(graphs)
+
+
+def want_group_stream_launches(epochs, n_cells, max_cells, n_ranks, rank, batch=32,
+                                val_split=0.1):
+    """``rank``'s launches in a streamed zinb fit under a group of
+    ``n_ranks``: eager, so no warm-up; K1 and K2 once a step, but for the
+    trailing batch where this rank's share of it is empty (blocks of
+    ceil(rows / ranks), ``process_row_range``), and each validation chunk
+    through K1, or through K1w where it is padded to a multiple of the
+    ranks."""
+    from dca_tpu_torch.parallel.multihost import process_row_range
+
+    steps, _, _ = _stream_schedule(n_cells, max_cells, batch, val_split)
+    n_train = int(n_cells * (1.0 - val_split))
+    lo, hi = process_row_range(n_train % batch, rank, n_ranks)
+    steps -= int(n_train % batch > 0 and lo == hi)
+    chunk = max((min(max_cells, n_train) // batch) * batch, batch)
+    n_val = n_cells - n_train
+    padded = [min(chunk, n_val - lo) % n_ranks > 0 for lo in range(0, n_val, chunk)]
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
+    want["zinb_nll_fwd"] = epochs * (steps + padded.count(False))
+    want["zinb_nll_fwd_w"] = epochs * padded.count(True)
+    want["zinb_nll_bwd"] = epochs * steps
+    return want
 
 
 def _streamed_epochs(text):
@@ -2553,21 +2682,44 @@ def _check_derived_input(dev, adata):
     return worst
 
 
-def phase_stream_small(dev, epochs=2, max_cells=512):
+def _stream_state(dev, n_genes):
+    """Phase 10's initial weights: a fresh zinb-conddisp 64-32-64 network's."""
+    from dca_tpu_torch.models.network import get_ae_type
+
+    return {k: v.clone() for k, v in get_ae_type("zinb-conddisp")(
+        input_size=n_genes, hidden_size=(64, 32, 64), device=dev).build()
+        .model.state_dict().items()}
+
+
+def _dp_reference(state, hist):
+    """What phase 7's streamed fits are held to (``phase_data_parallel``)."""
+    return {"state": {k: v.cpu().numpy() for k, v in state.items()},
+            "history": hist.history, "epoch_s": hist.epoch_s}
+
+
+def stream_reference(dev, epochs=DP_STREAM_EPOCHS, max_cells=STREAM_MAX_CELLS):
+    """Phase 10 (a)'s host-tier streamed fit alone, on one card, for
+    ``chip_dp.py``: its weights, history and epoch times."""
+    adata = _lazy_adata(make_paul15_like())
+    state = _stream_state(dev, adata.n_vars)
+    with _switches(STREAM_TIERS["host"]):
+        hist, _, _ = _stream_fit(dev, adata, state, epochs, verbose=False,
+                                 max_device_cells=max_cells)
+    return _dp_reference(state, hist)
+
+
+def phase_stream_small(dev, epochs=DP_STREAM_EPOCHS, max_cells=STREAM_MAX_CELLS):
     """Phase 10 (a): the streaming trainer at 2730 x 3451 through every
     staging tier, against the in-memory fit (module docstring)."""
     import torch
 
     from dca_tpu_torch.data.io import scale_stats, size_factors
-    from dca_tpu_torch.models.network import get_ae_type
     from dca_tpu_torch.ops import fused_dense as fd
 
     counts = make_paul15_like()
     adata = _lazy_adata(counts)
     n_cells = adata.n_obs
-    state = {k: v.clone() for k, v in get_ae_type("zinb-conddisp")(
-        input_size=adata.n_vars, hidden_size=(64, 32, 64), device=dev).build()
-        .model.state_dict().items()}
+    state = _stream_state(dev, adata.n_vars)
     with _switches({}):
         ref, _, ref_net = _stream_fit(dev, adata, state, epochs, verbose=False)
     _check(ref.capture_s is not None, "phase 10: the in-memory fit replayed no graph")
@@ -2591,6 +2743,8 @@ def phase_stream_small(dev, epochs=2, max_cells=512):
         for k, v in launches.items():
             res["launches"][k] += v
         hists[tier] = hist.history
+        if tier == "host":
+            res["dp_reference"] = _dp_reference(state, hist)
         same = hist.history == ref.history
         res["same_bits"][tier] = same
         if tier in SAME_BITS_TIERS:
@@ -3798,7 +3952,8 @@ def main():
         phase_cli()
         den = phase_denoise(zinb_net, nb_net)
         dp = phase_data_parallel(zinb_hist, zinb_tb["histograms"],
-                                 single_compiled=comp["dp_reference"])
+                                 single_compiled=comp["dp_reference"],
+                                 single_stream=stream_small["dp_reference"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3819,7 +3974,10 @@ def main():
             name = f"{fam}_nll_{kind}"
             streamed = {"launches_streaming": {
                 "phase 10 (a)": stream_small["launches"][name],
-                "phase 10 (b)": stream_corpus["launches"][name]}}
+                "phase 10 (b)": stream_corpus["launches"][name],
+                "phase 7 streamed under the group, per rank": {
+                    tier: [r[name] for r in runs]
+                    for tier, runs in dp["stream"]["launches"].items()}}}
             if name == "zinb_nll_fwd":
                 streamed["validation_chunk"] = stream_corpus["k1_val"]
                 streamed["trial_validation"] = hyp["k1_trial_val"]
@@ -3868,8 +4026,10 @@ def main():
         ):
             ms, plain_ms, bound_ms, bound_by, extra = times[f"{fam}_{kind}_w"]
             name = f"{fam}_nll_{kind}_w"
-            per_rank = [a[name] + b[name] + c[name] for a, b, c in
-                        zip(dp_launches, dp["tensorboard"], dp["tensorboard_nb"])]
+            per_rank = [a[name] + b[name] + c[name]
+                        + sum(dp["stream"]["launches"][t][r][name] for t in DP_STREAM_TIERS)
+                        for r, (a, b, c) in enumerate(zip(dp_launches, dp["tensorboard"],
+                                                          dp["tensorboard_nb"]))]
             entry = {
                 "name": name, "route": "cuda", "source": "dca_tpu_torch/csrc/fused_nll.cu",
                 "replaces": f"dca_tpu/ops/fused_loss.py:{line}",
@@ -3881,6 +4041,10 @@ def main():
                                   f"theta/pi cases of K1/K2; weights {', '.join(WEIGHT_KINDS)}",
                 "tolerance": tol, "card": card, **extra,
             }
+            if fam == "zinb" and kind == "fwd":
+                entry["main_path"] += (", then the streamed fits under the group (tiers "
+                                       f"{', '.join(DP_STREAM_TIERS)}): each rank's block of "
+                                       "the padded validation chunk, once an epoch")
             if fam == "nb":
                 entry["main_path"] += (f", then nb-conddisp on the first {DP_NB_TB_CELLS} cells "
                                        "with tensorboard=True: the gradient of each rank's "
@@ -3948,6 +4112,13 @@ def main():
     print(f"data-parallel per-epoch time {dp['per_epoch_s'] * 1e3:.1f} ms on rank 0 (the same "
           f"fit on {DP_RANKS} ranks sharing the one card through gloo: no scaling measured) "
           f"on {card}")
+    one = stream_small["dp_reference"]["epoch_s"]
+    for tier, ep in dp["stream"]["epoch_s"].items():
+        print(f"streamed epoch (2730 x 3451 zinb-conddisp, parts of {STREAM_MAX_CELLS}) on "
+              f"{card}: {tier} tier under the group {[round(t * 1e3, 1) for t in ep]} ms on "
+              f"rank 0 of {DP_RANKS} sharing the card through gloo, against "
+              f"{[round(t * 1e3, 1) for t in one]} ms on one card (phase 10 (a), host tier, "
+              "CUDA graphs)")
     print(f"denoise tier (2730 x 3451, zinb-conddisp) on {card}: forward "
           f"{den['forward_s_0'] * 1e3:.1f} ms without K4, {den['forward_s_1'] * 1e3:.1f} ms "
           f"with (medians in turns {den['forward_all_s_0']} / {den['forward_all_s_1']} s); "

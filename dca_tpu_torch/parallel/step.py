@@ -20,6 +20,12 @@ rate from device buffers and writes its loss there (``StepBuffers``), so
 one CUDA device can capture it in a graph and replay it
 (``train/graphs.py``); the data-parallel step runs the same body from
 Python, its collectives outside any graph.
+
+The streaming trainer stages each part of the epoch into a part buffer,
+and under a group each rank stages only its block of each batch
+(``part_rows``); ``stream_places`` maps every row of the epoch to its
+place in this rank's buffer, so the same step reads its block from there
+while its ``BatchShard`` still spans the global batch.
 """
 
 from __future__ import annotations
@@ -56,6 +62,44 @@ def shard_train_data(group, *arrays):
     """This rank's block of rows of each of ``arrays`` (of one length)."""
     shard = batch_shard(group, len(arrays[0]))
     return tuple(a[shard.lo:shard.hi] for a in arrays)
+
+
+def part_rows(idx, batch, rank=0, world=1):
+    """This rank's rows of a streamed part ``idx`` whose batches are
+    ``batch`` rows each (one batch for a trailing part): its block of each
+    batch (``process_row_range``), the batches one after the other.  All
+    of ``idx`` for one rank."""
+    lo, hi = process_row_range(batch, rank, world)
+    return np.asarray(idx).reshape(-1, batch)[:, lo:hi].reshape(-1)
+
+
+def stream_places(n_train, batch, chunk, rank=0, world=1):
+    """The place in this rank's part buffer of each of an epoch's rows, in
+    the order of the epoch's permutation: the streaming trainer's
+    ``StepBuffers.perm``.  The full batches come in parts of ``chunk``
+    rows (a multiple of ``batch``) and the trailing ``n_train mod batch``
+    rows in a part of their own, each staged by ``part_rows``; a row of
+    another rank's block gets place 0, which the step never reads (it
+    takes its block of the batch's places)."""
+    n_full = n_train // batch
+    rem = n_train - n_full * batch
+    place = np.zeros(n_train, np.int64)
+    p = np.arange(n_full * batch)
+    lo, hi = process_row_range(batch, rank, world)
+    col = p % batch
+    mine = (col >= lo) & (col < hi)
+    place[:n_full * batch][mine] = ((p % chunk) // batch * (hi - lo) + col - lo)[mine]
+    lo, hi = process_row_range(rem, rank, world)
+    place[n_full * batch + lo:n_full * batch + hi] = np.arange(hi - lo)
+    return place
+
+
+def held_shard(group, n, held):
+    """The ``BatchShard`` under which this rank evaluates the ``held``
+    rows it staged of a streamed part of ``n`` rows (its block of each of
+    the part's batches, not one block of the part): evaluation reads its
+    group and its rank alone, the rows are [0, held) of its buffer."""
+    return BatchShard(group, dist.get_rank(group), 0, held, n)
 
 
 @torch.no_grad()
@@ -159,7 +203,12 @@ def make_sharded_train_step(network, opt, group=None):
     batches.  Nothing is read back to the host, so the step can be
     captured in a CUDA graph.  With a process ``group`` this rank computes
     its block of the batch and the loss it writes is its share; without
-    one the step is the single-device step."""
+    one the step is the single-device step.  Under a group (X, T, SF) may
+    hold this rank's rows alone, the streaming trainer's part buffer, with
+    ``bufs.perm`` from ``stream_places``: the places in this rank's block
+    of the batch then point at its rows there, and the shard still spans
+    the global batch (its BatchNorm sums, loss pair, dropout mask and
+    gradients)."""
     params = list(network.model.parameters())
 
     def step(X, T, SF, bufs, opt_state, generator, trailing=False):

@@ -54,7 +54,9 @@ Inputs larger than the device, by the JAX package's gate (more than
 DCA_TPU_DEVICE_BYTES), take the streaming trainer (``_train_streaming``):
 the matrix stays on the host and shuffled parts of it are staged, by one
 of the JAX package's tiers, into two part buffers on the device while the
-captured steps run on the other; its epochs print ``[streaming]``.
+captured steps run on the other; its epochs print ``[streaming]``.  Under
+a process group each rank stages only its block of each batch and runs
+the data-parallel step eagerly on it.
 
 The fit's artefacts, on every trainer, as the JAX package writes them
 under ``output_dir``: ``checkpoint_every=N`` saves the whole training
@@ -78,10 +80,10 @@ the primary rank writes; every rank takes part in the collectives.
 callbacks and the histories without a host hop, one CUDA graph replayed
 once an epoch on one CUDA device, read back once after the fit.  Here
 ``"auto"`` keeps the Python-epoch loop (ROADMAP.md).  Gene-dim model
-parallelism and streaming under a process group wait for later slices
+parallelism and one process over several devices wait for later slices
 (ROADMAP.md, Queue 1): ``train`` takes the JAX package's keywords for them
-and raises ``NotImplementedError`` where the JAX package would run one of
-those paths, before anything is densified or copied to the device.
+and raises ``NotImplementedError`` (``parallel/mesh.py``) before anything
+is densified or copied to the device.
 """
 
 from __future__ import annotations
@@ -94,6 +96,7 @@ import random
 import threading
 import time
 from collections import deque
+from typing import NamedTuple
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -112,17 +115,13 @@ from ..ops.densify import device_densify, device_densify_flat, device_densify_fl
 from ..ops.resident import PART_BYTES_PER_SLOT, ResidentCSR, derive_input
 from ..parallel.mesh import resolve_mesh
 from ..parallel.multihost import initialize, is_primary
-from ..parallel.step import (StepBuffers, all_reduce_grads, batch_shard,
-                             make_sharded_train_step, place_train_state, shard_train_data)
+from ..parallel.step import (StepBuffers, all_reduce_grads, batch_shard, held_shard,
+                             make_sharded_train_step, part_rows, place_train_state,
+                             shard_train_data, stream_places)
 from ..tbevents import EventWriter
 from .checkpoint import TrainCheckpoint, optimizer_tree
 from .graphs import EagerEpoch, GraphEpoch, GraphSteps
 from .optim import get_optimizer, state_tensors
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to dca_tpu_torch yet (see ROADMAP.md, Queue 1)")
 
 
 class History:
@@ -469,7 +468,8 @@ def train(
     without it one whose input and target, n_cells * n_genes * 4 * 2
     bytes, exceed DCA_TPU_DEVICE_BYTES (default 6e9), takes the streaming
     trainer (``_train_streaming``, parts of ``max_device_cells`` cells,
-    default 131072), which raises under a process group.
+    default 131072), under a process group too, where it raises
+    ValueError for a batch smaller than the ranks.
 
     ``devices``/``model_parallel`` as the JAX package's: None for one
     device; ``"all"``, an int or a list for data parallelism over the
@@ -506,9 +506,6 @@ def train(
     lr = float(learning_rate) if learning_rate is not None else opt.default_lr
     device = network.device
     verbose = verbose and is_primary()
-    if stream and group is not None:
-        raise _not_ported("the streaming trainer under a process group (the JAX "
-                          "package's multi-process staging)")
     # TensorBoard: every rank computes the gradients (their sum is a
     # collective), the primary rank alone writes
     tb_dir = os.path.join(output_dir, "tb") if tensorboard and output_dir is not None else None
@@ -523,8 +520,8 @@ def train(
                     early_stop=early_stop, batch_size=batch_size,
                     validation_split=validation_split, use_raw_as_output=use_raw_as_output,
                     output_subset=output_subset, seed=seed, verbose=verbose,
-                    max_device_cells=max_device_cells or 131072, graphs=_graphs,
-                    trace=trace, **artefacts)
+                    max_device_cells=max_device_cells or 131072, group=group,
+                    graphs=_graphs, tb=tb_dir is not None, trace=trace, **artefacts)
             return _train_in_memory(
                 adata, network, opt, lr, group, epochs=epochs, reduce_lr=reduce_lr,
                 early_stop=early_stop, batch_size=batch_size,
@@ -902,32 +899,64 @@ class _PartSlot:
         self.done = torch.cuda.Event() if self.cuda else None
 
 
-def _stream_tasks(tr, va, perm, bs):
-    """An epoch's staging schedule: (kind, StreamingData, rows) for the
-    train parts, the full batches of each chunk apart from its trailing
-    rows, then the validation chunks."""
+class _Task(NamedTuple):
+    """One part of a streamed epoch: its ``kind`` ("full", "rem" or
+    "val"), its StreamingData ``sd``, its ``n`` rows over every rank and
+    ``rows``, those this rank stages."""
+    kind: str
+    sd: StreamingData
+    n: int
+    rows: np.ndarray
+
+
+def _stream_tasks(tr, va, perm, bs, rank=0, world=1):
+    """An epoch's staging schedule: the train parts, the full batches of
+    each chunk apart from its trailing rows, then the validation chunks.
+    Each rank stages its block of each batch of a train part
+    (``parallel.step.part_rows``), of the trailing batch too, where its
+    share may be empty; a validation chunk is padded to a multiple of the
+    ranks with copies of its first row (weight 0, ``_val_weights``) and
+    each rank stages its block.  One rank stages every row."""
     tasks = []
     for idx in tr.index_chunks(perm):
         nb = len(idx) // bs
         if nb > 0:
-            tasks.append(("full", tr, idx[:nb * bs]))
+            full = idx[:nb * bs]
+            tasks.append(_Task("full", tr, len(full), part_rows(full, bs, rank, world)))
         if len(idx) > nb * bs:
-            tasks.append(("rem", tr, idx[nb * bs:]))
+            trail = idx[nb * bs:]
+            tasks.append(_Task("rem", tr, len(trail),
+                               part_rows(trail, len(trail), rank, world)))
     if va is not None:
         for idx in va.index_chunks(np.arange(va.n)):
-            tasks.append(("val", va, idx))
+            padded = _pad_rows(idx, (-len(idx)) % world)
+            tasks.append(_Task("val", va, len(idx),
+                               part_rows(padded, len(padded), rank, world)))
     return tasks
+
+
+def _val_weights(n, rank, world):
+    """This rank's sample weights of a validation chunk of ``n`` rows
+    padded to a multiple of the ranks (1, and 0 on the padding), or None
+    where the chunk needs no padding."""
+    pad = (-n) % world
+    if pad == 0:
+        return None
+    w = np.ones(n + pad, np.float32)
+    w[n:] = 0.0
+    return part_rows(w, n + pad, rank, world)
 
 
 def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, batch_size,
                      validation_split, use_raw_as_output, output_subset, seed, verbose,
-                     max_device_cells, graphs=True, output_dir=None, save_weights=False,
-                     checkpoint_every=0, resume=False, tb_log=None, trace=None):
+                     max_device_cells, group=None, graphs=True, output_dir=None,
+                     save_weights=False, checkpoint_every=0, resume=False, tb=False,
+                     tb_log=None, trace=None):
     """The fit for inputs larger than the device (the JAX package's
-    ``_train_streaming``, single device).  The count matrix stays on the
-    host, sparse as it came; each epoch, shuffled parts of ``chunk`` cells
-    (a multiple of the batch) are staged into one of two part buffers
-    while the steps run on the other.
+    ``_train_streaming``).  The count matrix stays on the host, sparse as
+    it came; each epoch, shuffled parts of ``chunk`` cells (a multiple of
+    the batch) are staged into one of two part buffers while the steps run
+    on the other.
 
     ``chunk`` is a multiple of the batch, so the epoch's full batches are
     exactly those of the in-memory fit under the same permutation, and its
@@ -943,6 +972,31 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     The validation chunks are evaluated unweighted through
     ``network.loss_fn``; every loss stays on the device until the epoch's
     one read-back.
+
+    Under a process ``group`` (the JAX package's multi-process staging,
+    one process per device) every rank draws the same permutation, and
+    stages, materializes and uploads only the rows it computes on: its
+    block of each batch of each part (``_stream_tasks``), into part
+    buffers sized for its share, so ``max_device_cells`` still counts the
+    cells of a part and every part's batches are the single-process fit's.
+    Its ``StepBuffers.perm`` places its block of each batch in its buffer
+    (``parallel/step.py::stream_places``), and the data-parallel step sums
+    BatchNorm's statistics, the loss pair and the gradients over the
+    global batch, whose dropout mask each rank draws whole and slices.
+    The trailing batch is split the same way, a rank's share possibly
+    empty; the JAX package stages it whole on every process, because its
+    one program partitions the rows itself, where each rank here computes
+    its own block.  A validation chunk is padded to a multiple of the
+    ranks with copies of its first row at weight 0 and each rank evaluates
+    its block through the weighted loss (K1w on a card), unweighted (K1)
+    where the chunk divides the ranks; the losses are summed over the
+    ranks once an epoch, in its one read-back.  The steps run eagerly, as
+    the in-memory data-parallel fit's (their collectives are not
+    captured); the prefetch thread stages and uploads, which takes no
+    collective, and the main thread alone issues the collectives, in the
+    same order on every rank.  Tiers as in the JAX package: the host
+    densify, or the device densify with padded payloads; no derived input
+    and no resident corpus.
 
     Staging tiers, as in the JAX package:
       * host: parts densified on the host (``native.densify_rows``, the
@@ -970,7 +1024,9 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     the TensorBoard gradients are taken on the first validation chunk, or
     without a split on the last staged train part, as in the JAX package,
     while the part is in its buffer: after its last step or its loss and
-    before the buffer is handed back to the staging."""
+    before the buffer is handed back to the staging; under a group on this
+    rank's block (with its weights), summed over the ranks.  ``tb``: take
+    them (on every rank; ``tb_log``, the primary rank's logger, writes)."""
     device = network.device
     cuda = device.type == "cuda"
     X = adata.X
@@ -991,11 +1047,18 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     bs = min(batch_size, max(split_at, 1))
     chunk = max((min(max_device_cells, split_at) // bs) * bs, bs)
     dev_densify = use_device_densify(device)
+    rank, world = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
+    if world > bs:
+        raise ValueError(f"streaming under a process group needs batch_size >= the number of "
+                         f"ranks ({world}); got batch_size {bs}: data parallelism needs at "
+                         "least one row per rank per batch")
+    # a rank stages (B, K) slabs of its own rows: the padded payload
+    pmode = "padded" if group is not None else "auto"
 
     X_tr, X_va = X[:split_at], X[split_at:]
     T_tr, T_va = target[:split_at], target[split_at:]
     m_tr = m_va = None
-    if (dev_densify and scale_mean is not None
+    if (dev_densify and group is None and scale_mean is not None
             and os.environ.get("DCA_TPU_DERIVE_INPUT", "1") != "0"):
         m_tr = _derivable_row_scale(X_tr, T_tr)
         if m_tr is not None and split_at < n:
@@ -1004,13 +1067,15 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 m_tr = None  # both splits or neither
 
     tr = StreamingData(X_tr, T_tr, sf[:split_at], chunk, scale_mean, scale_std,
-                       device_densify=dev_densify, derive_input=m_tr is not None)
+                       device_densify=dev_densify, payload_mode=pmode,
+                       derive_input=m_tr is not None)
     tr.derive_m = m_tr
     has_val = split_at < n
     va = None
     if has_val:
         va = StreamingData(X_va, T_va, sf[split_at:], chunk, scale_mean, scale_std,
-                           device_densify=dev_densify, derive_input=m_va is not None)
+                           device_densify=dev_densify, payload_mode=pmode,
+                           derive_input=m_va is not None)
         va.derive_m = m_va
     n_train = split_at
     g_in, g_out = X.shape[1], target.shape[1]
@@ -1036,25 +1101,23 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                       f"({rest / 1e6:.0f} MB payload) [streaming]")
 
     # ----- the step, on two part buffers -----
+    if group is not None:
+        place_train_state(network, group)
     params = list(network.model.parameters())
     opt_state = opt.init(params)
     generator = torch.Generator(device=device).manual_seed(seed)
     bufs = StepBuffers.create(n_train, bs, lr, device)
     n_full = bufs.n_full
     rem = n_train - n_full * bs
-    # the place of each of the epoch's rows in its part buffer: full batch
-    # rows at their offset within their chunk (chunk is a multiple of bs),
-    # the trailing rows at the start of their own part
-    place = np.arange(n_train, dtype=np.int64)
-    place[:n_full * bs] %= chunk
-    place[n_full * bs:] -= n_full * bs
-    bufs.perm.copy_(torch.from_numpy(place))
-    slots = [_PartSlot(chunk, g_in, g_out, device) for _ in range(2)]
-    train_step = make_sharded_train_step(network, opt)
-    # the epoch's schedule is the same every epoch: each (part buffer,
-    # kind) it uses is captured once
-    kinds = {(i % 2, kind == "rem") for i, (kind, _, _) in
-             enumerate(_stream_tasks(tr, va, np.arange(n_train), bs)) if kind != "val"}
+    bufs.perm.copy_(torch.from_numpy(stream_places(n_train, bs, chunk, rank, world)))
+    # the epoch's schedule, but for the row orders, is the same every
+    # epoch: the buffers take this rank's largest part, and each (part
+    # buffer, kind) it uses is captured once
+    schedule = _stream_tasks(tr, va, np.arange(n_train), bs, rank, world)
+    slots = [_PartSlot(max(len(t.rows) for t in schedule), g_in, g_out, device)
+             for _ in range(2)]
+    train_step = make_sharded_train_step(network, opt, group)
+    kinds = {(i % 2, t.kind == "rem") for i, t in enumerate(schedule) if t.kind != "val"}
     steps = {key: functools.partial(train_step, slots[key[0]].x, slots[key[0]].t,
                                     slots[key[0]].sf, bufs, opt_state, generator, key[1])
              for key in sorted(kinds)}
@@ -1065,7 +1128,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     ckpts, start_epoch = _start_fit(output_dir, checkpoint_every, resume, network, opt_state,
                                     generator, cbs, seed, hist, rng_np, n_train, verbose,
                                     " [streaming]")
-    if graphs and epochs > start_epoch and cuda and not network.definition.debug:
+    if (graphs and epochs > start_epoch and cuda and group is None
+            and not network.definition.debug):
         written = params + list(network.model.buffers()) + state_tensors(opt_state)
         runner = GraphSteps(steps, written + [bufs.step_i, bufs.losses], generator, device)
         hist.capture_s = runner.capture_s
@@ -1146,11 +1210,16 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             slot.ready = torch.cuda.Event()
             slot.ready.record(stage_stream)
 
-    def prepare(sd, idx):
+    def prepare(sd, rows):
+        if len(rows) == 0:
+            return None  # an empty share of the trailing batch
         m = getattr(sd, "derive_m", None)
-        return sd.materialize(idx), (m[idx] if m is not None else None)
+        return sd.materialize(rows), (m[rows] if m is not None else None)
 
     def ship(pi, kind, slot, prep):
+        if prep is None:
+            stage(pi, kind, slot, lambda: None)
+            return
         (xc, tc, sfc), m_part = prep
         stage(pi, kind, slot, lambda: write_part(slot, xc, tc, sfc, m_part))
 
@@ -1166,7 +1235,7 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
         if resident is not None:
             ahead = max(int(os.environ.get("DCA_TPU_RESIDENT_AHEAD", "1")), 0)
             window = []
-            for pi, (kind, sd, idx) in enumerate(tasks):
+            for pi, (kind, sd, _, idx) in enumerate(tasks):
                 slot = slots[pi % 2]
                 t0 = time.perf_counter()
                 if cuda and ahead and len(window) >= ahead:
@@ -1181,17 +1250,17 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 yield slot
             return
         if pool is None:
-            for pi, (kind, sd, idx) in enumerate(tasks):
+            for pi, (kind, sd, _, rows) in enumerate(tasks):
                 t0 = time.perf_counter()
-                ship(pi, kind, slots[pi % 2], prepare(sd, idx))
+                ship(pi, kind, slots[pi % 2], prepare(sd, rows))
                 if tl is not None:
                     tl.rec(pi, kind, "wait", t0, time.perf_counter())
                 yield slots[pi % 2]
             return
 
-        def work(pi, kind, sd, idx):
+        def work(pi, kind, sd, rows):
             t0 = time.perf_counter()
-            p = prepare(sd, idx)
+            p = prepare(sd, rows)
             t1 = time.perf_counter()
             ship(pi, kind, slots[pi % 2], p)
             if tl is not None:
@@ -1199,8 +1268,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 tl.rec(pi, kind, "ship", t1, time.perf_counter())
 
         pending = deque()
-        for pi, (kind, sd, idx) in enumerate(tasks):
-            pending.append((pi, kind, pool.submit(work, pi, kind, sd, idx)))
+        for pi, (kind, sd, _, rows) in enumerate(tasks):
+            pending.append((pi, kind, pool.submit(work, pi, kind, sd, rows)))
             while len(pending) > depth:
                 yield _take(pending)
         while pending:
@@ -1214,39 +1283,46 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             tl.rec(ppi, pkind, "wait", t0, time.perf_counter())
         return slots[ppi % 2]
 
+    # the validation chunks' weights on the device, by part: the same
+    # every epoch
+    val_w = {pi: torch.from_numpy(_val_weights(t.n, rank, world)).to(device)
+             for pi, t in enumerate(schedule) if t.kind == "val" and t.n % world}
     try:
         for epoch in range(start_epoch, epochs):
             t_ep = time.perf_counter()
             perm = rng_np.permutation(n_train)
             bufs.lr.fill_(cbs.lr)
             bufs.step_i.zero_()
-            tasks = _stream_tasks(tr, va, perm, bs)
+            tasks = _stream_tasks(tr, va, perm, bs, rank, world)
             if tl is not None:
                 tl.epoch = epoch
             val_losses, val_rows = [], []
             grads = None
             # the part whose rows the TensorBoard gradients are taken on:
             # the first validation chunk, or the last train part
-            n_parts = sum(kind != "val" for kind, _, _ in tasks)
-            grad_part = (n_parts if has_val else n_parts - 1) if tb_log is not None else -1
-            for pi, ((kind, _, idx), slot) in enumerate(zip(tasks, staged(tasks))):
+            n_parts = sum(t.kind != "val" for t in tasks)
+            grad_part = (n_parts if has_val else n_parts - 1) if tb else -1
+            for pi, ((kind, _, n_rows, rows), slot) in enumerate(zip(tasks, staged(tasks))):
                 t0 = time.perf_counter()
                 if cuda:
                     torch.cuda.current_stream(device).wait_event(slot.ready)
                 start = tl.start_event() if tl is not None else None
+                k, w, shard = len(rows), val_w.get(pi), None
+                if group is not None:
+                    shard = (batch_shard(group, k * world) if kind == "val"
+                             else held_shard(group, n_rows, k))
                 if kind == "full":
-                    run((pi % 2, False), len(idx) // bs)
+                    run((pi % 2, False), n_rows // bs)
                 elif kind == "rem":
                     run((pi % 2, True))
                 else:
-                    k = len(idx)
                     with torch.no_grad():
-                        loss, _ = network.loss_fn(slot.x[:k], slot.sf[:k], slot.t[:k], False)
+                        loss, _ = network.loss_fn(slot.x[:k], slot.sf[:k], slot.t[:k], False,
+                                                  sample_weights=w, shard=shard)
                     val_losses.append(loss.detach().reshape(1))
-                    val_rows.append(k)
+                    val_rows.append(n_rows)
                 if pi == grad_part:
-                    k = len(idx)
-                    grads = _tb_grads(network, slot.x[:k], slot.sf[:k], slot.t[:k])
+                    grads = _tb_grads(network, slot.x[:k], slot.sf[:k], slot.t[:k], w, shard)
                 if tl is not None:
                     tl.device_span(pi, kind, "device", t0, start)
                 if cuda:
@@ -1258,7 +1334,11 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             t0 = time.perf_counter()
             with torch.no_grad():
                 sums = torch.cat([bufs.losses[:n_full].sum().view(1),
-                                  bufs.losses[n_full:]] + val_losses).tolist()
+                                  bufs.losses[n_full:]] + val_losses)
+                if group is not None:
+                    # each rank's losses are its shares: their sums are the means
+                    dist.all_reduce(sums, group=group)
+                sums = sums.tolist()  # the epoch's one read-back
             hist.epoch_s.append(time.perf_counter() - t_ep)
             if tl is not None:
                 now = time.perf_counter()

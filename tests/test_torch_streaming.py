@@ -274,16 +274,6 @@ def test_streaming_writes_the_fit_artefacts_as_jax(kwds, tmp_path, monkeypatch):
     assert len(hist["loss"]) == len(jhist["loss"]) == FIT["epochs"]
 
 
-def test_streaming_under_a_process_group_raises_by_name(monkeypatch):
-    """The JAX package's multi-process staging is not ported: a fit that
-    would stream under a process group raises before staging anything."""
-    monkeypatch.setattr(loop, "resolve_mesh", lambda devices, model_parallel: object())
-    ad = io.normalize(io.read_dataset(AnnData(_counts())))
-    net = AE_types["nb-conddisp"](input_size=N_GENES, hidden_size=(8, 4, 8), device="cpu").build()
-    with pytest.raises(NotImplementedError, match="process group.*ROADMAP.md"):
-        train(ad, net, devices="all", **FIT)
-
-
 def test_a_failed_staging_raises_and_leaves_no_thread(monkeypatch, bridged):
     """A part that fails to stage raises out of train(), and the prefetch
     thread ends (no device densify quietly gives way to the host tier)."""
