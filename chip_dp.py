@@ -33,9 +33,18 @@ BIG_PART cells through the padded-payload tier, on one card (the steps
 replayed from CUDA graphs) and on ``n_cards`` ranks over NCCL (eager):
 each epoch's time, the same history on every rank, the loss within rtol
 1e-3 of the one card's and val_loss within rtol 1e-2, and the launches of
-each rank and of the one card exactly those of the schedule.  Prints the cards'
-names and power limits and the epoch times; exits non-zero on any
-failure.  Nothing here imports JAX or the JAX package.
+each rank and of the one card exactly those of the schedule.  Then
+gene-dim model parallelism (``chip_smoke.phase_model_parallel``):
+zinb-conddisp on the first MP_GENES = 3448 genes (which 2 and 4 divide)
+for 2 epochs through ``dca(devices="all", model_parallel=M)`` on the
+``n_cards`` ranks over NCCL, at M = 1 (the data-parallel grid, for its
+epoch time), and, on 4 cards, 2 x 2 and 1 x 4: the same history on every
+rank, within rtol 1e-3 (loss) and 1e-2 (val_loss) of the one-card fit of
+the same genes, the gathered parameters and denoised matrices equal on
+every rank, rank 0 alone writing, each rank's launches exact; each grid's
+epoch time beside the one card's.  Prints the cards' names and power
+limits and the epoch times; exits non-zero on any failure.  Nothing here
+imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 
 BIG_CELLS, BIG_PART = 65_536, 16_384
+MP_GENES = 3448
+MP_RUNS = (("zinb-conddisp", "zinb-conddisp", MP_GENES, 2),)
 BIG_TIMEOUT = 900  # seconds for the ranks of the large streamed fit, start-up included
 
 
@@ -119,6 +130,16 @@ def phase_big_stream(n):
     return one, ranks
 
 
+def _print_mp(mp, n, cards):
+    for key, v in mp.items():
+        print(f"zinb-conddisp 2730 x {MP_GENES} epoch on the grid {key.split('-', 2)[-1]} "
+              f"({n} cards over NCCL, eager): {[round(t * 1e3, 1) for t in v['epoch_s']]} ms "
+              f"on rank 0, against {[round(t * 1e3, 1) for t in v['one_card_epoch_s']]} ms "
+              f"on one card (CUDA graphs); per-rank launches "
+              f"{[{k: c for k, c in r.items() if c} for r in v['launches']]}; largest "
+              f"relative differences from one card {v['rel']}; cards: {'; '.join(cards[:n])}")
+
+
 def main():
     import torch
 
@@ -131,6 +152,10 @@ def main():
               file=sys.stderr)
         return 1
     os.makedirs(cs.OUT_DIR, exist_ok=True)
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           timeout=60).stdout.strip().splitlines()
+    models = tuple(m for m in (1, 2, 4) if n % m == 0)
     try:
         _, _, hist, _, tb = cs.phase_api("zinb-conddisp", 2, tensorboard=True)
         one = cs.epoch_timings(epochs=2)
@@ -139,12 +164,11 @@ def main():
                                     single_compiled=cs.dp_compiled_reference(),
                                     single_stream=stream)
         big_one, big = phase_big_stream(n)
+        mp = cs.phase_model_parallel(n, "nccl", models=models, runs=MP_RUNS)
     except cs.SmokeFailure as e:
         print(f"chip_dp: FAILED: {e}", file=sys.stderr)
         return 1
-    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True, text=True,
-                           timeout=60).stdout.strip().splitlines()
+    _print_mp(mp, n, cards)
     print(f"zinb-conddisp 2730 x 3451 epoch: on one card {min(one['graph']):.1f} ms from "
           f"CUDA graphs, {min(one['eager']):.1f} ms eager (the best of 3 fits each); "
           f"{dp['per_epoch_s'] * 1e3:.1f} ms data parallel on {n} cards over NCCL (eager); "

@@ -16,7 +16,11 @@ Phases, each of which must pass:
    a ragged (7, 50) with 10% NaN targets and clipped theta.  K1/K2: at each shape:
    NB with theta (B, G), (1, G) and (B, 1); ZINB with theta/pi (B, G)/(B, G)
    at ridge 0 and 0.1, and the broadcast pairs (1, G)/(B, G), (B, 1)/(B, 1),
-   (1, G)/(1, G), (B, 1)/(1, G) at ridge 0.1.  Tolerances: loss relative
+   (1, G)/(1, G), (B, 1)/(1, G) at ridge 0.1; and at a rank's (rows, gene
+   shard) of the model-parallel fits (``MP_SHAPES``): (32, 1725), (25,
+   1725) and (273, 1725) at 3450 genes on 1 x 2, (16, 1724), (13, 1724)
+   and (12, 1724) at 3448 on 2 x 2, (32, 862), (25, 862) and (273, 862)
+   at 3448 on 1 x 4.  Tolerances: loss relative
    error <= 1e-5 (the kernel sums in another order than torch.sum) and the
    denominator's count exact; gradients, taken with an incoming gradient
    g = 0.37 (``G_BWD``) that K2 divides by the denominator itself,
@@ -30,7 +34,8 @@ Phases, each of which must pass:
    is the sum of theirs plus 2 ceil(log2 n) ulps of the summed magnitudes
    for the two reductions' rounding.  K1 must give the same bits twice.
    K1w/K2w (the weighted variants) at the validation block of one of two
-   ranks (137, 3451), the batch (32, 3451) and the ragged (7, 50), with
+   ranks (137, 3451), the batch (32, 3451), the ragged (7, 50) and a
+   2 x 2 grid's validation block (137, 1724), with
    the same theta/pi cases, each with padding weights (ones, the last row
    0), fractional weights (two rows 0) and all-zero weights (denominator
    1): the same tolerances, the total weight exact for 0/1 weights, each
@@ -70,7 +75,9 @@ Phases, each of which must pass:
    over 67 TFLOP/s float32).  K1 also at the validation split (273, 3451).
    One whole loss backward (``_FusedNLL.backward``: K2 alone), and with
    ``--parent`` the parent's (its division, then its K2), in turns.
-   K1w at (137, 3451) and K2w at (32, 3451), NB and ZINB, likewise; ZINB
+   K1w at (137, 3451) and K2w at (32, 3451), NB and ZINB, likewise; K1
+   and K2 at the model-parallel shards (32, 1725) and (32, 862), and K1w
+   and K2w at (137, 1724) (``mp_shard_timings``); ZINB
    K2 at (273, 3451) and K2w at (137, 3451), the shapes of the TensorBoard
    gradient (phases 4, 7 and 11).
    K4 at the encoder and head shapes, with its plan, its bound, the plain
@@ -164,9 +171,21 @@ Phases, each of which must pass:
    noise) of phase 10's one-card host-tier fit, 154 / 154 K1/K2 and 2 K1w
    a rank (273 validation rows padded to 274, once an epoch), rank 0 alone
    printing its epochs and writing checkpoints; its epoch time beside
-   phase 10's one-card one.  A rank that fails or outlives its time
-   limit fails the phase.  The data-parallel epoch time is printed: two
-   ranks sharing one card measure no scaling.
+   phase 10's one-card one.  Then gene-dim model parallelism
+   (``phase_model_parallel``): 2 spawned ranks on the card over gloo run
+   ``dca(devices="all", model_parallel=2)``, a grid of 1 x 2, on phase 4's
+   cells: zinb-conddisp on the first 3450 genes for 2 epochs (every gene
+   tensor sharded), and nb-conddisp on all 3451 for 1 epoch (nothing
+   divides 2: every tensor whole on both ranks).  Each: the same history
+   on both ranks, within rtol 1e-3 (loss) and 1e-2 (val_loss, the
+   BatchNorm-bias noise) of the one-card fit of the same genes; the
+   gathered parameters and the denoised matrices the same on both ranks,
+   whole and finite; rank 0 alone writes; per-rank launches 156 / 154
+   K1/K2 and no K1w for zinb-conddisp (the validation of a grid with one
+   data index is not padded), 78 / 77 for nb-conddisp
+   (``want_mp_launches``).  A rank that fails or outlives its time
+   limit fails the phase.  The data-parallel and model-parallel epoch
+   times are printed: two ranks sharing one card measure no scaling.
 
 8. The native IO tier (``dca_tpu_torch/native``, g++ at first use) must
    build on the card's host; ``read_text`` of the 3451 x 2730 gene x cell
@@ -581,6 +600,12 @@ def recording_k2():
 COMPARE_SHAPES = [((32, 3451), 0.0, 0), ((25, 3451), 0.0, 0), ((273, 3451), 0.0, 0),
                   ((7, 50), 0.1, 3), ((16, 3451), 0.0, 0), ((13, 3451), 0.0, 0),
                   ((12, 3451), 0.0, 0)]
+# and a rank's (rows, gene shard) of the model-parallel fits: 3450 genes on
+# 1 x 2 (phase 7), 3448 on 2 x 2 and 1 x 4 (chip_dp.py)
+MP_SHAPES = [((32, 1725), 0.0, 0), ((25, 1725), 0.0, 0), ((273, 1725), 0.0, 0),
+             ((16, 1724), 0.0, 0), ((13, 1724), 0.0, 0), ((12, 1724), 0.0, 0),
+             ((32, 862), 0.0, 0), ((25, 862), 0.0, 0), ((273, 862), 0.0, 0)]
+COMPARE_SHAPES += MP_SHAPES
 
 
 def _compare_cases(B, G):
@@ -655,7 +680,8 @@ def phase_compare(dev):
 
 # K1w/K2w: the validation block of one of 2 ranks (273 rows padded to 274),
 # the training batch, and the ragged case with NaN targets and clipped theta
-WEIGHTED_SHAPES = [((137, 3451), 0.0, 0), ((32, 3451), 0.0, 0), ((7, 50), 0.1, 3)]
+WEIGHTED_SHAPES = [((137, 3451), 0.0, 0), ((32, 3451), 0.0, 0), ((7, 50), 0.1, 3),
+                   ((137, 1724), 0.0, 0)]  # a rank's validation block on 2 x 2
 WEIGHT_KINDS = ("padding", "fractional", "zero")
 
 
@@ -1108,6 +1134,49 @@ def weighted_timings(dev):
             print(f"phase 2: {fam} K{1 if kind == 'fwd' else 2}w at {(B, G)}: "
                   f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} "
                   f"us by {by}); no single PyTorch call computes it")
+    return out
+
+
+def mp_shard_timings(dev):
+    """K1 and K2, NB and ZINB, at a rank's (rows, gene shard) of the
+    model-parallel step, (32, 1725) on 1 x 2 and (32, 862) on 1 x 4, and
+    K1w/K2w at a 2 x 2 grid's validation block (137, 1724), padding
+    weights, with the plain versions' times and the bounds; {(name,
+    shape): (ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    g = torch.tensor(G_BWD, device=dev)
+    out = {}
+    for fam, seed in (("nb", 41), ("zinb", 43)):
+        with_pi = fam == "zinb"
+        n_in = 4 if with_pi else 3  # y, mu, theta and pi, each read once
+        for B, G, weighted in ((32, 1725, False), (32, 862, False), (137, 1724, True)):
+            n = B * G
+            y, mu, th, pi = (None if a is None else torch.from_numpy(a).to(dev)
+                             for a in _loss_inputs(B, G, seed + G, pi_shape=(B, G) if with_pi
+                                                   else None))
+            w = torch.from_numpy(_weights(B, "padding", seed)).to(dev) if weighted else None
+            _, denom = fl._fwd_kernel(y, mu, th, pi, 0.1, w)
+            extra_in, extra_ops = (4 * B, n) if weighted else (0, 0)
+            # as phase_timings and weighted_timings count them
+            times = {
+                "fwd": (lambda: fl._fwd_kernel(y, mu, th, pi, 0.1, w),
+                        lambda: fl._fwd_reference(y, mu, th, pi, 0.1, w),
+                        _bound_ms(n_in * 4 * n + extra_in + 4 * 4,
+                                  _k1_ops(y, mu, th, with_pi) + extra_ops)),
+                "bwd": (lambda: fl._bwd_kernel(y, mu, th, pi, 0.1, g, denom, w),
+                        lambda: fl._bwd_reference(y, mu, th, pi, 0.1, g, denom, w),
+                        _bound_ms(n_in * 4 * n + extra_in + 2 * 4 + (n_in - 1) * 4 * n,
+                                  _k2_ops(y, mu, th, with_pi) + extra_ops)),
+            }
+            for kind, (kernel, plain, (bound, by)) in times.items():
+                ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+                name = f"{fam}_nll_{kind}{'_w' if weighted else ''}"
+                out[(name, (B, G))] = (ms, plain_ms, bound, by)
+                print(f"phase 2: {name} at a model-parallel shard {(B, G)}: {ms * 1e3:.2f} us "
+                      f"(plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {by})")
     return out
 
 
@@ -2422,6 +2491,181 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
     shutil.rmtree(out_dir)
     return out
 
+
+# gene-dim model parallelism: (name, ae_type, genes, epochs) of each fit;
+# every gene tensor shards over 2 at 3450 genes, none at 3451 (= 7 x 17 x 29)
+MP_RUNS = (("zinb-conddisp", "zinb-conddisp", 3450, 2), ("nb-conddisp", "nb-conddisp", 3451, 1))
+MP_TIMEOUT = 600  # seconds for the ranks, start-up included
+
+
+def _mp_fit(counts, ae_type, epochs, **kw):
+    """``dca()`` of ``ae_type`` 64-32-64, batch 32, on ``counts`` on the
+    card, with ``kw`` (``devices``, ``model_parallel``, ``network_kwds``);
+    returns (the annotated copy, the network, the fit's ``History``, taken
+    from the ``train`` that ``dca`` calls, for its epoch times)."""
+    import dca_tpu_torch
+    import dca_tpu_torch.api as api
+    from dca_tpu_torch.data.adata import AnnData
+
+    fits = []
+    inner = api.train
+
+    def recording(*args, **kwargs):
+        fits.append(inner(*args, **kwargs))
+        return fits[-1]
+
+    api.train = recording
+    try:
+        ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), ae_type=ae_type, epochs=epochs,
+                                     hidden_size=(64, 32, 64), batch_size=32, copy=True,
+                                     return_info=True, return_model=True, **kw)
+    finally:
+        api.train = inner
+    return ret, net, fits[0]
+
+
+def want_mp_launches(likelihood, epochs, n_cells, n_data, data_index, batch=32,
+                     val_split=0.1):
+    """The K1/K2 launches of one rank of a ``dca()`` fit over a grid of
+    ``n_data`` data indices: a step where its block of the batch is not
+    empty, and the validation once an epoch, through K1w where the
+    validation rows do not divide the data indices (padded), else K1."""
+    n_train = int(n_cells * (1.0 - val_split))
+    n_val = n_cells - n_train
+    n_full, rem = divmod(n_train, batch)
+    per = -(-rem // n_data)
+    steps = n_full + (1 if rem and data_index * per < rem else 0)
+    out = dict.fromkeys(LAUNCH_NAMES, 0)
+    out[f"{likelihood}_nll_fwd"] = epochs * steps
+    out[f"{likelihood}_nll_bwd"] = epochs * steps
+    out[f"{likelihood}_nll_fwd" + ("_w" if n_val % n_data else "")] += epochs
+    return out
+
+
+def _mp_rank(rank, world, port, out_dir, backend, models, runs):
+    """One rank of the model-parallel fits, in a process of its own: join
+    the group, then for each model-axis width of ``models`` and each run of
+    ``runs`` fit through ``dca(devices="all", model_parallel=M)``; leave
+    the histories, launches, epoch times, gathered parameters and denoised
+    matrix in ``out_dir`` (rank 0 alone writes its model.pickle)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", world, rank, backend=backend)
+    counts = make_paul15_like()
+    res = {}
+    for model in models:
+        for name, ae_type, genes, epochs in runs:
+            key = f"{name}-{world // model}x{model}"
+            files = os.path.join(out_dir, f"{key}-rank{rank}")
+            fl.reset_launches()
+            ret, net, hist = _mp_fit(counts[:, :genes], ae_type, epochs, devices="all",
+                                     model_parallel=model, network_kwds={"file_path": files})
+            torch.cuda.synchronize()
+            launches = dict(fl.launches)
+            net.save()  # the gathered network: rank 0 alone writes
+            np.save(os.path.join(out_dir, f"denoised-{key}-rank{rank}.npy"), ret.X)
+            np.savez(os.path.join(out_dir, f"params-{key}-rank{rank}.npz"),
+                     **{k: v.cpu().numpy() for k, v in net.model.state_dict().items()})
+            res[key] = {"history": ret.uns["dca_loss_history"], "launches": launches,
+                        "epoch_s": hist.epoch_s}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def mp_references(runs):
+    """The one-card ``dca()`` fit of each run of ``runs`` (the steps
+    replayed from CUDA graphs): {name: (history, epoch times)}."""
+    counts = make_paul15_like()
+    out = {}
+    for name, ae_type, genes, epochs in runs:
+        ret, _, hist = _mp_fit(counts[:, :genes], ae_type, epochs)
+        out[name] = (ret.uns["dca_loss_history"], hist.epoch_s)
+    return out
+
+
+def phase_model_parallel(n_ranks=DP_RANKS, backend="gloo", models=(2,), runs=MP_RUNS):
+    """Phase 7's model-parallel fits: ``n_ranks`` spawned ranks (by
+    default 2 on the one card over gloo) fit each run of ``runs`` through
+    ``dca(devices="all", model_parallel=M)`` for each M of ``models``, on
+    the grid of (n_ranks / M) x M.  Each fit: the same history on every
+    rank, within rtol 1e-3 (loss) and STREAM_VAL_RTOL (val_loss: the
+    BatchNorm-bias noise, ROADMAP.md Queue 3) of the one-card fit of the
+    same genes; the gathered parameters and the denoised matrix the same
+    on every rank, finite, of the whole shapes; rank 0 alone writes; each
+    rank's K1/K2 launches those of ``want_mp_launches``.  Returns
+    {fit: {launches a rank, epoch times on rank 0, the one card's}}."""
+    from dca_tpu_torch.models import core
+
+    refs = mp_references(runs)
+    out_dir = os.path.join(OUT_DIR, "mp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    run_ranks(_mp_rank, n_ranks, (out_dir, backend, tuple(models), tuple(runs)), MP_TIMEOUT,
+              "phase 7 (model parallel)")
+    ranks = []
+    for r in range(n_ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out = {}
+    for model in models:
+        n_data = n_ranks // model
+        for name, ae_type, genes, epochs in runs:
+            key = f"{name}-{n_data}x{model}"
+            what = f"phase 7 model parallel {key} ({genes} genes)"
+            fits = [r[key] for r in ranks]
+            hist = fits[0]["history"]
+            for rk, fit in enumerate(fits):
+                _check(fit["history"] == hist, f"{what}: rank {rk}'s history {fit['history']} "
+                       f"differs from rank 0's {hist}")
+                want = want_mp_launches(core.LIKELIHOODS[ae_type], epochs, 2730, n_data,
+                                        rk // model)
+                _check(fit["launches"] == want,
+                       f"{what}: rank {rk} launched {fit['launches']}, expected {want}")
+            ref, ref_epoch_s = refs[name]
+            rel = {}
+            for k, rtol in (("loss", 1e-3), ("val_loss", STREAM_VAL_RTOL)):
+                got, want = np.asarray(hist[k]), np.asarray(ref[k])
+                _check(len(got) == epochs and bool(np.isfinite(got).all()),
+                       f"{what}: {k} {hist[k]}")
+                rel[k] = float(np.max(np.abs(got - want) / np.abs(want)))
+                _check(rel[k] <= rtol, f"{what}: {k} {hist[k]} vs the one-card fit's "
+                       f"{ref[k]}, relative difference {rel[k]:.3e} > {rtol}")
+            params = [dict(np.load(os.path.join(out_dir, f"params-{key}-rank{r}.npz")))
+                      for r in range(n_ranks)]
+            _check(params[0]["trunk.enc0.kernel"].shape == (genes, 64)
+                   and params[0]["heads.mean.kernel"].shape == (64, genes),
+                   f"{what}: the gathered network is not whole")
+            for rk, p in enumerate(params[1:], 1):
+                _check(all(np.array_equal(p[k], params[0][k]) for k in p),
+                       f"{what}: rank {rk}'s gathered parameters differ from rank 0's")
+            den = [np.load(os.path.join(out_dir, f"denoised-{key}-rank{r}.npy"))
+                   for r in range(n_ranks)]
+            _check(den[0].shape == (2730, genes) and bool(np.isfinite(den[0]).all()),
+                   f"{what}: denoised matrix of shape {den[0].shape} or not finite")
+            _check(all(np.array_equal(d, den[0]) for d in den[1:]),
+                   f"{what}: the ranks' denoised matrices differ")
+            written = [os.path.exists(os.path.join(out_dir, f"{key}-rank{r}"))
+                       for r in range(n_ranks)]
+            _check(os.path.exists(os.path.join(out_dir, f"{key}-rank0", "model.pickle"))
+                   and not any(written[1:]), f"{what}: written by ranks {written}")
+            out[key] = {"launches": [f["launches"] for f in fits],
+                        "epoch_s": fits[0]["epoch_s"], "one_card_epoch_s": ref_epoch_s,
+                        "rel": rel}
+            print(f"{what}, {epochs} epochs on {n_ranks} ranks over {backend}: loss "
+                  f"{hist['loss']}, val_loss {hist['val_loss']}, the same on every rank; "
+                  f"against the one-card fit largest relative differences {rel['loss']:.3e} "
+                  f"(loss), {rel['val_loss']:.3e} (val_loss); per-rank launches "
+                  f"{[{k: v for k, v in f['launches'].items() if v} for f in fits]}; gathered "
+                  f"parameters and denoised matrices equal; rank 0 alone wrote; epochs "
+                  f"{[round(t * 1e3, 1) for t in fits[0]['epoch_s']]} ms on rank 0 against "
+                  f"{[round(t * 1e3, 1) for t in ref_epoch_s]} ms on one card")
+    shutil.rmtree(out_dir)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3879,6 +4123,12 @@ def dp_compiled_reference():
     return ret.uns["dca_loss_history"]
 
 
+def _shard_entries(mp_times, name):
+    """``mp_shard_timings``' entries of kernel ``name``, for its record."""
+    return [dict(zip(("shape", "ms", "plain_ms", "bound_ms", "bound_by"), (list(shape), *t)))
+            for (n, shape), t in mp_times.items() if n == name]
+
+
 def _card():
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -3923,6 +4173,7 @@ def main():
         times = phase_timings(dev, parent)
         times.update(weighted_timings(dev))
         tb_times = tb_k2_timings(dev)
+        mp_times = mp_shard_timings(dev)
         dense_times = dense_timings(dev)
         phase_zoo()
         # before any profiler runs (phase 4's TensorBoard fit, phase 11):
@@ -3954,6 +4205,7 @@ def main():
         dp = phase_data_parallel(zinb_hist, zinb_tb["histograms"],
                                  single_compiled=comp["dp_reference"],
                                  single_stream=stream_small["dp_reference"])
+        mp = phase_model_parallel()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3984,6 +4236,9 @@ def main():
             streamed["launches_compiled"] = {
                 "phase 13 compiled=True, 5 epochs + the warm-up epoch":
                     comp["launches"][f"{fam}-conddisp"][name]}
+            streamed["launches_model_parallel"] = {
+                f"phase 7 {key}, per rank": [r[name] for r in v["launches"]]
+                for key, v in mp.items() if key.startswith(f"{fam}-")}
             if fam == "zinb":
                 streamed["launches_compiled"]["phase 13 early stop"] = \
                     comp["stop"]["launches"][name]
@@ -4001,6 +4256,7 @@ def main():
                     "shape": [273, 3451], "ms": ms_v, "plain_ms": plain_v,
                     "bound_ms": bound_v, "bound_by": by_v,
                     "max_err_over_tol": art["tb_k2_tol"]}
+            streamed["model_parallel_shapes"] = _shard_entries(mp_times, name)
             kernels.append({**streamed,
                 "name": name, "route": "cuda",
                 "source": "dca_tpu_torch/csrc/fused_nll.cu",
@@ -4036,6 +4292,7 @@ def main():
                 "launches": sum(per_rank), "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "launches_per_rank": per_rank,
+                "model_parallel_shapes": _shard_entries(mp_times, name),
                 "main_path": f"phase 7: {fam}-conddisp data parallel on {DP_RANKS} ranks",
                 "checked_shapes": f"{', '.join(str(sh) for sh, _, _ in WEIGHTED_SHAPES)}; the "
                                   f"theta/pi cases of K1/K2; weights {', '.join(WEIGHT_KINDS)}",
@@ -4112,6 +4369,12 @@ def main():
     print(f"data-parallel per-epoch time {dp['per_epoch_s'] * 1e3:.1f} ms on rank 0 (the same "
           f"fit on {DP_RANKS} ranks sharing the one card through gloo: no scaling measured) "
           f"on {card}")
+    for key, v in mp.items():
+        print(f"model-parallel epoch ({key}, 2730 cells, 64-32-64) on {card}: "
+              f"{[round(t * 1e3, 1) for t in v['epoch_s']]} ms on rank 0 of {DP_RANKS} "
+              f"sharing the card through gloo, against "
+              f"{[round(t * 1e3, 1) for t in v['one_card_epoch_s']]} ms on one card (CUDA "
+              "graphs)")
     one = stream_small["dp_reference"]["epoch_s"]
     for tier, ep in dp["stream"]["epoch_s"].items():
         print(f"streamed epoch (2730 x 3451 zinb-conddisp, parts of {STREAM_MAX_CELLS}) on "

@@ -11,8 +11,10 @@ profiler trace under ``<outputdir>/tb``.  ``--hyper`` runs the TPE search
 of ``hyper.py`` instead of one fit (``--hypern`` trials of ``--hyperepoch``
 epochs), writing ``<outputdir>/hyperopt_results/{trials.pickle,best.json}``;
 DCA_TPU_HYPER_PARALLEL trials run at once (default: the CUDA device count
-when above 1, else 2).  ``--modelparallel`` above 1 is not ported yet: it
-is parsed and then refused with an error that names ROADMAP.md.
+when above 1, else 2).  ``--modelparallel M`` with ``--devices`` lays
+the ranks out as a (ranks / M) x M grid and shards the gene dimension of
+the input and head weights over M of them: ``torchrun --nproc-per-node 4
+-m dca_tpu_torch in.tsv out/ --devices all --modelparallel 2``.
 Every ``--type``, ``--activation`` (PReLU included) and ``--optimizer``
 (SGD, RMSprop, Adam, Adamax, Nadam, Adagrad, Adadelta) of the JAX package
 runs; the input is read and the TSVs are written through the native C++
@@ -166,8 +168,10 @@ def parse_args(argv=None):
                         "group, one process per device: 'all' or their number; "
                         "start the ranks with torchrun (default: one device)")
     parser.add_argument("--modelparallel", dest="modelparallel", type=int, default=1,
-                        help="Width of the model (gene) axis of a device mesh "
-                        "(above 1 not ported yet; default: 1)")
+                        help="Width of the model axis of the device mesh: shard "
+                        "the gene dimension of the input/head weight matrices "
+                        "over this many ranks (default: 1, pure data "
+                        "parallelism). Requires --devices.")
     parser.add_argument("--outputformat", dest="outputformat", type=str,
                         default="tsv", choices=("tsv", "h5ad"),
                         help="Output format: 'tsv' is the reference TSV "

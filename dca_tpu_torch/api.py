@@ -16,10 +16,11 @@ device unless ``device="cpu"``.
 (``"all"``, an int or a list) the fit is data parallel over the ranks of a
 ``torch.distributed`` process group, one process per device, each calling
 ``dca`` on the same data (``parallel/``); under torchrun the ranks join
-their group here.  After the fit every rank holds the same parameters and
-the full denoised matrix.  ``model_parallel > 1`` (gene-dim model
-parallelism) and one process over several GPUs are not ported yet
-(ROADMAP.md).
+their group here.  With ``model_parallel`` M > 1 the ranks form a
+(ranks / M) x M grid and each holds its gene shard of the input kernel
+and of the heads during the fit (gene-dim model parallelism).  After the
+fit every rank holds the same parameters and the full denoised matrix.
+One process over several GPUs is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -43,9 +43,15 @@ per-keys predict.
 In a data-parallel training step (``shard``, a ``parallel.step.BatchShard``)
 each rank runs its rows of the global batch: BatchNorm normalises with the
 mean and biased variance of the whole global batch, summed over the ranks
-as GSPMD's psum gives them in the JAX package, and dropout draws the
-global batch's mask from the shared-seed generator and takes its own rows,
-so the ranks compute what one device would on the whole batch.
+of the data group as GSPMD's psum gives them in the JAX package, and
+dropout draws the global batch's mask from the shared-seed generator and
+takes its own rows, so the ranks compute what one device would on the
+whole batch.  With gene-dim model parallelism (the shard's mesh has a
+model axis) the network holds this rank's gene shards
+(``parallel/mesh.py``): the input layer multiplies its gene columns by its
+rows of the kernel and sums the product over the model group before the
+bias; the input-dropout mask is the global (n, G_in) draw cut to its rows
+and columns; the heads give its columns of the outputs.
 
 All 11 architectures of the JAX package run here.  With
 ``activation="PReLU"`` every hidden layer of the trunk and of the fork
@@ -442,14 +448,18 @@ def _batchnorm(d: Dense, x, training: bool, shard=None):
     return xn, _eval_state(d)
 
 
-def _dropout(x, rate: float, generator, shard=None):
+def _dropout(x, rate: float, generator, shard=None, cols=None):
     """Inverted dropout; under a ``shard`` this rank's rows of the global
-    batch's mask."""
+    batch's mask, and with ``cols`` = (lo, hi, width) its columns [lo, hi)
+    of a mask ``width`` wide (the input's gene shard)."""
     keep = 1.0 - rate
-    shape = x.shape if shard is None else (shard.n, x.shape[1])
+    width = x.shape[1] if cols is None else cols[2]
+    shape = x.shape if shard is None else (shard.n, width)
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     if shard is not None:
         mask = mask[shard.lo:shard.hi]
+    if cols is not None:
+        mask = mask[:, cols[0]:cols[1]]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -490,17 +500,20 @@ def theta_exp(net: DCANetwork):
 
 
 def _apply_stack(layers, stack, x, activation, training, generator, new_state,
-                 shard=None):
+                 shard=None, in_group=None):
     """Dense -> BN -> activation -> dropout per layer; returns (x, latent)
     and puts each BN layer's new state into ``new_state``.  In eval mode
     with the fused kernel switched on, the layers run through it up to
     ``center``, which stays plain: ``latent`` is its Dense output before
     BN and activation.  PReLU layers never take the kernel, as in the JAX
-    package."""
+    package.  ``in_group``: the model group over which the first layer's
+    products of this rank's gene shard (x's columns and the kernel's rows)
+    are summed before its bias, the row-parallel input layer of gene-dim
+    model parallelism."""
     latent = None
     parametric = activation in PARAMETRIC_ACTIVATIONS
     if (not training and not parametric and use_fused_dense()
-            and supported_activation(activation)):
+            and supported_activation(activation) and in_group is None):
         for i, layer in enumerate(layers):
             if layer.name == "center":
                 layers = layers[i:]
@@ -513,9 +526,12 @@ def _apply_stack(layers, stack, x, activation, training, generator, new_state,
         else:
             return x, latent
     act_fn = None if parametric else get_activation(activation)
-    for layer in layers:
+    for i, layer in enumerate(layers):
         d = stack[layer.name]
-        x = _dot(x, d.kernel) + d.bias
+        if i == 0 and in_group is not None:
+            x = all_reduce_sum(_dot(x, d.kernel), in_group) + d.bias
+        else:
+            x = _dot(x, d.kernel) + d.bias
         if layer.name == "center":
             latent = x  # encoder output = center Dense before BN/activation
         if layer.batchnorm:
@@ -593,17 +609,25 @@ def apply(definition: NetworkDef, net: DCANetwork, count, size_factors, *,
     the state is the current one in eval mode, and the caller commits a
     training step's state with ``net.load_bn_state``.  With ``keys`` the
     dict holds only those outputs, and only the heads they need run.
-    ``shard``: this rank's rows of a data-parallel training batch."""
+    ``shard``: this rank's rows of a distributed batch (a
+    ``parallel.step.BatchShard``); with a model axis in its mesh ``count``
+    holds this rank's gene columns of the input (``Mesh.gene_block``) and
+    the heads give its columns of the outputs."""
     x = count.to(torch.float32)
     sf = size_factors.to(torch.float32).reshape(-1, 1)
+    cols = in_group = None
+    if shard is not None and shard.mesh.shards(definition.input_size):
+        lo, hi = shard.mesh.gene_block(definition.input_size)
+        cols = (lo, hi, definition.input_size)
+        in_group = shard.mesh.model
 
     if definition.input_dropout > 0.0 and training:
-        x = _dropout(x, definition.input_dropout, generator, shard)
+        x = _dropout(x, definition.input_dropout, generator, shard, cols)
 
     activation = definition.activation
     new_state = {"trunk": {}, "branches": {}}
     x, latent = _apply_stack(definition.shared, net.trunk, x, activation, training,
-                             generator, new_state["trunk"], shard)
+                             generator, new_state["trunk"], shard, in_group)
     heads = _wanted_heads(definition, keys)
     branch_out = _apply_branches(definition, net, x, activation, training, generator,
                                  new_state["branches"], heads, shard)
@@ -637,24 +661,32 @@ def apply_decoder(definition: NetworkDef, net: DCANetwork, latent_act, size_fact
     return out, x
 
 
-def regularization_loss(definition: NetworkDef, net: DCANetwork) -> torch.Tensor:
-    """Sum of the Keras l1_l2 kernel penalties added to the loss."""
+def regularization_loss(definition: NetworkDef, net: DCANetwork,
+                        keep=None) -> torch.Tensor:
+    """Sum of the Keras l1_l2 kernel penalties added to the loss; with
+    ``keep`` (a predicate on a kernel's state-dict name, e.g.
+    ``"trunk.enc0.kernel"``) only those of the kernels it keeps (gene-dim
+    model parallelism penalises its gene shards and its whole kernels on
+    different ranks)."""
     total = torch.zeros((), dtype=torch.float32,
                         device=next(net.parameters()).device)
 
-    def add(kernel, l1, l2):
+    def add(name, kernel, l1, l2):
         nonlocal total
+        if keep is not None and not keep(name):
+            return
         if l1:
             total = total + l1 * torch.sum(torch.abs(kernel))
         if l2:
             total = total + l2 * torch.sum(torch.square(kernel))
 
     for layer in definition.shared:
-        add(net.trunk[layer.name].kernel, layer.l1, layer.l2)
+        add(f"trunk.{layer.name}.kernel", net.trunk[layer.name].kernel, layer.l1, layer.l2)
     for bname, layers in definition.branches.items():
         for layer in layers:
-            add(net.branches[bname][layer.name].kernel, layer.l1, layer.l2)
+            add(f"branches.{bname}.{layer.name}.kernel", net.branches[bname][layer.name].kernel,
+                layer.l1, layer.l2)
     for hname, head in definition.heads.items():
         if head.kind != "constant":  # the constant theta is not regularised
-            add(net.heads[hname].kernel, head.l1, head.l2)
+            add(f"heads.{hname}.kernel", net.heads[hname].kernel, head.l1, head.l2)
     return total

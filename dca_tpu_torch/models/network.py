@@ -32,7 +32,12 @@ DCA_TPU_MATMUL.
 Under a ``torch.distributed`` process group (a data-parallel fit) every
 rank holds the same parameters, so each predicts the whole matrix; rank 0
 alone writes files (``save``, ``write``, ``write_streaming``), and the
-other ranks return from them at once.
+other ranks return from them at once.  During a fit with gene-dim model
+parallelism each rank holds its gene shards (``mesh`` is then the fit's
+``parallel.mesh.Mesh``): ``save_weights`` and ``whole_named`` gather the
+whole tensors over the model group first, so the files keep the
+single-device format; after the fit every rank holds the whole network
+again (``parallel.mesh.gather_params``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from ..data.io import densify, scale_stats, size_factors, write_text_matrix
 from ..device import resolve_device
 from ..ops.densify import device_densify_flat, flat_payload_from_csr, flat_slots_for
 from ..ops.fused_loss import nb_nll_fused, nb_nll_fused_w, zinb_nll_fused, zinb_nll_fused_w
+from ..parallel.mesh import gather_named
 from ..parallel.multihost import is_primary
 from . import core
 
@@ -184,6 +190,10 @@ class Autoencoder:
 
         self.definition: core.NetworkDef | None = None
         self.model: core.DCANetwork | None = None
+        # the Mesh of a model-parallel fit while the model holds gene shards,
+        # and the state-dict names of those shards (parallel.mesh.shard_params)
+        self.mesh = None
+        self.sharded = frozenset()
 
     # ------------------------------------------------------------------
     # construction
@@ -238,7 +248,7 @@ class Autoencoder:
         ``sample_weights``, a vector of one weight per row (the padded
         validation of a data-parallel fit), gives the weighted mean: a
         (B, 1) column for the weighted kernels K1w/K2w.  ``group``: this
-        rank's share of the mean over a data-parallel batch."""
+        rank's share of the mean over a distributed batch."""
         lk = self.definition.likelihood
         out = outputs["output"]
         w = None
@@ -271,15 +281,25 @@ class Autoencoder:
                 sample_weights=None, shard=None):
         """Total loss = NLL + l1/l2 weight penalties.  Returns (loss,
         new batch-norm state).  ``shard`` (a ``parallel.step.BatchShard``):
-        this rank's rows of a data-parallel batch; the loss is then this
-        rank's share, and the penalty, added on rank 0 alone, enters the
-        summed gradient once."""
+        this rank's rows (and, with a model axis, gene columns) of a
+        distributed batch; the loss is then this rank's share, and each
+        penalty enters the summed gradient once: the whole kernels' on
+        rank 0 alone, each gene shard's on data index 0 of its model
+        index."""
         outputs, new_state = self.apply(count, size_factors, training=training,
                                         generator=generator, shard=shard)
         loss = self.likelihood_loss(outputs, target, sample_weights,
-                                    None if shard is None else shard.group)
-        if shard is None or shard.rank == 0:
+                                    None if shard is None else shard.world)
+        if shard is None:
             loss = loss + core.regularization_loss(self.definition, self.model)
+        else:
+            sharded = self.sharded
+            if shard.mesh.rank == 0:
+                loss = loss + core.regularization_loss(self.definition, self.model,
+                                                       lambda name: name not in sharded)
+            if sharded and shard.rank == 0:
+                loss = loss + core.regularization_loss(self.definition, self.model,
+                                                       sharded.__contains__)
         return loss, new_state
 
     # ------------------------------------------------------------------
@@ -506,6 +526,13 @@ class Autoencoder:
         params, state = self.trees()
         return flatten_tree({"params": params, "state": state})
 
+    def whole_named(self, named):
+        """``named`` ({path: tensor} of parameters, of their gradients or
+        of ``_live()``) with each gene shard of a model-parallel fit
+        gathered whole over the model group, a collective every rank of
+        the fit calls; ``named`` itself outside such a fit."""
+        return gather_named(named, self, self.mesh)
+
     def load_trees(self, params, state):
         """Copy the arrays of a (params, state) pair of trees (numpy or
         tensors, the layout of ``trees()``) into the module's tensors, in
@@ -532,10 +559,12 @@ class Autoencoder:
     def save_weights(self, filename):
         """The flat HDF5 of the JAX package's ``save_weights``: one dataset a
         tensor, keyed by its "/"-joined path under ``params/`` or
-        ``state/``.  Needs h5py; rank 0 alone writes."""
+        ``state/``.  Needs h5py; rank 0 alone writes, the whole tensors
+        of a model-parallel fit (every rank calls it)."""
         import h5py
 
-        flat = {key: t.detach().cpu().numpy() for key, t in self._live().items()}
+        flat = {key: t.detach().cpu().numpy()
+                for key, t in self.whole_named(self._live()).items()}
         if not is_primary():
             return
         with h5py.File(filename, "w") as f:

@@ -1,24 +1,40 @@
-"""The training step, on one device or data parallel over a process group.
+"""The training step, on one device or over a ('data', 'model') grid of
+ranks.
 
 The counterpart of the JAX package's ``dca_tpu/parallel/step.py``, where
 GSPMD inserts the collectives into one compiled step.  Here each rank
-computes its block of the global batch (``batch_shard``) and the step sums
-what the global batch needs over the ranks:
+computes its block of the global batch (``batch_shard``, by its data
+index) and the step sums what the global batch needs over the ranks:
 
-  * BatchNorm's batch statistics (``models/core.py``, ``all_reduce_sum``);
-  * the loss's (sum, count) pair, so that each rank's loss is its share
-    of the mean over the whole batch (``losses.py``,
-    ``ops/fused_loss.py``); the l1/l2 penalty is added on rank 0 alone;
-  * the gradients, as one flat buffer, before the optimizer clips them.
+  * BatchNorm's batch statistics, over the data group (``models/core.py``,
+    ``all_reduce_sum``);
+  * the loss's (sum, count) pair over every rank, so that each rank's loss
+    is its share of the mean over the whole batch (``losses.py``,
+    ``ops/fused_loss.py``); the l1/l2 penalty is added once
+    (``network.loss_fn``);
+  * the gradients, as flat buffers, before the optimizer clips them
+    (``all_reduce_grads``).
+
+With gene-dim model parallelism (``parallel/mesh.py``, M > 1) each rank
+also holds only its gene shard of the input kernel and of the heads
+(``shard_params``), and stages its gene columns of the input and the
+target: the input layer's partial products are summed over the model
+group, the heads give this rank's columns, and a rank's loss share is
+that of its (data block x gene shard).  The gradients of gene shards are
+then summed over the data group and those of whole tensors over every
+rank: each rank's autograd sees only its own shard's path to them.  Where
+M does not divide a gene dimension the tensors of it stay whole on every
+rank, and each of the M copies of a head counts once in the loss's sum
+and once in its count, so the mean is unchanged.
 
 The ranks start from rank 0's parameters (``place_train_state``) and apply
-the same summed gradients, so they hold the same parameters after every
-step.
+the same summed gradients, so they hold the same parameters (or blocks of
+them) after every step.
 
 On every path the step takes its rows, its step index and its learning
 rate from device buffers and writes its loss there (``StepBuffers``), so
 one CUDA device can capture it in a graph and replay it
-(``train/graphs.py``); the data-parallel step runs the same body from
+(``train/graphs.py``); the distributed step runs the same body from
 Python, its collectives outside any graph.
 
 The streaming trainer stages each part of the epoch into a part buffer,
@@ -36,31 +52,41 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .mesh import shard_params
 from .multihost import process_row_range
 
 
 @dataclasses.dataclass(frozen=True)
 class BatchShard:
-    """This rank's rows [lo, hi) of a global batch of n rows, and the
-    group of ranks that share the batch."""
+    """This rank's rows [lo, hi) of a global batch of n rows: ``group``
+    the ranks that share the batch's rows (the mesh's data group) and
+    ``rank`` this one's index among them; ``mesh`` the whole grid
+    (``parallel/mesh.py``), whose every rank holds a share of the loss."""
 
     group: object
     rank: int
     lo: int
     hi: int
     n: int
+    mesh: object
+
+    @property
+    def world(self):
+        """The group the loss's (sum, count) pair is summed over."""
+        return self.mesh.world
 
 
-def batch_shard(group, n):
-    """This rank's ``BatchShard`` of a global batch of ``n`` rows."""
-    rank = dist.get_rank(group)
-    lo, hi = process_row_range(n, rank, dist.get_world_size(group))
-    return BatchShard(group, rank, lo, hi, n)
+def batch_shard(mesh, n):
+    """This rank's ``BatchShard`` of a global batch of ``n`` rows: the
+    block of its data index."""
+    lo, hi = process_row_range(n, mesh.data_index, mesh.n_data)
+    return BatchShard(mesh.data, mesh.data_index, lo, hi, n, mesh)
 
 
-def shard_train_data(group, *arrays):
-    """This rank's block of rows of each of ``arrays`` (of one length)."""
-    shard = batch_shard(group, len(arrays[0]))
+def shard_train_data(mesh, *arrays):
+    """This rank's block of rows of each of ``arrays`` (of one length), by
+    its data index."""
+    shard = batch_shard(mesh, len(arrays[0]))
     return tuple(a[shard.lo:shard.hi] for a in arrays)
 
 
@@ -94,20 +120,25 @@ def stream_places(n_train, batch, chunk, rank=0, world=1):
     return place
 
 
-def held_shard(group, n, held):
+def held_shard(mesh, n, held):
     """The ``BatchShard`` under which this rank evaluates the ``held``
     rows it staged of a streamed part of ``n`` rows (its block of each of
     the part's batches, not one block of the part): evaluation reads its
     group and its rank alone, the rows are [0, held) of its buffer."""
-    return BatchShard(group, dist.get_rank(group), 0, held, n)
+    return BatchShard(mesh.data, mesh.data_index, 0, held, n, mesh)
 
 
 @torch.no_grad()
-def place_train_state(network, group):
-    """Broadcast the parameters and the BatchNorm state from rank 0, so
-    every rank starts from the same network."""
+def place_train_state(network, mesh):
+    """Broadcast the whole parameters and the BatchNorm state from rank 0,
+    so every rank starts from the same network, then keep this rank's gene
+    shards (``mesh.shard_params``) where the mesh has a model axis: shard
+    m of a tensor is the slice m of the whole network's, as the JAX
+    package shards its whole initial network."""
     for t in list(network.model.parameters()) + list(network.model.buffers()):
-        dist.broadcast(t.detach(), src=0, group=group)
+        dist.broadcast(t.detach(), src=0, group=mesh.world)
+    if mesh.n_model > 1:
+        shard_params(network, mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,15 +215,39 @@ class StepBuffers:
             0, self.step_i).view(-1)
 
 
-def all_reduce_grads(grads, params, group):
-    """The gradients summed over the ranks of ``group``, as one flat
-    buffer: each rank's are its share of the batch's."""
+def _all_reduce_flat(grads, group):
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=group)
-    return [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in params]), params)]
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
-def make_sharded_train_step(network, opt, group=None):
+def all_reduce_grads(grads, mesh, sharded=None):
+    """The gradients summed over the ranks of ``mesh``: each rank's are its
+    share of the batch's.  Without ``sharded`` (a bool per gradient: its
+    parameter is a gene shard) as one flat buffer over every rank; with
+    it, the gene shards' over the data group and the whole tensors' over
+    every rank, one flat buffer each."""
+    if sharded is None or not any(sharded):
+        return _all_reduce_flat(grads, mesh.world)
+    out = list(grads)
+    for keep, group in ((True, mesh.data), (False, mesh.world)):
+        idx = [i for i, s in enumerate(sharded) if s == keep]
+        if idx:
+            for i, g in zip(idx, _all_reduce_flat([grads[i] for i in idx], group)):
+                out[i] = g
+    return out
+
+
+def sharded_params(network):
+    """A bool per parameter of ``network``: a gene shard it holds
+    (``network.sharded``; ``all_reduce_grads``' ``sharded``), None where
+    it holds none."""
+    if not network.sharded:
+        return None
+    return [name in network.sharded for name, _ in network.model.named_parameters()]
+
+
+def make_sharded_train_step(network, opt, mesh=None):
     """One training step: ``step(X, T, SF, bufs, opt_state, generator,
     trailing=False)`` fits ``network`` on the next batch of rows of the
     staged split (X, T, SF), chosen through ``bufs`` (a ``StepBuffers``),
@@ -201,27 +256,30 @@ def make_sharded_train_step(network, opt, group=None):
     ``bufs.losses``.  A full step takes the ``bufs.step_i``-th batch and
     advances ``step_i``; the trailing step takes the rows after the full
     batches.  Nothing is read back to the host, so the step can be
-    captured in a CUDA graph.  With a process ``group`` this rank computes
-    its block of the batch and the loss it writes is its share; without
-    one the step is the single-device step.  Under a group (X, T, SF) may
+    captured in a CUDA graph.  Over a ``mesh`` (``parallel/mesh.py``) this
+    rank computes its block of the batch and the loss it writes is its
+    share; without one the step is the single-device step.  With a model
+    axis (X, T) hold this rank's gene columns of the input and the target
+    (``Mesh.gene_block``).  Under a group (X, T, SF) may
     hold this rank's rows alone, the streaming trainer's part buffer, with
     ``bufs.perm`` from ``stream_places``: the places in this rank's block
     of the batch then point at its rows there, and the shard still spans
     the global batch (its BatchNorm sums, loss pair, dropout mask and
     gradients)."""
     params = list(network.model.parameters())
+    sharded = sharded_params(network)
 
     def step(X, T, SF, bufs, opt_state, generator, trailing=False):
         idx = bufs.rows(trailing)
         shard = None
-        if group is not None:
-            shard = batch_shard(group, len(idx))
+        if mesh is not None:
+            shard = batch_shard(mesh, len(idx))
             idx = idx[shard.lo:shard.hi]
         loss, new_state = network.loss_fn(X[idx], SF[idx], T[idx], True, generator,
                                           shard=shard)
         grads = torch.autograd.grad(loss, params)
-        if group is not None:
-            grads = all_reduce_grads(grads, params, group)
+        if mesh is not None:
+            grads = all_reduce_grads(grads, mesh, sharded)
         opt.update(grads, opt_state, params, bufs.lr)
         network.model.load_bn_state(new_state)
         loss = loss.detach().view(1)

@@ -118,7 +118,7 @@ class FitState:
 
 
 def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_lr,
-                 early_stop, track_best, group=None):
+                 early_stop, track_best, mesh=None):
     """Returns ``fit(X_tr, T_tr, sf_tr, val, lr0, perms, opt_state,
     generator, graphs=True, after_epoch=None, val_shard=None) ->
     FitResult``, which fits ``network`` in place on the staged train split
@@ -129,14 +129,16 @@ def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_l
     epoch from a CUDA graph; ``after_epoch()`` is called after each epoch
     is run or enqueued.
 
-    With a process ``group`` each rank computes its block of every batch
+    Over a ``mesh`` of ranks (``parallel/mesh.py``; with a model axis the
+    network holds this rank's gene shards and the splits its gene columns)
+    each rank computes its block of every batch
     and, given as ``val`` with its ``val_shard`` (``batch_shard``), of the
     validation split, and the losses are summed over the ranks before the
     callbacks, so every rank takes the same decisions."""
     bs = min(batch_size, max(n_train, 1))
     n_full = n_train // bs
     rem = n_train - n_full * bs
-    train_step = make_sharded_train_step(network, opt, group)
+    train_step = make_sharded_train_step(network, opt, mesh)
 
     def fit(X_tr, T_tr, sf_tr, val, lr0, perms, opt_state, generator, graphs=True,
             after_epoch=None, val_shard=None):
@@ -157,8 +159,9 @@ def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_l
                 X_val, T_val, sf_val = val
                 sums.append(network.loss_fn(X_val, sf_val, T_val, False, shard=val_shard)[0])
             sums = torch.stack(sums)
-            if group is not None:
-                dist.all_reduce(sums, group=group)  # each rank's losses are its shares
+            if mesh is not None:
+                # each rank's losses are its shares
+                dist.all_reduce(sums, group=mesh.world)
             total = torch.zeros((), device=device)
             if n_full > 0:
                 total = total + sums[0] * bs
@@ -198,7 +201,7 @@ def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_l
             end_epoch()
 
         epoch_s, after_stop_s, capture_s, enqueue_s = [], [], None, None
-        if epochs > 0 and graphs and device.type == "cuda" and group is None:
+        if epochs > 0 and graphs and device.type == "cuda" and mesh is None:
             written = (live + state_tensors(opt_state)
                        + [bufs.perm, bufs.step_i, bufs.losses] + st.tensors())
             runner = GraphFit(epoch, written, generator, st.stop, device)

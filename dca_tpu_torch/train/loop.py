@@ -42,12 +42,17 @@ permutation and computes its block of each global batch, the trailing one
 included; the batch statistics, the loss's (sum, count) pair and the
 gradients are summed over the ranks, so the fit is the single-device fit
 up to the order of the sums.  The validation split is cut into one block
-per rank; where its length does not divide the ranks it is padded with
+per data index; where its length does not divide them it is padded with
 copies of its row 0 at sample weight 0 (the JAX package's multi-process
 padding), and the blocks are evaluated through the weighted loss kernels.
 The per-step and validation losses are summed over the ranks once per
 epoch, so every rank sees the same history and takes the same callback
-decisions.
+decisions.  With ``model_parallel`` M > 1 the ranks form a grid of
+D x M (``parallel/mesh.py``): rows shard over the D data indices, and
+each rank holds its gene shard of the input kernel and of the heads and
+stages only its gene columns of the input and of the target, as the
+JAX package's ('data', 'model') mesh lays them out; after the fit every
+rank holds the whole network again.
 
 Inputs larger than the device, by the JAX package's gate (more than
 ``max_device_cells`` cells or, without it, input and target above
@@ -79,11 +84,11 @@ the primary rank writes; every rank takes part in the collectives.
 ``"auto"`` takes on a TPU): the epochs, their steps, the validation, the
 callbacks and the histories without a host hop, one CUDA graph replayed
 once an epoch on one CUDA device, read back once after the fit.  Here
-``"auto"`` keeps the Python-epoch loop (ROADMAP.md).  Gene-dim model
-parallelism and one process over several devices wait for later slices
-(ROADMAP.md, Queue 1): ``train`` takes the JAX package's keywords for them
-and raises ``NotImplementedError`` (``parallel/mesh.py``) before anything
-is densified or copied to the device.
+``"auto"`` keeps the Python-epoch loop (ROADMAP.md).  One process over
+several devices, and the streaming trainer under model parallelism, wait
+for later slices (ROADMAP.md, Queue 1): ``train`` raises
+``NotImplementedError`` for them before anything is densified or copied
+to the device.
 """
 
 from __future__ import annotations
@@ -105,7 +110,7 @@ import torch
 import torch.distributed as dist
 
 from .. import native
-from ..bridge import copy_tree_into, flatten_tree
+from ..bridge import copy_tree_into, flatten_tree, unflatten_tree
 from ..config import use_device_densify
 from ..data.io import densify, scale_stats, size_factors
 from ..data.loader import Flat8Chunk, FlatChunk, SparseChunk, StreamingData, canonicalize_csr
@@ -113,11 +118,11 @@ from ..device import resolve_device
 from ..losses import nb_terms
 from ..ops.densify import device_densify, device_densify_flat, device_densify_flat8, upload
 from ..ops.resident import PART_BYTES_PER_SLOT, ResidentCSR, derive_input
-from ..parallel.mesh import resolve_mesh
+from ..parallel.mesh import gather_params, gather_tensor, resolve_mesh, shard_named
 from ..parallel.multihost import initialize, is_primary
 from ..parallel.step import (StepBuffers, all_reduce_grads, batch_shard, held_shard,
                              make_sharded_train_step, part_rows, place_train_state,
-                             shard_train_data, stream_places)
+                             shard_train_data, sharded_params, stream_places)
 from ..tbevents import EventWriter
 from .checkpoint import TrainCheckpoint, optimizer_tree
 from .graphs import EagerEpoch, GraphEpoch, GraphSteps
@@ -192,24 +197,28 @@ def _tb_grads(network, x, sf, t, w=None, shard=None):
     statistics moved and no draw from the fit's generator, so the fit
     trains as it would without it.  On a CUDA device the NB/ZINB loss's
     backward is K2, K2w with ``w``.  Under a ``shard`` each rank's
-    gradient is its share, summed over the ranks."""
+    gradient is its share, summed over the ranks (``all_reduce_grads``),
+    and the gene shards' gradients of a model-parallel fit are gathered
+    whole: every rank of the fit calls it."""
     named = list(network.model.named_parameters())
     params = [p for _, p in named]
     loss, _ = network.loss_fn(x, sf, t, False, sample_weights=w, shard=shard)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
     if shard is not None:
-        grads = all_reduce_grads(grads, params, shard.group)
-    return {name.replace(".", "/"): g for (name, _), g in zip(named, grads)}
+        grads = all_reduce_grads(grads, shard.mesh, sharded_params(network))
+    return network.whole_named({name.replace(".", "/"): g
+                                for (name, _), g in zip(named, grads)})
 
 
 @torch.no_grad()
-def _loss_terms(network, x, sf, t):
-    """The NB summands (t1, t2) of the eval forward on (x, sf, t), or None
-    for a likelihood or a network without a dispersion."""
+def _loss_terms(network, x, sf, t, shard=None):
+    """The NB summands (t1, t2) of the eval forward on (x, sf, t), this
+    rank's block of them under a ``shard``, or None for a likelihood or a
+    network without a dispersion."""
     if network.definition.likelihood not in ("nb", "zinb"):
         return None
-    out, _ = network.apply(x, sf)
+    out, _ = network.apply(x, sf, shard=shard)
     if out["disp"] is None:
         return None
     return nb_terms(t, out["output"], out["disp"])
@@ -355,22 +364,30 @@ class _Checkpoints:
         self.seed = seed
         self.hist = hist
 
-    def _tree(self):
+    def _tree(self, whole=False):
+        """The live training state as the JAX package's trees; ``whole``:
+        the gene shards of a model-parallel fit gathered (a collective)."""
         params, state = self.network.trees()
         names = [n for n, _ in self.network.model.named_parameters()]
-        return {"params": params, "state": state,
+        tree = {"params": params, "state": state,
                 "opt_state": optimizer_tree(self.opt_state, names)}
+        if whole and self.network.mesh is not None:
+            tree = unflatten_tree(self.network.whole_named(flatten_tree(tree)))
+        return tree
 
     def restore(self):
         """Restore the latest checkpoint in place: the parameters, the BN
         statistics, every optimizer state tensor, the dropout generator
         (where the checkpoint has it), the learning rate and the callback
-        counters.  Returns the epoch to start from (0 without one)."""
+        counters; a model-parallel fit takes its slices of the whole
+        tensors.  Returns the epoch to start from (0 without one)."""
         live = self._tree()
         tree, meta = self.ckpt.restore({**live, "rng": {"generator": self.generator.get_state()}})
         if tree is None:
             return 0
-        copy_tree_into(flatten_tree(live), flatten_tree({k: tree.get(k, {}) for k in live}))
+        new = flatten_tree({k: tree.get(k, {}) for k in live})
+        copy_tree_into(flatten_tree(live),
+                       shard_named(new, self.network, self.network.mesh))
         if "rng" in tree:
             self.generator.set_state(tree["rng"]["generator"])
         self.cbs.restore(meta)
@@ -381,7 +398,7 @@ class _Checkpoints:
         at the last epoch."""
         if self.every and ((epoch + 1) % self.every == 0 or stop or epoch == epochs - 1):
             t0 = time.perf_counter()
-            tree = self._tree()
+            tree = self._tree(whole=True)
             self.ckpt.save(epoch, tree["params"], tree["state"], tree["opt_state"],
                            lr=self.cbs.lr, seed=self.seed, callback_state=self.cbs.state_dict(),
                            extra={"rng/generator": self.generator.get_state()})
@@ -472,10 +489,13 @@ def train(
     ValueError for a batch smaller than the ranks.
 
     ``devices``/``model_parallel`` as the JAX package's: None for one
-    device; ``"all"``, an int or a list for data parallelism over the
-    ranks of the initialized process group (``parallel.mesh.resolve_mesh``;
-    every rank calls ``train`` with the same data and seed).
-    ``model_parallel > 1`` raises (ROADMAP.md).
+    device; ``"all"``, an int or a list for the ranks of the initialized
+    process group (``parallel.mesh.resolve_mesh``; every rank calls
+    ``train`` with the same data and seed), data parallel, or with
+    ``model_parallel`` M > 1 over a grid of (ranks / M) x M, each rank
+    holding its gene shard of the input kernel and the heads; the network
+    is whole again on every rank after the fit.  ``model_parallel > 1``
+    on the streaming trainer raises ``NotImplementedError`` (ROADMAP.md).
 
     On one CUDA device, outside ``debug``, the steps are replayed from
     CUDA graphs captured at the start of the fit (``train/graphs.py``);
@@ -498,10 +518,15 @@ def train(
         # JAX package's train() gives them
         torch.set_num_threads(threads)
         native.set_threads(threads)
+    if stream and int(model_parallel or 1) > 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel} on the streaming trainer (an input above "
+            "max_device_cells or DCA_TPU_DEVICE_BYTES) is not ported to dca_tpu_torch yet "
+            "(see ROADMAP.md)")
     if output_dir is not None:
         os.makedirs(output_dir, exist_ok=True)
 
-    group = resolve_mesh(devices, model_parallel)
+    mesh = resolve_mesh(devices, model_parallel)
     opt = get_optimizer(optimizer, clipvalue=clip_grad)
     lr = float(learning_rate) if learning_rate is not None else opt.default_lr
     device = network.device
@@ -520,21 +545,24 @@ def train(
                     early_stop=early_stop, batch_size=batch_size,
                     validation_split=validation_split, use_raw_as_output=use_raw_as_output,
                     output_subset=output_subset, seed=seed, verbose=verbose,
-                    max_device_cells=max_device_cells or 131072, group=group,
+                    max_device_cells=max_device_cells or 131072, mesh=mesh,
                     graphs=_graphs, tb=tb_dir is not None, trace=trace, **artefacts)
-            return _train_in_memory(
-                adata, network, opt, lr, group, epochs=epochs, reduce_lr=reduce_lr,
+            hist = _train_in_memory(
+                adata, network, opt, lr, mesh, epochs=epochs, reduce_lr=reduce_lr,
                 early_stop=early_stop, batch_size=batch_size,
                 validation_split=validation_split, use_raw_as_output=use_raw_as_output,
                 output_subset=output_subset, seed=seed, verbose=verbose, graphs=_graphs,
                 tb=tb_dir is not None, trace=trace, compiled=compiled, perms=_perms,
                 **artefacts)
+            if network.mesh is not None:
+                gather_params(network, network.mesh)
+            return hist
     finally:
         if tb is not None:
             tb.close()
 
 
-def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early_stop,
+def _train_in_memory(adata, network, opt, lr, mesh, *, epochs, reduce_lr, early_stop,
                      batch_size, validation_split, use_raw_as_output, output_subset, seed,
                      verbose, graphs, output_dir, save_weights, checkpoint_every, resume, tb,
                      tb_log, trace=None, compiled=False, perms=None):
@@ -543,8 +571,10 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
     TensorBoard (``tb_log``, the primary rank's logger, or None on the
     other ranks); ``trace``: the fit's profiler (``_fit_trace``), stepped
     after each epoch; ``compiled``: the whole fit on the device
-    (``_train_compiled``), with the row orders ``perms`` if given."""
+    (``_train_compiled``), with the row orders ``perms`` if given.
+    ``mesh``: the ranks' grid (``parallel/mesh.py``), or None."""
     device = network.device
+    group = None if mesh is None else mesh.world
     # ----- host arrays -----
     X = densify(adata.X)
     mean, std = scale_stats(adata)
@@ -567,6 +597,11 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
     n_full = n_train // bs
     rem = n_train - n_full * bs
 
+    if mesh is not None and mesh.n_model > 1:
+        # this rank's gene columns of the input and of the target
+        X = X[:, slice(*mesh.gene_block(X.shape[1]))]
+        target = target[:, slice(*mesh.gene_block(target.shape[1]))]
+
     def dev(a):
         # np.array copies: the tensor owns writable memory, not a view of adata
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
@@ -575,26 +610,25 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
     val_shard = w_val = None
     if has_val:
         X_val, T_val, sf_val = X[split_at:], target[split_at:], sf[split_at:]
-        if group is not None:
-            # one block per rank, padded to a multiple of the ranks with
+        if mesh is not None:
+            # one block per data index, padded to a multiple of them with
             # copies of row 0 at weight 0
-            pad = (-n_val) % dist.get_world_size(group)
+            pad = (-n_val) % mesh.n_data
             w = np.ones((n_val + pad,), np.float32)
             w[n_val:] = 0.0
             X_val, T_val, sf_val, w = shard_train_data(
-                group, *(_pad_rows(a, pad) for a in (X_val, T_val, sf_val)), w)
+                mesh, *(_pad_rows(a, pad) for a in (X_val, T_val, sf_val)), w)
             w_val = dev(w) if pad else None
-            val_shard = batch_shard(group, n_val + pad)
+            val_shard = batch_shard(mesh, n_val + pad)
         X_val, T_val, sf_val = dev(X_val), dev(T_val), dev(sf_val)
 
-    if group is not None:
-        place_train_state(network, group)
+    if mesh is not None:
+        place_train_state(network, mesh)
     params = list(network.model.parameters())
     opt_state = opt.init(params)
     generator = torch.Generator(device=device).manual_seed(seed)
-    if compiled and group is not None:
-        world = dist.get_world_size(group)
-        if n_train % world or (has_val and n_val % world):
+    if compiled and mesh is not None:
+        if n_train % mesh.n_data or (has_val and n_val % mesh.n_data):
             # as the JAX package: its one-program fit has no weighted
             # validation
             compiled = False
@@ -606,13 +640,13 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
             perms = np.array([rng_np.permutation(n_train) for _ in range(epochs)],
                              dtype=np.int64).reshape(epochs, n_train)
         return _train_compiled(
-            network, opt, lr, group, (X_tr, T_tr, sf_tr),
+            network, opt, lr, mesh, (X_tr, T_tr, sf_tr),
             (X_val, T_val, sf_val) if has_val else None, val_shard, perms, opt_state,
             generator, n_train=n_train, batch_size=bs, epochs=epochs, reduce_lr=reduce_lr,
             early_stop=early_stop, save_weights=save_weights, output_dir=output_dir,
             verbose=verbose, graphs=graphs, tb=tb, tb_log=tb_log, trace=trace)
     bufs = StepBuffers.create(n_train, bs, lr, device)
-    train_step = make_sharded_train_step(network, opt, group)
+    train_step = make_sharded_train_step(network, opt, mesh)
 
     def step(trailing=False):
         train_step(X_tr, T_tr, sf_tr, bufs, opt_state, generator, trailing)
@@ -623,9 +657,9 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
         (this rank's block of it)."""
         if has_val:
             return _tb_grads(network, X_val, sf_val, T_val, w_val, val_shard)
-        if group is None:
+        if mesh is None:
             return _tb_grads(network, X_tr, sf_tr, T_tr)
-        shard = batch_shard(group, n_train)
+        shard = batch_shard(mesh, n_train)
         rows = slice(shard.lo, shard.hi)
         return _tb_grads(network, X_tr[rows], sf_tr[rows], T_tr[rows], shard=shard)
 
@@ -680,14 +714,16 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
         if tb:
             t_tb = time.perf_counter()
             grads = tb_grads()
+            weights = network.whole_named(flatten_tree(network.trees()[0]))
             terms = None
             if network.definition.debug and has_val:
-                terms = _loss_terms(network, X_val, sf_val, T_val)
-                if terms is not None and group is not None:
-                    terms = [_gather_rows(t, group, n_val) for t in terms]
+                terms = _loss_terms(network, X_val, sf_val, T_val, val_shard)
+                if terms is not None and mesh is not None:
+                    terms = [_gather_terms(t, mesh, n_val, network.definition.output_size)
+                             for t in terms]
             if tb_log is not None:
                 tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr, "val_loss": val_loss},
-                             flatten_tree(network.trees()[0]), grads)
+                             weights, grads)
                 if terms is not None:
                     tb_log.loss_terms(epoch, *terms)
             hist.tb_s.append(time.perf_counter() - t_tb)
@@ -702,7 +738,7 @@ def _train_in_memory(adata, network, opt, lr, group, *, epochs, reduce_lr, early
     return hist
 
 
-def _train_compiled(network, opt, lr, group, train_split, val, val_shard, perms, opt_state,
+def _train_compiled(network, opt, lr, mesh, train_split, val, val_shard, perms, opt_state,
                     generator, *, n_train, batch_size, epochs, reduce_lr, early_stop,
                     save_weights, output_dir, verbose, graphs, tb, tb_log, trace):
     """The whole fit on the device (``train/compiled.py``), then what the
@@ -718,7 +754,7 @@ def _train_compiled(network, opt, lr, group, train_split, val, val_shard, perms,
     track_best = bool(save_weights and output_dir is not None)
     fit = build_fit_fn(network, opt, n_train=n_train, batch_size=batch_size, epochs=epochs,
                        has_val=has_val, reduce_lr=reduce_lr, early_stop=early_stop,
-                       track_best=track_best, group=group)
+                       track_best=track_best, mesh=mesh)
     res = fit(*train_split, val, lr, perms, opt_state, generator, graphs=graphs,
               after_epoch=trace.step if trace is not None else None, val_shard=val_shard)
     hist = History()
@@ -743,8 +779,9 @@ def _train_compiled(network, opt, lr, group, train_split, val, val_shard, perms,
         grads = {}
         if has_val:
             grads = _tb_grads(network, val[0], val[2], val[1], shard=val_shard)
+        weights = network.whole_named(flatten_tree(network.trees()[0]))
         if tb_log is not None:
-            tb_log.epoch(res.epochs_run - 1, {}, flatten_tree(network.trees()[0]), grads)
+            tb_log.epoch(res.epochs_run - 1, {}, weights, grads)
         hist.tb_s.append(time.perf_counter() - t_tb)
     if track_best:
         t0 = time.perf_counter()
@@ -762,11 +799,15 @@ def _train_compiled(network, opt, lr, group, train_split, val, val_shard, perms,
     return hist
 
 
-def _gather_rows(t, group, n):
-    """The first ``n`` rows of the ranks' equal blocks of ``t``, in rank
+def _gather_terms(t, mesh, n, width):
+    """The whole (n, ``width``) matrix of the ranks' blocks ``t``: the
+    model group's gene columns side by side where they shard ``width``,
+    then the first ``n`` rows of the data group's equal blocks, in rank
     order."""
-    blocks = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(blocks, t.contiguous(), group=group)
+    if mesh.shards(width):
+        t = gather_tensor(t, 1, mesh)
+    blocks = [torch.empty_like(t) for _ in range(mesh.n_data)]
+    dist.all_gather(blocks, t.contiguous(), group=mesh.data)
     return torch.cat(blocks)[:n]
 
 
@@ -949,7 +990,7 @@ def _val_weights(n, rank, world):
 
 def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, batch_size,
                      validation_split, use_raw_as_output, output_subset, seed, verbose,
-                     max_device_cells, group=None, graphs=True, output_dir=None,
+                     max_device_cells, mesh=None, graphs=True, output_dir=None,
                      save_weights=False, checkpoint_every=0, resume=False, tb=False,
                      tb_log=None, trace=None):
     """The fit for inputs larger than the device (the JAX package's
@@ -973,8 +1014,9 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     ``network.loss_fn``; every loss stays on the device until the epoch's
     one read-back.
 
-    Under a process ``group`` (the JAX package's multi-process staging,
-    one process per device) every rank draws the same permutation, and
+    Over a ``mesh`` of data-parallel ranks (the JAX package's
+    multi-process staging, one process per device; ``parallel/mesh.py``,
+    no model axis here) every rank draws the same permutation, and
     stages, materializes and uploads only the rows it computes on: its
     block of each batch of each part (``_stream_tasks``), into part
     buffers sized for its share, so ``max_device_cells`` still counts the
@@ -1047,6 +1089,7 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     bs = min(batch_size, max(split_at, 1))
     chunk = max((min(max_device_cells, split_at) // bs) * bs, bs)
     dev_densify = use_device_densify(device)
+    group = None if mesh is None else mesh.world
     rank, world = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
     if world > bs:
         raise ValueError(f"streaming under a process group needs batch_size >= the number of "
@@ -1102,7 +1145,7 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
 
     # ----- the step, on two part buffers -----
     if group is not None:
-        place_train_state(network, group)
+        place_train_state(network, mesh)
     params = list(network.model.parameters())
     opt_state = opt.init(params)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -1116,7 +1159,7 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     schedule = _stream_tasks(tr, va, np.arange(n_train), bs, rank, world)
     slots = [_PartSlot(max(len(t.rows) for t in schedule), g_in, g_out, device)
              for _ in range(2)]
-    train_step = make_sharded_train_step(network, opt, group)
+    train_step = make_sharded_train_step(network, opt, mesh)
     kinds = {(i % 2, t.kind == "rem") for i, t in enumerate(schedule) if t.kind != "val"}
     steps = {key: functools.partial(train_step, slots[key[0]].x, slots[key[0]].t,
                                     slots[key[0]].sf, bufs, opt_state, generator, key[1])
@@ -1309,8 +1352,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 start = tl.start_event() if tl is not None else None
                 k, w, shard = len(rows), val_w.get(pi), None
                 if group is not None:
-                    shard = (batch_shard(group, k * world) if kind == "val"
-                             else held_shard(group, n_rows, k))
+                    shard = (batch_shard(mesh, k * world) if kind == "val"
+                             else held_shard(mesh, n_rows, k))
                 if kind == "full":
                     run((pi % 2, False), n_rows // bs)
                 elif kind == "rem":
@@ -1406,10 +1449,13 @@ def train_with_args(args):
         return
     ae_cls = get_ae_type(args.type)
     devices = args.devices
+    joined = False
     if devices is not None:
         # torchrun's ranks join their process group before the network is
         # built on each rank's device
+        joined = not dist.is_initialized()
         initialize(device=args.device)
+        joined = joined and dist.is_initialized()
         if devices != "all":
             devices = int(devices)
     device = resolve_device(args.device)
@@ -1499,3 +1545,10 @@ def train_with_args(args):
     else:
         net.predict(adata, mode="full", return_info=True)
         net.write(adata, args.outputdir, mode="full", colnames=predict_columns)
+    if joined:
+        # the ranks end together, rank 0 after its writes, and leave the
+        # group they joined: a rank that exits first with the group alive
+        # can abort in the interpreter's teardown, and torchrun then stops
+        # the others, rank 0 in the middle of its writes
+        dist.barrier()
+        dist.destroy_process_group()

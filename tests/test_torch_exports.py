@@ -1,8 +1,8 @@
 """The port's import surface and CLI help against the JAX package's: each
 subpackage re-exports the names of the matching ``dca_tpu`` subpackage's
 ``__all__`` (less the JAX-only mesh helpers), each imports first in a fresh
-interpreter without a cycle, and the help text marks only
-``--modelparallel`` as not ported; ``chip_smoke.py`` copied outside a
+interpreter without a cycle, and the help text marks no option as not
+ported; ``chip_smoke.py`` copied outside a
 checkout stops with one line naming the missing package."""
 
 import importlib
@@ -50,14 +50,16 @@ def test_names_of_the_jax_examples_import():
 
 
 def test_help_marks_only_modelparallel_as_not_ported(capsys):
+    """Since --modelparallel is ported the help marks no option as not
+    ported, and says what --modelparallel needs as the JAX package's
+    does."""
     from dca_tpu_torch.__main__ import parse_args
 
     with pytest.raises(SystemExit):
         parse_args(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert text.count("not ported") == 1
-    # the last option named before the phrase
-    assert re.findall(r"--[a-z]+", text[:text.index("not ported")])[-1] == "--modelparallel"
+    assert "not ported" not in text
+    assert re.findall(r"--[a-z]+", text[:text.index("Requires --devices")])[-1] == "--modelparallel"
 
 
 def test_chip_smoke_outside_a_checkout_names_the_missing_package(tmp_path):

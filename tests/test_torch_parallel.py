@@ -315,9 +315,12 @@ def _tiny_adata():
 
 
 def test_model_parallel_is_refused_naming_the_roadmap(tmp_path):
+    """A model axis that does not divide the ranks raises, as the JAX
+    package's make_mesh asserts: here one rank (no process group) and
+    model_parallel 2."""
     from dca_tpu_torch import dca
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="does not divide the 1 ranks"):
         dca(_tiny_adata(), epochs=1, devices="all", model_parallel=2, device="cpu")
 
 

@@ -172,7 +172,11 @@ def test_cli_prelu_adam_on_cpu(input_tsv, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--modelparallel", "2"]])
 def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
-    with pytest.raises((ValueError, NotImplementedError), match="ROADMAP.md"):
+    """Two devices in one process are not ported (ROADMAP.md);
+    --modelparallel without --devices raises with the message of the JAX
+    package's resolve_mesh assertion."""
+    match = "ROADMAP.md" if "--devices" in flags else "requires devices="
+    with pytest.raises((ValueError, NotImplementedError), match=match):
         main([input_tsv, str(tmp_path / "out"), "-e", "1", "--device", "cpu", *flags])
 
 
@@ -236,12 +240,15 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, input_t
 
 
 @pytest.mark.parametrize("kwds", [{"model_parallel": 2}], ids=str)
-def test_train_refuses_paths_not_ported_by_name(kwds):
+def test_train_refuses_paths_not_ported_by_name(kwds, monkeypatch):
     """The JAX package's train keywords for paths the port lacks raise
-    NotImplementedError naming ROADMAP.md, where they used to be a
-    TypeError; through dca(training_kwds=...) too.  (Gene-dim model
-    parallelism: compiled=True, refused here before, trains now, see
-    test_compiled_trains_through_both_entry_points.)"""
+    NotImplementedError naming ROADMAP.md; through dca(training_kwds=...)
+    too.  What is left is model parallelism on the streaming trainer,
+    which DCA_TPU_DEVICE_BYTES=1 sends this input to.  (compiled=True,
+    refused here before, trains now, see
+    test_compiled_trains_through_both_entry_points; model parallelism in
+    memory: tests/test_torch_model_parallel.py.)"""
+    monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", "1")
     adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
     net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
