@@ -42,17 +42,36 @@ epoch time), and, on 4 cards, 2 x 2 and 1 x 4: the same history on every
 rank, within rtol 1e-3 (loss) and 1e-2 (val_loss) of the one-card fit of
 the same genes, the gathered parameters and denoised matrices equal on
 every rank, rank 0 alone writing, each rank's launches exact; each grid's
-epoch time beside the one card's.  Prints the cards' names and power
-limits and the epoch times; exits non-zero on any failure.  Nothing here
-imports JAX or the JAX package.
+epoch time beside the one card's; and the streamed fit on the 2 x 2 and 1
+x 4 grids (``train(devices="all", model_parallel=M,
+max_device_cells=512)``, host and padded-payload tiers) against the
+one-card streamed fit of the same genes.  Then the same fits from this one
+process, their ranks started by the fit itself (``chip_smoke.phase_launch``,
+``parallel/launch.py``, a card a rank over NCCL): ``dca(devices=n)``,
+``dca(devices=n, model_parallel=2)`` and the streamed 2 x 2 grid at
+MP_GENES, each within rtol 1e-4 of the spawned ranks' fit, rank 0's
+launches theirs, epoch times beside theirs.  Prints the cards' names and
+power limits and the epoch times; exits non-zero on any failure.  Nothing
+here imports JAX or the JAX package.
+
+    python3 chip_dp.py [n_cards] --launch-checks
+
+runs only the launcher's checks over NCCL (``phase_launch_checks``): a
+launched fit whose rank 1 dies, and one whose rank 1 stops answering,
+each from a child process that must survive, raise and leave nothing
+running; then the launched streamed 2 x 2 fit and the one-card
+``_one_card`` fit with ``threads`` 1 and the caller's default count, for
+their epoch times.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -64,6 +83,7 @@ BIG_CELLS, BIG_PART = 65_536, 16_384
 MP_GENES = 3448
 MP_RUNS = (("zinb-conddisp", "zinb-conddisp", MP_GENES, 2),)
 BIG_TIMEOUT = 900  # seconds for the ranks of the large streamed fit, start-up included
+LOG_DIR = os.path.join(REPO, "chiprun_out")  # what the launcher checks leave to read
 
 
 def _big_fit(dev, out_dir, devices=None):
@@ -140,9 +160,173 @@ def _print_mp(mp, n, cards):
               f"relative differences from one card {v['rel']}; cards: {'; '.join(cards[:n])}")
 
 
+# a launched worker that runs the real one, but at the end of its second
+# epoch dies (exit code 3) or stops answering
+FAILING_WORKER = """
+import os, sys, time
+from dca_tpu_torch.parallel import launch
+from dca_tpu_torch.train import loop
+end = loop._FitCallbacks.end_epoch
+def failing(self, epoch, monitor):
+    if epoch == 1:
+        sys.stderr.write("the worker HOW after epoch 2\\n")
+        sys.stderr.flush()
+        if "HOW" == "dies":
+            os._exit(3)
+        time.sleep(3600)
+    return end(self, epoch, monitor)
+loop._FitCallbacks.end_epoch = failing
+launch._worker_main(*(int(a) for a in sys.argv[1:4]))
+"""
+FAIL_TIMEOUT = 30.0  # the launcher's timeout in the failure checks, seconds
+FAIL_LIMITS = {"dies": 150, "hangs": 120}  # seconds for each check's child process
+
+
+def _live_children():
+    pid, kids = os.getpid(), set()
+    for tid in os.listdir(f"/proc/{pid}/task"):
+        try:
+            with open(f"/proc/{pid}/task/{tid}/children") as f:
+                kids |= set(f.read().split())
+        except OSError:
+            pass
+    return sorted(kids)
+
+
+def failure_child(how, dev, n_ranks=2):
+    """A launched fit (``train(devices=n_ranks)``, zinb-conddisp 2730 x
+    3451, 5 epochs) from this process whose rank 1 ``how`` ("dies",
+    "hangs") after epoch 2, with the launcher's timeout FAIL_TIMEOUT; then,
+    after "dies", a launched 1-epoch fit in the same process.  Returns
+    {the error's type and first lines, seconds to it, a group or children
+    left, the next fit's history, ok}."""
+    import torch
+
+    from dca_tpu_torch.parallel import launch
+
+    launch.TIMEOUT_S = FAIL_TIMEOUT
+    script = FAILING_WORKER.replace("HOW", how)
+    inner = launch.worker_command
+    launch.worker_command = lambda rank, world, port: [sys.executable, "-c", script, str(port),
+                                                       str(rank), str(world)]
+    adata = cs._lazy_adata(cs.make_paul15_like())
+    state = cs._stream_state(dev, adata.n_vars)
+    t0 = time.perf_counter()
+    err = None
+    try:
+        cs._stream_fit(dev, adata, state, 5, verbose=False, devices=n_ranks)
+    except Exception as e:  # what the caller sees
+        err = e
+    out = {"how": how, "seconds": time.perf_counter() - t0,
+           "error": None if err is None else type(err).__name__,
+           "message": "" if err is None else str(err)[:1500],
+           "group_left": torch.distributed.is_initialized(), "children_left": _live_children()}
+    out["ok"] = (err is not None and not out["group_left"] and not out["children_left"]
+                 and out["seconds"] < 3 * FAIL_TIMEOUT)
+    if how == "dies":
+        out["ok"] = out["ok"] and isinstance(err, launch.LaunchError) and (
+            f"rank 1 of {n_ranks}" in out["message"] and "exited with code 3" in out["message"])
+        launch.worker_command = inner
+        hist, _, _ = cs._stream_fit(dev, adata, state, 1, verbose=False, devices=n_ranks)
+        out["next_fit"] = hist.history
+        out["ok"] = out["ok"] and bool(np.isfinite(hist.history["loss"]).all()) and (
+            not torch.distributed.is_initialized() and not _live_children())
+    return out
+
+
+def _run_failure_child(how):
+    """``failure_child(how)`` in its own interpreter and session: a caller
+    that the failure kills shows as the child's exit code, and whatever
+    the child leaves is killed with its session."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--failure-child", how]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=FAIL_LIMITS[how])
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        rc = f"killed after {FAIL_LIMITS[how]} s"
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)  # anything of the child's left
+    except ProcessLookupError:
+        pass
+    os.makedirs(LOG_DIR, exist_ok=True)
+    with open(os.path.join(LOG_DIR, f"failure_{how}.log"), "w") as f:
+        f.write(f"rc {rc}\n--- stdout\n{out}\n--- stderr\n{err}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    res = json.loads(lines[-1]) if lines else {"ok": False}
+    res["rc"] = rc
+    return res
+
+
+def thread_timings(dev, n_ranks, cards):
+    """The launched streamed (n_ranks / 2) x 2 fit at MP_GENES (host tier,
+    DP_STREAM_EPOCHS) on a card a rank over NCCL, and the launched
+    ``_one_card`` fit of 2 ranks on the first card over gloo (in memory,
+    2730 x 3451), each with ``threads`` 1 (the launcher's default for gloo
+    ranks) and the caller's default count (for NCCL ranks): epoch times,
+    the same history both ways."""
+    import torch
+
+    counts = cs.make_paul15_like()
+    default = torch.get_num_threads()
+    fits = {
+        f"streamed {n_ranks // 2}x2 at {MP_GENES} genes, NCCL": (
+            cs._lazy_adata(counts[:, :MP_GENES]), cs._stream_state(dev, MP_GENES),
+            dict(devices=n_ranks, model_parallel=2, max_device_cells=cs.STREAM_MAX_CELLS)),
+        "2 ranks on one card, gloo": (
+            cs._lazy_adata(counts), cs._stream_state(dev, counts.shape[1]),
+            dict(devices=2, _one_card=True))}
+    out = {}
+    for name, (adata, state, kw) in fits.items():
+        hists = {}
+        for threads in (1, default):
+            with cs._switches(cs.STREAM_TIERS["host"]):
+                hist, launches, _ = cs._stream_fit(dev, adata, state, cs.DP_STREAM_EPOCHS,
+                                                   verbose=False, threads=threads, **kw)
+            torch.cuda.synchronize()
+            label = f"{threads} thread(s) a rank"
+            hists[label] = hist.history
+            out[f"{name}, {label}"] = {"epoch_s": hist.epoch_s, "group_s": hist.launch["group_s"]}
+            print(f"launched {name}, {label}: epochs "
+                  f"{[round(t * 1e3, 1) for t in hist.epoch_s]} ms on rank 0, group formed "
+                  f"after {hist.launch['group_s']:.2f} s; cards: {'; '.join(cards[:n_ranks])}")
+        a, b = hists.values()
+        for key, rtol in (("loss", 1e-3), ("val_loss", cs.STREAM_VAL_RTOL)):
+            rel = float(np.max(np.abs(np.asarray(b[key]) - a[key]) / np.abs(a[key])))
+            out[f"{name}: {key} relative difference"] = rel
+            cs._check(bool(np.isfinite(a[key] + b[key]).all()) and rel <= rtol,
+                      f"launched {name}: {key} {a[key]} with 1 thread a rank, {b[key]} with "
+                      f"{default}, relative difference {rel:.3e} > {rtol}")
+    return out
+
+
+def phase_launch_checks(n, cards):
+    """The launcher's failure checks over NCCL, then ``thread_timings``."""
+    import torch
+
+    failures = {how: _run_failure_child(how) for how in FAIL_LIMITS}
+    for how, res in failures.items():
+        print(f"launched fit whose rank 1 {how}: {json.dumps(res)}")
+    timings = thread_timings(torch.device("cuda"), n, cards)
+    with open(os.path.join(LOG_DIR, "launch_checks.json"), "w") as f:
+        json.dump({"failures": failures, "threads": timings, "cards": cards[:n]}, f)
+    bad = [how for how, res in failures.items() if not res.get("ok")]
+    cs._check(not bad, f"the launcher's failure checks {bad} failed: {failures}")
+
+
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--failure-child"]:
+        cs.phase_build()
+        res = failure_child(sys.argv[2], torch.device("cuda", 0))
+        print(json.dumps(res))
+        return 0 if res["ok"] else 1
+    checks = "--launch-checks" in sys.argv
+    sys.argv = [a for a in sys.argv if a != "--launch-checks"]
     if not torch.cuda.is_available():
         print("chip_dp: no CUDA device; this script runs only on GPUs", file=sys.stderr)
         return 1
@@ -156,6 +340,14 @@ def main():
                             "--format=csv,noheader"], capture_output=True, text=True,
                            timeout=60).stdout.strip().splitlines()
     models = tuple(m for m in (1, 2, 4) if n % m == 0)
+    if checks:
+        try:
+            cs.phase_build()
+            phase_launch_checks(n, cards)
+        except cs.SmokeFailure as e:
+            print(f"chip_dp: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
     try:
         _, _, hist, _, tb = cs.phase_api("zinb-conddisp", 2, tensorboard=True)
         one = cs.epoch_timings(epochs=2)
@@ -165,10 +357,18 @@ def main():
                                     single_stream=stream)
         big_one, big = phase_big_stream(n)
         mp = cs.phase_model_parallel(n, "nccl", models=models, runs=MP_RUNS)
+        launched = cs.phase_launch(dp, mp, n_ranks=n, one_card=False, runs=MP_RUNS)
     except cs.SmokeFailure as e:
         print(f"chip_dp: FAILED: {e}", file=sys.stderr)
         return 1
     _print_mp(mp, n, cards)
+    for key, v in launched.items():
+        print(f"launched {key} (dca()/train() from this process, {n} cards over NCCL): epochs "
+              f"{[round(t * 1e3, 1) for t in v['epoch_s']]} ms on rank 0, against "
+              f"{[round(t * 1e3, 1) for t in v['spawned_epoch_s']]} ms on the spawned ranks; "
+              f"group formed {v['launch']['group_s']:.2f} s after the call, "
+              f"{v['launch']['shared_bytes']} bytes of shared inputs; cards: "
+              f"{'; '.join(cards[:n])}")
     print(f"zinb-conddisp 2730 x 3451 epoch: on one card {min(one['graph']):.1f} ms from "
           f"CUDA graphs, {min(one['eager']):.1f} ms eager (the best of 3 fits each); "
           f"{dp['per_epoch_s'] * 1e3:.1f} ms data parallel on {n} cards over NCCL (eager); "

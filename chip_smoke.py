@@ -183,9 +183,24 @@ Phases, each of which must pass:
    whole and finite; rank 0 alone writes; per-rank launches 156 / 154
    K1/K2 and no K1w for zinb-conddisp (the validation of a grid with one
    data index is not padded), 78 / 77 for nb-conddisp
-   (``want_mp_launches``).  A rank that fails or outlives its time
-   limit fails the phase.  The data-parallel and model-parallel epoch
-   times are printed: two ranks sharing one card measure no scaling.
+   (``want_mp_launches``).  Then the streaming trainer on that grid: the
+   zinb-conddisp fit at 3450 genes from fresh weights,
+   ``train(devices="all", model_parallel=2, max_device_cells=512)`` for 2
+   epochs through the host and the padded-payload tiers, both ranks
+   staging the same rows whole and stepping on their gene columns: the
+   same history on both ranks and in both tiers, within rtol 1e-3 (loss)
+   and 1e-2 (val_loss) of the one-card host-tier streamed fit of the same
+   genes and weights (CUDA graphs), 156 / 154 K1/K2 and no K1w a rank
+   (``want_group_stream_launches`` at one data index), rank 0 alone
+   printing its epochs.  Then the launcher (``phase_launch``):
+   ``dca(devices=2)`` from this process, its two ranks (this process and
+   a worker it starts) sharing the card over gloo (``_one_card``): the
+   zinb-conddisp fit of the spawned ranks above, history within rtol 1e-4
+   of theirs, rank 0's launches theirs (154 / 154 and 2 K1w), no process
+   group left; its start-up and shared bytes printed.  A rank that fails
+   or outlives its time limit fails the phase.  The data-parallel and
+   model-parallel epoch times are printed: two ranks sharing one card
+   measure no scaling.
 
 8. The native IO tier (``dca_tpu_torch/native``, g++ at first use) must
    build on the card's host; ``read_text`` of the 3451 x 2730 gene x cell
@@ -2483,6 +2498,7 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
         out["stream"] = _check_dp_stream(ranks, single_stream, n_ranks, backend)
     zinb = ranks[0]["zinb-conddisp"]
     out["per_epoch_s"] = (zinb["t_run"] - zinb["t_zero"]) / DP_RUNS[0][1]
+    out["zinb_history"] = zinb["history"]
     print(f"phase 7: data-parallel zinb-conddisp epoch {out['per_epoch_s'] * 1e3:.1f} ms on "
           f"rank 0 ({n_ranks} ranks over {backend}"
           f"{': sharing one card, this measures no scaling' if backend == 'gloo' else ''}); "
@@ -2547,7 +2563,8 @@ def _mp_rank(rank, world, port, out_dir, backend, models, runs):
     the group, then for each model-axis width of ``models`` and each run of
     ``runs`` fit through ``dca(devices="all", model_parallel=M)``; leave
     the histories, launches, epoch times, gathered parameters and denoised
-    matrix in ``out_dir`` (rank 0 alone writes its model.pickle)."""
+    matrix in ``out_dir`` (rank 0 alone writes its model.pickle).  Then,
+    for each M > 1, the streamed fits under the grid (``_mp_stream_fits``)."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -2572,9 +2589,41 @@ def _mp_rank(rank, world, port, out_dir, backend, models, runs):
                      **{k: v.cpu().numpy() for k, v in net.model.state_dict().items()})
             res[key] = {"history": ret.uns["dca_loss_history"], "launches": launches,
                         "epoch_s": hist.epoch_s}
+    state_path = os.path.join(out_dir, "stream_state.npz")
+    for model in models:
+        if model > 1:
+            res.update(_mp_stream_fits(out_dir, state_path, counts[:, :runs[0][2]], world,
+                                       model))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
+
+
+def _mp_stream_fits(out_dir, state_path, counts, world, model, **kw):
+    """The streamed zinb-conddisp fits on this rank under the (world / M) x
+    M grid: ``train(devices="all", model_parallel=M,
+    max_device_cells=STREAM_MAX_CELLS)`` for DP_STREAM_EPOCHS from the
+    weights at ``state_path``, through each of DP_STREAM_TIERS (``kw`` to
+    ``train`` besides); {key: history, launches, epoch times, the streamed
+    epochs printed}."""
+    import torch
+
+    adata = _lazy_adata(counts)
+    state = {k: torch.from_numpy(v) for k, v in np.load(state_path).items()}
+    out = {}
+    for tier in DP_STREAM_TIERS:
+        with _switches(STREAM_TIERS[tier]):
+            text = StringIO()
+            with contextlib.redirect_stdout(text):
+                hist, launches, _ = _stream_fit(torch.device("cuda"), adata, state,
+                                                DP_STREAM_EPOCHS, verbose=True, devices="all",
+                                                model_parallel=model,
+                                                max_device_cells=STREAM_MAX_CELLS, **kw)
+            torch.cuda.synchronize()
+        out[f"stream-{tier}-{world // model}x{model}"] = {
+            "history": hist.history, "launches": launches, "epoch_s": hist.epoch_s,
+            "printed": _streamed_epochs(text.getvalue())}
+    return out
 
 
 def mp_references(runs):
@@ -2597,14 +2646,34 @@ def phase_model_parallel(n_ranks=DP_RANKS, backend="gloo", models=(2,), runs=MP_
     BatchNorm-bias noise, ROADMAP.md Queue 3) of the one-card fit of the
     same genes; the gathered parameters and the denoised matrix the same
     on every rank, finite, of the whole shapes; rank 0 alone writes; each
-    rank's K1/K2 launches those of ``want_mp_launches``.  Returns
-    {fit: {launches a rank, epoch times on rank 0, the one card's}}."""
+    rank's K1/K2 launches those of ``want_mp_launches``.  Then, for each
+    M > 1, the streamed zinb-conddisp fit at the first run's genes under
+    the grid (``_mp_stream_fits``, host and padded-payload tiers), held to
+    the one-card streamed fit of the same genes and weights (host tier, the
+    steps replayed from CUDA graphs): the same history on every rank and in
+    both tiers, loss within rtol 1e-3 and val_loss within STREAM_VAL_RTOL,
+    each rank's launches those of its data index's schedule
+    (``want_group_stream_launches``), rank 0 alone printing its epochs.
+    Returns {fit: {history on rank 0, launches a rank, epoch times on rank
+    0, the one card's}}."""
+    import torch
+
     from dca_tpu_torch.models import core
 
     refs = mp_references(runs)
     out_dir = os.path.join(OUT_DIR, "mp")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
+    # the streamed fits' weights and one-card reference, at the first run's genes
+    stream_genes = runs[0][2]
+    dev = torch.device("cuda")
+    state = _stream_state(dev, stream_genes)
+    np.savez(os.path.join(out_dir, "stream_state.npz"),
+             **{k: v.cpu().numpy() for k, v in state.items()})
+    with _switches(STREAM_TIERS["host"]):
+        stream_one, _, _ = _stream_fit(dev, _lazy_adata(make_paul15_like()[:, :stream_genes]),
+                                       state, DP_STREAM_EPOCHS, verbose=False,
+                                       max_device_cells=STREAM_MAX_CELLS)
     run_ranks(_mp_rank, n_ranks, (out_dir, backend, tuple(models), tuple(runs)), MP_TIMEOUT,
               "phase 7 (model parallel)")
     ranks = []
@@ -2653,7 +2722,7 @@ def phase_model_parallel(n_ranks=DP_RANKS, backend="gloo", models=(2,), runs=MP_
                        for r in range(n_ranks)]
             _check(os.path.exists(os.path.join(out_dir, f"{key}-rank0", "model.pickle"))
                    and not any(written[1:]), f"{what}: written by ranks {written}")
-            out[key] = {"launches": [f["launches"] for f in fits],
+            out[key] = {"history": hist, "launches": [f["launches"] for f in fits],
                         "epoch_s": fits[0]["epoch_s"], "one_card_epoch_s": ref_epoch_s,
                         "rel": rel}
             print(f"{what}, {epochs} epochs on {n_ranks} ranks over {backend}: loss "
@@ -2664,7 +2733,133 @@ def phase_model_parallel(n_ranks=DP_RANKS, backend="gloo", models=(2,), runs=MP_
                   f"parameters and denoised matrices equal; rank 0 alone wrote; epochs "
                   f"{[round(t * 1e3, 1) for t in fits[0]['epoch_s']]} ms on rank 0 against "
                   f"{[round(t * 1e3, 1) for t in ref_epoch_s]} ms on one card")
+    for model in (m for m in models if m > 1):
+        out.update(_check_mp_stream(ranks, stream_one, n_ranks, model, stream_genes, backend))
     shutil.rmtree(out_dir)
+    return out
+
+
+def _check_mp_stream(ranks, one, n_ranks, model, genes, backend):
+    """The streamed fits of ``_mp_stream_fits`` on the grid of (n_ranks /
+    ``model``) x ``model`` against each other and against the one-card
+    streamed fit ``one`` (a ``History``); {key: history, launches a rank,
+    epoch times on rank 0, the one card's}."""
+    n_data = n_ranks // model
+    out = {}
+    first = None
+    for tier in DP_STREAM_TIERS:
+        key = f"stream-{tier}-{n_data}x{model}"
+        what = f"phase 7 streamed {tier} under model parallelism {n_data}x{model} ({genes} genes)"
+        fits = [r[key] for r in ranks]
+        hist = fits[0]["history"]
+        first = first or hist
+        for rk, fit in enumerate(fits):
+            want = want_group_stream_launches(DP_STREAM_EPOCHS, 2730, STREAM_MAX_CELLS, n_data,
+                                              rk // model)
+            _check(fit["history"] == hist, f"{what}: rank {rk}'s history {fit['history']} "
+                   f"differs from rank 0's {hist}")
+            _check(fit["launches"] == want,
+                   f"{what}: rank {rk} launched {fit['launches']}, expected {want}")
+            _check(fit["printed"] == (DP_STREAM_EPOCHS if rk == 0 else 0),
+                   f"{what}: rank {rk} printed {fit['printed']} streamed epochs")
+        _check(hist == first, f"{what}: history {hist} is not the {DP_STREAM_TIERS[0]} "
+               f"tier's {first}")
+        rel = {}
+        for k, rtol in (("loss", 1e-3), ("val_loss", STREAM_VAL_RTOL)):
+            got, ref = np.asarray(hist[k]), np.asarray(one.history[k])
+            _check(len(got) == DP_STREAM_EPOCHS and bool(np.isfinite(got).all()),
+                   f"{what}: {k} {hist[k]}")
+            rel[k] = float(np.max(np.abs(got - ref) / np.abs(ref)))
+            _check(rel[k] <= rtol, f"{what}: {k} {hist[k]} vs the one-card streamed fit's "
+                   f"{one.history[k]}, relative difference {rel[k]:.3e} > {rtol}")
+        out[f"zinb-conddisp-{key}"] = {
+            "history": hist, "launches": [f["launches"] for f in fits],
+            "epoch_s": fits[0]["epoch_s"], "one_card_epoch_s": one.epoch_s, "rel": rel}
+        print(f"{what}, {DP_STREAM_EPOCHS} epochs, parts of {STREAM_MAX_CELLS}, on {n_ranks} "
+              f"ranks over {backend}: loss {hist['loss']}, val_loss {hist['val_loss']}, the "
+              f"same on every rank and in both tiers; against the one-card streamed fit "
+              f"largest relative differences {rel['loss']:.3e} (loss), {rel['val_loss']:.3e} "
+              f"(val_loss); per-rank launches "
+              f"{[{k: v for k, v in f['launches'].items() if v} for f in fits]}; epochs "
+              f"{[round(t * 1e3, 1) for t in fits[0]['epoch_s']]} ms on rank 0 against "
+              f"{[round(t * 1e3, 1) for t in one.epoch_s]} ms on one card")
+    return out
+
+
+LAUNCH_RTOL = 1e-4  # the launcher's fits against the same fits on spawned ranks
+
+
+def phase_launch(dp, mp=None, n_ranks=DP_RANKS, one_card=True, runs=MP_RUNS):
+    """Phase 7's fits again, their ranks started by the fit itself from this
+    process (``parallel/launch.py``): ``dca(devices=n_ranks)`` of
+    zinb-conddisp for DP_RUNS' epochs on phase 4's matrix, on one card
+    through ``_one_card`` (the ranks share it over gloo), else one card a
+    rank over NCCL; with ``mp`` (``phase_model_parallel``'s results on
+    ``runs``) also ``dca(devices=n_ranks, model_parallel=2)`` at the genes
+    of the first of ``runs`` and the streamed fit on that grid from the
+    same weights.  Each: rank 0's
+    history (this process's) within LAUNCH_RTOL of the spawned ranks' fit,
+    its launches exactly rank 0's there, no process group left after it.
+    Returns {fit: history, launches, epoch times, start-up and shared
+    bytes (``History.launch``), the spawned fit's epoch times}."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    kw = {"training_kwds": {"_one_card": True}} if one_card else {}
+    counts = make_paul15_like()
+    epochs = DP_RUNS[0][1]
+    fits = [("dp", lambda: _mp_fit(counts, "zinb-conddisp", epochs, devices=n_ranks, **kw)[2],
+             dp["zinb_history"], dp["zinb-conddisp"][0], [dp["per_epoch_s"]])]
+    if mp is not None:
+        name, ae_type, genes, mp_epochs = runs[0]
+        grid = f"{n_ranks // 2}x2"
+        ref = mp[f"{name}-{grid}"]
+        fits.append((f"{name} {grid} at {genes} genes", lambda: _mp_fit(
+            counts[:, :genes], ae_type, mp_epochs, devices=n_ranks, model_parallel=2,
+            **kw)[2], ref["history"], ref["launches"][0], ref["epoch_s"]))
+        dev = torch.device("cuda")
+
+        def streamed():
+            with _switches(STREAM_TIERS["host"]):
+                return _stream_fit(dev, _lazy_adata(counts[:, :genes]),
+                                   _stream_state(dev, genes), DP_STREAM_EPOCHS, verbose=False,
+                                   devices=n_ranks, model_parallel=2,
+                                   max_device_cells=STREAM_MAX_CELLS,
+                                   **kw.get("training_kwds", {}))[0]
+
+        ref = mp[f"zinb-conddisp-stream-host-{grid}"]
+        fits.append((f"streamed {grid} at {genes} genes", streamed, ref["history"],
+                     ref["launches"][0], ref["epoch_s"]))
+    out = {}
+    for name, fit, ref_hist, ref_launches, ref_epoch_s in fits:
+        fl.reset_launches()
+        hist = fit()
+        torch.cuda.synchronize()
+        launches = dict(fl.launches)
+        what = f"phase 7 launched {name} ({n_ranks} ranks from this process)"
+        _check(not torch.distributed.is_initialized() and hist.launch is not None
+               and hist.launch["ranks"] == n_ranks, f"{what}: {hist.launch}, a group left "
+               f"{torch.distributed.is_initialized()}")
+        rel = {}
+        for k in ("loss", "val_loss"):
+            got, ref = np.asarray(hist.history[k]), np.asarray(ref_hist[k])
+            _check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                   f"{what}: {k} {hist.history[k]}")
+            rel[k] = float(np.max(np.abs(got - ref) / np.abs(ref)))
+            _check(rel[k] <= LAUNCH_RTOL, f"{what}: {k} {hist.history[k]} vs the spawned "
+                   f"ranks' {ref_hist[k]}, relative difference {rel[k]:.3e} > {LAUNCH_RTOL}")
+        _check(launches == ref_launches, f"{what}: rank 0 launched {launches}, the spawned "
+               f"rank 0 {ref_launches}")
+        out[name] = {"history": hist.history, "launches": launches, "epoch_s": hist.epoch_s,
+                     "launch": hist.launch, "rel": rel, "spawned_epoch_s": ref_epoch_s}
+        print(f"{what}: loss {hist.history['loss']}, val_loss {hist.history['val_loss']}; "
+              f"against the spawned ranks' fit largest relative differences {rel['loss']:.3e} "
+              f"(loss), {rel['val_loss']:.3e} (val_loss); rank 0's launches "
+              f"{ {k: v for k, v in launches.items() if v} }; group formed after "
+              f"{hist.launch['group_s']:.2f} s, {hist.launch['shared_bytes']} bytes shared, "
+              f"backend {hist.launch['backend']}; epochs "
+              f"{[round(t * 1e3, 1) for t in hist.epoch_s]} ms on rank 0")
     return out
 
 
@@ -4206,6 +4401,7 @@ def main():
                                  single_compiled=comp["dp_reference"],
                                  single_stream=stream_small["dp_reference"])
         mp = phase_model_parallel()
+        launched = phase_launch(dp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4239,6 +4435,9 @@ def main():
             streamed["launches_model_parallel"] = {
                 f"phase 7 {key}, per rank": [r[name] for r in v["launches"]]
                 for key, v in mp.items() if key.startswith(f"{fam}-")}
+            streamed["launches_launcher"] = {
+                f"phase 7 launched {key}, rank 0": v["launches"][name]
+                for key, v in launched.items()}
             if fam == "zinb":
                 streamed["launches_compiled"]["phase 13 early stop"] = \
                     comp["stop"]["launches"][name]
@@ -4292,6 +4491,8 @@ def main():
                 "launches": sum(per_rank), "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "launches_per_rank": per_rank,
+                "launches_launcher": {f"phase 7 launched {key}, rank 0": v["launches"][name]
+                                      for key, v in launched.items()},
                 "model_parallel_shapes": _shard_entries(mp_times, name),
                 "main_path": f"phase 7: {fam}-conddisp data parallel on {DP_RANKS} ranks",
                 "checked_shapes": f"{', '.join(str(sh) for sh, _, _ in WEIGHTED_SHAPES)}; the "
@@ -4375,6 +4576,12 @@ def main():
               f"sharing the card through gloo, against "
               f"{[round(t * 1e3, 1) for t in v['one_card_epoch_s']]} ms on one card (CUDA "
               "graphs)")
+    for key, v in launched.items():
+        print(f"launched {key} epoch (2730 cells, zinb-conddisp 64-32-64) on {card}: "
+              f"{[round(t * 1e3, 1) for t in v['epoch_s']]} ms on rank 0 of {DP_RANKS} "
+              f"started by dca() from this process, sharing the card through gloo; group "
+              f"formed {v['launch']['group_s']:.2f} s after the call, "
+              f"{v['launch']['shared_bytes']} bytes of shared inputs")
     one = stream_small["dp_reference"]["epoch_s"]
     for tier, ep in dp["stream"]["epoch_s"].items():
         print(f"streamed epoch (2730 x 3451 zinb-conddisp, parts of {STREAM_MAX_CELLS}) on "

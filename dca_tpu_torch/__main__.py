@@ -3,9 +3,11 @@
 The flag surface of the JAX package's CLI (``dca_tpu/__main__.py``: names,
 defaults, paired --x/--no-x booleans), plus ``--device``: the run goes to
 the CUDA device unless ``--device cpu`` is given.  ``--devices`` trains data
-parallel over the ranks of a process group, one process per device:
+parallel over a rank per device: ``python -m dca_tpu_torch in.tsv out/
+--devices N`` (or ``all``) starts them from this one process
+(``parallel/launch.py``; with ``--device cpu``, N gloo ranks), and
 ``torchrun --nproc-per-node N -m dca_tpu_torch in.tsv out/ --devices all``
-(rank 0 writes the outputs).  ``--saveweights`` writes the best epoch's
+runs under torchrun's ranks instead (rank 0 writes the outputs either way).  ``--saveweights`` writes the best epoch's
 ``weights.hdf5`` (needs h5py) and ``--tensorboard`` the event files and a
 profiler trace under ``<outputdir>/tb``.  ``--hyper`` runs the TPE search
 of ``hyper.py`` instead of one fit (``--hypern`` trials of ``--hyperepoch``
@@ -13,8 +15,8 @@ epochs), writing ``<outputdir>/hyperopt_results/{trials.pickle,best.json}``;
 DCA_TPU_HYPER_PARALLEL trials run at once (default: the CUDA device count
 when above 1, else 2).  ``--modelparallel M`` with ``--devices`` lays
 the ranks out as a (ranks / M) x M grid and shards the gene dimension of
-the input and head weights over M of them: ``torchrun --nproc-per-node 4
--m dca_tpu_torch in.tsv out/ --devices all --modelparallel 2``.
+the input and head weights over M of them: ``python -m dca_tpu_torch
+in.tsv out/ --devices 4 --modelparallel 2``, in memory or streamed.
 Every ``--type``, ``--activation`` (PReLU included) and ``--optimizer``
 (SGD, RMSprop, Adam, Adamax, Nadam, Adagrad, Adadelta) of the JAX package
 runs; the input is read and the TSVs are written through the native C++
@@ -164,9 +166,9 @@ def parse_args(argv=None):
                         "one gene per line.")
 
     parser.add_argument("--devices", dest="devices", type=str, default=None,
-                        help="Train data parallel over the ranks of a process "
-                        "group, one process per device: 'all' or their number; "
-                        "start the ranks with torchrun (default: one device)")
+                        help="Train data parallel on several devices, one rank "
+                        "each: 'all' or their number; the ranks start from this "
+                        "process, or run under torchrun (default: one device)")
     parser.add_argument("--modelparallel", dest="modelparallel", type=int, default=1,
                         help="Width of the model axis of the device mesh: shard "
                         "the gene dimension of the input/head weight matrices "

@@ -13,14 +13,17 @@ included) and ``optimizer`` of the JAX package, plus ``device``: the CUDA
 device unless ``device="cpu"``.
 
 ``devices``/``model_parallel`` as the JAX package's: with ``devices``
-(``"all"``, an int or a list) the fit is data parallel over the ranks of a
-``torch.distributed`` process group, one process per device, each calling
-``dca`` on the same data (``parallel/``); under torchrun the ranks join
-their group here.  With ``model_parallel`` M > 1 the ranks form a
-(ranks / M) x M grid and each holds its gene shard of the input kernel
-and of the heads during the fit (gene-dim model parallelism).  After the
-fit every rank holds the same parameters and the full denoised matrix.
-One process over several GPUs is not ported yet (ROADMAP.md).
+(``"all"``, an int or a list) the fit is data parallel over a rank per
+device (``parallel/``).  From one process, as in a notebook, the fit
+starts the ranks itself and this process is rank 0 (``parallel/launch.py``:
+``dca(adata, devices=4)``; on the CPU N gloo ranks); no torchrun and no
+``__main__`` guard are needed, and this process alone predicts and
+writes.  Under torchrun each rank calls ``dca`` on the same data and
+joins its group here, and after the fit every rank holds the same
+parameters and the full denoised matrix.  With ``model_parallel`` M > 1
+the ranks form a (ranks / M) x M grid and each holds its gene shard of
+the input kernel and of the heads during the fit (gene-dim model
+parallelism), in memory or streamed.
 """
 
 from __future__ import annotations

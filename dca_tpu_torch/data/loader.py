@@ -24,9 +24,11 @@ arrays by identity and the trainer ships them once.  With ``derive_input``
 only the target payload is built: the trainer derives the input from it on
 the device (``train/loop.py::_derivable_row_scale``).
 
-The per-shard flat payload of the JAX package's mesh path
-(``FlatShardedChunk``) is not ported: it serves one process driving several
-devices, which the port refuses (``parallel/mesh.py``).
+The per-shard flat payload of the JAX package's one-program mesh path
+(``FlatShardedChunk``) has no copy here: the port runs a process a device
+(``parallel/launch.py`` starts them from one call), and each rank stages
+only its own rows of each part (``train/loop.py::_stream_tasks``), so a
+rank's payload is already its shard's.
 """
 
 from __future__ import annotations

@@ -13,13 +13,16 @@ input kernel by rows, the heads' kernels, biases and constant theta by
 columns, each only where its gene dimension divides M.  Each rank then
 holds its slice of those tensors (``shard_params``) and the whole of every
 other one, and a fit ends with every rank holding the whole network again
-(``gather_params``).  One process over several GPUs is not ported yet
-(ROADMAP.md).
+(``gather_params``).  A call that asks for several devices with no
+process group makes one: ``parallel/launch.py`` starts a rank a device
+from the calling process, so one process over several GPUs trains on
+this same grid.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import torch.distributed as dist
@@ -75,6 +78,14 @@ class Mesh:
         return 0, n
 
 
+def check_grid(world_size, model):
+    """Raise, as the JAX package's ``make_mesh`` asserts, unless ``model``
+    divides the ``world_size`` ranks."""
+    if world_size % model:
+        raise ValueError(f"mesh {world_size // model}x{model} != {world_size} devices: "
+                         f"model_parallel={model} does not divide the {world_size} ranks")
+
+
 def make_mesh(world_size, model=1):
     """The ('data', 'model') ``Mesh`` of this rank in an initialized
     process group of ``world_size`` ranks.  The first call for a grid
@@ -82,9 +93,7 @@ def make_mesh(world_size, model=1):
     the same order, as ``dist.new_group`` needs; later calls under the same
     process group reuse them (a process that fits many times holds one set
     of communicators).  With M = 1 the data group is the world."""
-    if world_size % model:
-        raise ValueError(f"mesh {world_size // model}x{model} != {world_size} devices: "
-                         f"model_parallel={model} does not divide the {world_size} ranks")
+    check_grid(world_size, model)
     n_data = world_size // model
     rank = dist.get_rank()
     world = dist.group.WORLD
@@ -109,9 +118,10 @@ def resolve_mesh(devices, model_parallel: int = 1):
     JAX package asserts; ``"all"``/True the ranks of the initialized
     process group; an int N, or a list of N, exactly those ranks, N of
     them.  A world of one rank with ``model_parallel`` 1 is the
-    single-device path.  ``model_parallel`` must divide the ranks.
-    Raises, naming ROADMAP.md, on more than one device with no process
-    group."""
+    single-device path.  ``model_parallel`` must divide the ranks.  More
+    than one device with no process group is the launcher's to start
+    (``parallel/launch.py``, which ``train`` calls first): here it
+    raises."""
     model = max(int(model_parallel or 1), 1)
     if devices is None or devices is False or (
         isinstance(devices, int) and not isinstance(devices, bool) and devices == 0
@@ -129,16 +139,72 @@ def resolve_mesh(devices, model_parallel: int = 1):
     if n < 1:
         raise ValueError(f"resolve_mesh: no devices in {devices!r}")
     if not dist.is_initialized() and n > 1:
-        raise NotImplementedError(
-            f"devices={devices!r}: {n} devices in one process is not ported to dca_tpu_torch "
-            "yet (see ROADMAP.md); run one process per device, e.g. torchrun "
-            f"--nproc-per-node {n} -m dca_tpu_torch ... --devices all")
+        raise ValueError(f"devices={devices!r}: {n} devices and no process group; train() "
+                         "starts their ranks (parallel/launch.py)")
     if n != world:
         raise ValueError(f"devices={devices!r} asks for {n} devices, but the process group "
                          f"has {world} ranks, one per device")
     if world == 1 and model == 1:
         return None
     return make_mesh(world, model)
+
+
+def rank_devices(devices, device, one_card=False):
+    """The device of each rank that a call with ``devices`` starts, rank 0's
+    (the network's ``device``) first; None where it starts none: under an
+    initialized process group, for no mesh, or for one device.
+
+    An int N is the first N visible CUDA devices, ``"all"`` (or True)
+    every visible one, a list its CUDA indices or ``torch.device``\\ s; it
+    must start with ``device``'s.  More than are visible raises with the
+    JAX package's message.  On the CPU N (or a list of N) is N gloo ranks,
+    and ``"all"`` one.  Under torchrun (WORLD_SIZE set) with no group it
+    raises rather than start ranks.  ``one_card``: N ranks all on ``device``, over gloo
+    (NCCL refuses ranks that share a card)."""
+    if dist.is_initialized() or devices is None or devices is False or (
+            isinstance(devices, int) and not isinstance(devices, bool) and devices == 0):
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    every = devices is True or devices == "all"
+    if device.type == "cpu" or one_card:
+        if every and device.type == "cpu":
+            return None
+        n = devices if isinstance(devices, int) else (
+            torch.cuda.device_count() if every else len(list(devices)))
+        return _not_under_torchrun(devices, [device] * n) if n > 1 else None
+    visible = torch.cuda.device_count()
+    if every:
+        want = list(range(visible))
+    elif isinstance(devices, int):
+        if devices > visible:
+            raise ValueError(f"requested {devices} devices, only {visible} visible")
+        want = list(range(devices))
+    else:
+        want = [d if isinstance(d, int) else torch.device(d).index or 0 for d in devices]
+        if not want or len(set(want)) < len(want) or max(want) >= visible:
+            raise ValueError(f"devices={devices!r}: requested {len(want)} devices, only "
+                             f"{visible} visible, each named once")
+    if want[0] != device.index:
+        raise ValueError(f"devices={devices!r} starts with cuda:{want[0]}, but the network "
+                         f"is on {device}: rank 0 is the caller and trains on the "
+                         "network's device")
+    return _not_under_torchrun(devices, [torch.device("cuda", i) for i in want]) \
+        if len(want) > 1 else None
+
+
+def _not_under_torchrun(devices, ranks):
+    """``ranks``, unless this process is already one of torchrun's ranks
+    (WORLD_SIZE is set) that has not joined its group: each of them would
+    start ranks of its own on the same devices."""
+    if "WORLD_SIZE" in os.environ:
+        raise ValueError(f"devices={devices!r}: this process is rank {os.environ.get('RANK')} "
+                         f"of WORLD_SIZE={os.environ['WORLD_SIZE']} (torchrun) and has no "
+                         "process group: call dca_tpu_torch.parallel.multihost.initialize() "
+                         "before train() (dca() and the CLI do), or run without torchrun and "
+                         "let train() start the ranks")
+    return ranks
 
 
 def gene_dim(path, definition, model_size):

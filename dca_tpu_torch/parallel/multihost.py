@@ -1,10 +1,12 @@
 """Process groups and per-rank row blocks over ``torch.distributed``.
 
 A port of the JAX package's ``dca_tpu/parallel/multihost.py``.  The port
-trains data parallel as one process per device: ``torchrun
---nproc-per-node N -m dca_tpu_torch in.tsv out/ --devices all`` on one
-host, or one process per host with DCA_TPU_COORDINATOR.  ``initialize``
-joins the processes into a group; each rank takes its block of each
+trains data parallel as one process per device: started by the call
+itself (``parallel/launch.py``: ``dca(adata, devices=4)``, or ``python -m
+dca_tpu_torch in.tsv out/ --devices 4``), by ``torchrun --nproc-per-node N
+-m dca_tpu_torch in.tsv out/ --devices all`` on one host, or one process
+per host with DCA_TPU_COORDINATOR.  ``initialize`` joins the processes
+into a group; each rank takes its block of each
 batch's rows (``process_row_range``); the fit sums what it needs over the
 group (``all_reduce_sum``, ``parallel/step.py``); rank 0 alone writes the
 output files (``is_primary``).
@@ -21,6 +23,7 @@ without them.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -35,30 +38,35 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                backend: Optional[str] = None,
-               device=None):
+               device=None,
+               store=None,
+               timeout: Optional[float] = None):
     """Join a ``torch.distributed`` process group; return it, or None for
     a run of one process.
 
-    The address is ``coordinator_address`` ("host:port"),
+    The rendezvous is ``store`` (a ``torch.distributed.Store``, the
+    launcher's), else the address ``coordinator_address`` ("host:port"),
     DCA_TPU_COORDINATOR, or torchrun's MASTER_ADDR/MASTER_PORT; the number
     of processes and this one's rank are ``num_processes``/``process_id``
     or WORLD_SIZE/RANK.  A no-op when a group exists, and when none of
-    these is given.
+    these is given.  ``timeout``: seconds of each collective (the
+    backend's default without it).
 
-    ``device`` is read as ``resolve_device`` reads it.  On the card each
-    rank takes CUDA device LOCAL_RANK % device_count (LOCAL_RANK as
-    torchrun sets it, else the rank) and the backend is NCCL; on the CPU
-    it is gloo.  NCCL refuses ranks that share a device, so where the
-    ranks on this host (LOCAL_WORLD_SIZE, else all of them) outnumber its
-    devices this raises, unless the caller asked for ``backend="gloo"``:
-    there is no silent switch."""
+    ``device`` is read as ``resolve_device`` reads it.  On the card a rank
+    takes ``device``'s index where it names one (the launcher's ranks),
+    else CUDA device LOCAL_RANK % device_count (LOCAL_RANK as torchrun
+    sets it, else the rank), and the backend is NCCL; on the CPU it is
+    gloo.  NCCL refuses ranks that share a device, so where the ranks on
+    this host (LOCAL_WORLD_SIZE, else all of them) outnumber its devices
+    this raises, unless the caller asked for ``backend="gloo"``: there is
+    no silent switch."""
     if dist.is_initialized():
         return dist.group.WORLD
     env = os.environ
     address = coordinator_address or env.get("DCA_TPU_COORDINATOR")
     world = num_processes if num_processes is not None else env.get("WORLD_SIZE")
     rank = process_id if process_id is not None else env.get("RANK")
-    if address is None and world is None:
+    if address is None and world is None and store is None:
         return None
     if world is None or rank is None:
         raise ValueError("initialize: a process group needs its number of processes and "
@@ -73,14 +81,18 @@ def initialize(coordinator_address: Optional[str] = None,
             raise RuntimeError(
                 f"{local} ranks on this host share {n_devices} CUDA device(s), and NCCL "
                 "refuses ranks that share a device: run one rank per device, or ask for "
-                "backend='gloo' (one process over several GPUs is not ported yet, see "
-                "ROADMAP.md)")
-        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank)) % n_devices)
+                "backend='gloo'")
+        torch.cuda.set_device(device.index if device.index is not None
+                              else int(env.get("LOCAL_RANK", rank)) % n_devices)
     else:
         backend = backend or "gloo"
-    # torchrun hosts the rendezvous store itself: env:// joins it
-    init = f"tcp://{address}" if address is not None else "env://"
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    if store is not None:
+        dist.init_process_group(backend, store=store, world_size=world, rank=rank, **kw)
+    else:
+        # torchrun hosts the rendezvous store itself: env:// joins it
+        init = f"tcp://{address}" if address is not None else "env://"
+        dist.init_process_group(backend, init_method=init, world_size=world, rank=rank, **kw)
     return dist.group.WORLD
 
 

@@ -38,10 +38,11 @@ one CUDA device can capture it in a graph and replay it
 Python, its collectives outside any graph.
 
 The streaming trainer stages each part of the epoch into a part buffer,
-and under a group each rank stages only its block of each batch
-(``part_rows``); ``stream_places`` maps every row of the epoch to its
-place in this rank's buffer, so the same step reads its block from there
-while its ``BatchShard`` still spans the global batch.
+and under a group each rank stages only its data index's block of each
+batch (``part_rows``: the M ranks of a data index stage the same rows);
+``stream_places`` maps every row of the epoch to its place in this rank's
+buffer, so the same step reads its block from there while its
+``BatchShard`` still spans the global batch.
 """
 
 from __future__ import annotations
@@ -90,41 +91,44 @@ def shard_train_data(mesh, *arrays):
     return tuple(a[shard.lo:shard.hi] for a in arrays)
 
 
-def part_rows(idx, batch, rank=0, world=1):
-    """This rank's rows of a streamed part ``idx`` whose batches are
-    ``batch`` rows each (one batch for a trailing part): its block of each
-    batch (``process_row_range``), the batches one after the other.  All
-    of ``idx`` for one rank."""
-    lo, hi = process_row_range(batch, rank, world)
+def part_rows(idx, batch, data_index=0, n_data=1):
+    """The rows of a streamed part ``idx`` whose batches are ``batch`` rows
+    each (one batch for a trailing part) that data index ``data_index`` of
+    ``n_data`` stages: its block of each batch (``process_row_range``, the
+    rows' one layout rule, as ``batch_shard``'s), the batches one after the
+    other.  All of ``idx`` for one data index."""
+    lo, hi = process_row_range(batch, data_index, n_data)
     return np.asarray(idx).reshape(-1, batch)[:, lo:hi].reshape(-1)
 
 
-def stream_places(n_train, batch, chunk, rank=0, world=1):
-    """The place in this rank's part buffer of each of an epoch's rows, in
-    the order of the epoch's permutation: the streaming trainer's
-    ``StepBuffers.perm``.  The full batches come in parts of ``chunk``
-    rows (a multiple of ``batch``) and the trailing ``n_train mod batch``
-    rows in a part of their own, each staged by ``part_rows``; a row of
-    another rank's block gets place 0, which the step never reads (it
-    takes its block of the batch's places)."""
+def stream_places(n_train, batch, chunk, data_index=0, n_data=1):
+    """The place in the part buffer of data index ``data_index`` of
+    ``n_data`` of each of an epoch's rows, in the order of the epoch's
+    permutation: the streaming trainer's ``StepBuffers.perm``.  The full
+    batches come in parts of ``chunk`` rows (a multiple of ``batch``) and
+    the trailing ``n_train mod batch`` rows in a part of their own, each
+    staged by ``part_rows``; a row of another data index's block gets
+    place 0, which the step never reads (it takes its block of the batch's
+    places)."""
     n_full = n_train // batch
     rem = n_train - n_full * batch
     place = np.zeros(n_train, np.int64)
     p = np.arange(n_full * batch)
-    lo, hi = process_row_range(batch, rank, world)
+    lo, hi = process_row_range(batch, data_index, n_data)
     col = p % batch
     mine = (col >= lo) & (col < hi)
     place[:n_full * batch][mine] = ((p % chunk) // batch * (hi - lo) + col - lo)[mine]
-    lo, hi = process_row_range(rem, rank, world)
+    lo, hi = process_row_range(rem, data_index, n_data)
     place[n_full * batch + lo:n_full * batch + hi] = np.arange(hi - lo)
     return place
 
 
 def held_shard(mesh, n, held):
     """The ``BatchShard`` under which this rank evaluates the ``held``
-    rows it staged of a streamed part of ``n`` rows (its block of each of
-    the part's batches, not one block of the part): evaluation reads its
-    group and its rank alone, the rows are [0, held) of its buffer."""
+    rows it staged of a streamed part of ``n`` rows (its data index's
+    block of each of the part's batches, not one block of the part):
+    evaluation reads its data group and its data index alone, the rows
+    are [0, held) of its buffer."""
     return BatchShard(mesh.data, mesh.data_index, 0, held, n, mesh)
 
 

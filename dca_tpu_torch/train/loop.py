@@ -37,7 +37,10 @@ DCA_TPU_HOST_DENSE_BYTES (default 2 GB), streams them block by block
 
 With ``devices`` the fit is data parallel over the ranks of a
 ``torch.distributed`` process group, one process per device
-(``parallel/``): every rank stages the whole train split, draws the same
+(``parallel/``): the ranks of torchrun, or, without a group, ranks that
+the call starts itself, the caller as rank 0 (``parallel/launch.py``, the
+counterpart of the JAX package's one program over several devices); every
+rank stages the whole train split, draws the same
 permutation and computes its block of each global batch, the trailing one
 included; the batch statistics, the loss's (sum, count) pair and the
 gradients are summed over the ranks, so the fit is the single-device fit
@@ -61,7 +64,8 @@ the matrix stays on the host and shuffled parts of it are staged, by one
 of the JAX package's tiers, into two part buffers on the device while the
 captured steps run on the other; its epochs print ``[streaming]``.  Under
 a process group each rank stages only its block of each batch and runs
-the data-parallel step eagerly on it.
+the data-parallel step eagerly on it; with ``model_parallel`` the M ranks
+of a data index stage the same rows and each steps on its gene columns.
 
 The fit's artefacts, on every trainer, as the JAX package writes them
 under ``output_dir``: ``checkpoint_every=N`` saves the whole training
@@ -84,17 +88,14 @@ the primary rank writes; every rank takes part in the collectives.
 ``"auto"`` takes on a TPU): the epochs, their steps, the validation, the
 callbacks and the histories without a host hop, one CUDA graph replayed
 once an epoch on one CUDA device, read back once after the fit.  Here
-``"auto"`` keeps the Python-epoch loop (ROADMAP.md).  One process over
-several devices, and the streaming trainer under model parallelism, wait
-for later slices (ROADMAP.md, Queue 1): ``train`` raises
-``NotImplementedError`` for them before anything is densified or copied
-to the device.
+``"auto"`` keeps the Python-epoch loop (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import math
 import os
 import random
@@ -118,7 +119,8 @@ from ..device import resolve_device
 from ..losses import nb_terms
 from ..ops.densify import device_densify, device_densify_flat, device_densify_flat8, upload
 from ..ops.resident import PART_BYTES_PER_SLOT, ResidentCSR, derive_input
-from ..parallel.mesh import gather_params, gather_tensor, resolve_mesh, shard_named
+from ..parallel.mesh import (gather_params, gather_tensor, rank_devices, resolve_mesh,
+                             shard_named)
 from ..parallel.multihost import initialize, is_primary
 from ..parallel.step import (StepBuffers, all_reduce_grads, batch_shard, held_shard,
                              make_sharded_train_step, part_rows, place_train_state,
@@ -142,7 +144,10 @@ class History:
     ``fit``: the ``compiled.FitResult`` of a ``compiled=True`` fit (its
     histories NaN past the epochs run, the device times of the replays
     after the stop), None for the Python-epoch loop; such a fit's
-    ``epoch_s`` and ``capture_s`` are its own (``FitResult``)."""
+    ``epoch_s`` and ``capture_s`` are its own (``FitResult``); ``launch``:
+    for a fit whose ranks the call started (``parallel/launch.py``), the
+    ranks, the backend, the seconds until their group was formed and the
+    bytes of its shared inputs, else None."""
 
     def __init__(self):
         self.history = {}
@@ -153,6 +158,7 @@ class History:
         self.checkpoint_s = []
         self.weights_s = []
         self.fit = None
+        self.launch = None
 
     def append(self, key, value):
         self.history.setdefault(key, []).append(float(value))
@@ -463,6 +469,7 @@ def train(
     model_parallel=1,
     _graphs=True,
     _perms=None,
+    _one_card=False,
     **kwds,
 ):
     """Fit ``network`` (built) on ``adata``, on the network's device.
@@ -493,16 +500,30 @@ def train(
     process group (``parallel.mesh.resolve_mesh``; every rank calls
     ``train`` with the same data and seed), data parallel, or with
     ``model_parallel`` M > 1 over a grid of (ranks / M) x M, each rank
-    holding its gene shard of the input kernel and the heads; the network
-    is whole again on every rank after the fit.  ``model_parallel > 1``
-    on the streaming trainer raises ``NotImplementedError`` (ROADMAP.md).
+    holding its gene shard of the input kernel and the heads, in memory
+    and on the streaming trainer; the network is whole again on every rank
+    after the fit.  Without a group, more than one device (an int N, the
+    first N CUDA devices; ``"all"``, every visible one; a list of them,
+    the network's first; on the CPU N gloo ranks) starts a rank a device
+    from this process, which is rank 0 and returns its History
+    (``parallel/launch.py``, ``mesh.rank_devices``).
 
     On one CUDA device, outside ``debug``, the steps are replayed from
     CUDA graphs captured at the start of the fit (``train/graphs.py``);
     ``_graphs=False``, for the tests, calls them from Python there too.
     ``_perms``, for the tests, an (epochs, n_train) array of row orders,
-    replaces the ones a ``compiled=True`` fit draws."""
+    replaces the ones a ``compiled=True`` fit draws.  ``_one_card``, for
+    the tests and ``chip_smoke.py``: the ranks that ``devices`` starts all
+    share the network's CUDA device, over gloo."""
     assert network.model is not None, "network.build() must be called before train()"
+    ranks = rank_devices(devices, network.device, _one_card)
+    if ranks is not None:
+        from ..parallel.launch import launch_train
+
+        args = locals()
+        kwargs = {k: args[k] for k in inspect.signature(train).parameters
+                  if k not in ("adata", "network", "kwds")}
+        return launch_train(train, adata, network, {**kwargs, **kwds}, ranks)
     if checkpoint_every or resume or network.definition.debug:
         compiled = False  # as in the JAX package: the Python-epoch loop
     compiled = compiled != "auto" and bool(compiled)
@@ -518,11 +539,6 @@ def train(
         # JAX package's train() gives them
         torch.set_num_threads(threads)
         native.set_threads(threads)
-    if stream and int(model_parallel or 1) > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel} on the streaming trainer (an input above "
-            "max_device_cells or DCA_TPU_DEVICE_BYTES) is not ported to dca_tpu_torch yet "
-            "(see ROADMAP.md)")
     if output_dir is not None:
         os.makedirs(output_dir, exist_ok=True)
 
@@ -540,20 +556,21 @@ def train(
     try:
         with _fit_trace(tb_dir if tb is not None else None, device) as trace:
             if stream:
-                return _train_streaming(
+                hist = _train_streaming(
                     adata, network, opt, lr, epochs=epochs, reduce_lr=reduce_lr,
                     early_stop=early_stop, batch_size=batch_size,
                     validation_split=validation_split, use_raw_as_output=use_raw_as_output,
                     output_subset=output_subset, seed=seed, verbose=verbose,
                     max_device_cells=max_device_cells or 131072, mesh=mesh,
                     graphs=_graphs, tb=tb_dir is not None, trace=trace, **artefacts)
-            hist = _train_in_memory(
-                adata, network, opt, lr, mesh, epochs=epochs, reduce_lr=reduce_lr,
-                early_stop=early_stop, batch_size=batch_size,
-                validation_split=validation_split, use_raw_as_output=use_raw_as_output,
-                output_subset=output_subset, seed=seed, verbose=verbose, graphs=_graphs,
-                tb=tb_dir is not None, trace=trace, compiled=compiled, perms=_perms,
-                **artefacts)
+            else:
+                hist = _train_in_memory(
+                    adata, network, opt, lr, mesh, epochs=epochs, reduce_lr=reduce_lr,
+                    early_stop=early_stop, batch_size=batch_size,
+                    validation_split=validation_split, use_raw_as_output=use_raw_as_output,
+                    output_subset=output_subset, seed=seed, verbose=verbose, graphs=_graphs,
+                    tb=tb_dir is not None, trace=trace, compiled=compiled, perms=_perms,
+                    **artefacts)
             if network.mesh is not None:
                 gather_params(network, network.mesh)
             return hist
@@ -918,7 +935,10 @@ class _PartSlot:
     """One of the streaming trainer's two part buffers: x, t and sf of up
     to ``rows`` cells at fixed addresses, which the captured steps read.
     ``x_flat``/``t_flat`` hold one spare last element that takes the device
-    scatters' padding (``ops/densify.py``).
+    scatters' padding (``ops/densify.py``).  The rows are staged whole;
+    ``x``/``t`` are the columns ``cols_in``/``cols_out`` ([lo, hi)) of
+    them that the step reads, a model-parallel rank's gene block, all of
+    them by default.
 
     Hand-over: the staging side takes ``free`` (released by the main
     thread once it has enqueued the part's last reader) and, on a CUDA
@@ -928,16 +948,21 @@ class _PartSlot:
     reads a part still being written, and no part is overwritten while a
     replay still reads it."""
 
-    def __init__(self, rows, g_in, g_out, device):
+    def __init__(self, rows, g_in, g_out, device, cols_in=None, cols_out=None):
         self.x_flat = torch.zeros(rows * g_in + 1, device=device)
         self.t_flat = torch.zeros(rows * g_out + 1, device=device)
         self.sf = torch.ones(rows, device=device)
-        self.x = self.x_flat[:rows * g_in].view(rows, g_in)
-        self.t = self.t_flat[:rows * g_out].view(rows, g_out)
+        self.x = self.x_flat[:rows * g_in].view(rows, g_in)[:, slice(*(cols_in or (0, g_in)))]
+        self.t = self.t_flat[:rows * g_out].view(rows, g_out)[:, slice(*(cols_out or (0, g_out)))]
         self.free = threading.Semaphore(1)
         self.cuda = device.type == "cuda"
         self.ready = None
         self.done = torch.cuda.Event() if self.cuda else None
+
+    def head(self, k):
+        """(x, sf, t) of the first ``k`` staged rows, x and t contiguous
+        (a gene block is copied out of the whole rows)."""
+        return self.x[:k].contiguous(), self.sf[:k], self.t[:k].contiguous()
 
 
 class _Task(NamedTuple):
@@ -950,42 +975,43 @@ class _Task(NamedTuple):
     rows: np.ndarray
 
 
-def _stream_tasks(tr, va, perm, bs, rank=0, world=1):
+def _stream_tasks(tr, va, perm, bs, data_index=0, n_data=1):
     """An epoch's staging schedule: the train parts, the full batches of
     each chunk apart from its trailing rows, then the validation chunks.
-    Each rank stages its block of each batch of a train part
-    (``parallel.step.part_rows``), of the trailing batch too, where its
-    share may be empty; a validation chunk is padded to a multiple of the
-    ranks with copies of its first row (weight 0, ``_val_weights``) and
-    each rank stages its block.  One rank stages every row."""
+    Data index ``data_index`` of ``n_data`` stages its block of each batch of a
+    train part (``parallel.step.part_rows``), of the trailing batch too,
+    where its share may be empty; a validation chunk is padded to a
+    multiple of the data indices with copies of its first row (weight 0,
+    ``_val_weights``) and each stages its block.  One data index stages
+    every row."""
     tasks = []
     for idx in tr.index_chunks(perm):
         nb = len(idx) // bs
         if nb > 0:
             full = idx[:nb * bs]
-            tasks.append(_Task("full", tr, len(full), part_rows(full, bs, rank, world)))
+            tasks.append(_Task("full", tr, len(full), part_rows(full, bs, data_index, n_data)))
         if len(idx) > nb * bs:
             trail = idx[nb * bs:]
             tasks.append(_Task("rem", tr, len(trail),
-                               part_rows(trail, len(trail), rank, world)))
+                               part_rows(trail, len(trail), data_index, n_data)))
     if va is not None:
         for idx in va.index_chunks(np.arange(va.n)):
-            padded = _pad_rows(idx, (-len(idx)) % world)
+            padded = _pad_rows(idx, (-len(idx)) % n_data)
             tasks.append(_Task("val", va, len(idx),
-                               part_rows(padded, len(padded), rank, world)))
+                               part_rows(padded, len(padded), data_index, n_data)))
     return tasks
 
 
-def _val_weights(n, rank, world):
-    """This rank's sample weights of a validation chunk of ``n`` rows
-    padded to a multiple of the ranks (1, and 0 on the padding), or None
-    where the chunk needs no padding."""
-    pad = (-n) % world
+def _val_weights(n, data_index, n_data):
+    """Data index ``data_index``'s sample weights of a validation chunk of
+    ``n`` rows padded to a multiple of the ``n_data`` data indices (1, and 0 on
+    the padding), or None where the chunk needs no padding."""
+    pad = (-n) % n_data
     if pad == 0:
         return None
     w = np.ones(n + pad, np.float32)
     w[n:] = 0.0
-    return part_rows(w, n + pad, rank, world)
+    return part_rows(w, n + pad, data_index, n_data)
 
 
 def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, batch_size,
@@ -1014,13 +1040,18 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     ``network.loss_fn``; every loss stays on the device until the epoch's
     one read-back.
 
-    Over a ``mesh`` of data-parallel ranks (the JAX package's
-    multi-process staging, one process per device; ``parallel/mesh.py``,
-    no model axis here) every rank draws the same permutation, and
-    stages, materializes and uploads only the rows it computes on: its
-    block of each batch of each part (``_stream_tasks``), into part
-    buffers sized for its share, so ``max_device_cells`` still counts the
-    cells of a part and every part's batches are the single-process fit's.
+    Over a ``mesh`` of ranks (the JAX package's multi-process staging, one
+    process per device; ``parallel/mesh.py``) every rank draws the same
+    permutation, and stages, materializes and uploads only the rows it
+    computes on: its data index's block of each batch of each part
+    (``_stream_tasks``), into part buffers sized for its share, so
+    ``max_device_cells`` still counts the cells of a part and every part's
+    batches are the single-process fit's.  With a model axis the M ranks
+    of a data index stage the same rows, whole as the JAX package stages
+    them (``P('data', None)``), and each steps on its gene block of the
+    input's and the target's columns (``Mesh.gene_block``, views of the
+    part buffer), holding its gene shard of the network
+    (``place_train_state``); the fit gathers the network whole after it.
     Its ``StepBuffers.perm`` places its block of each batch in its buffer
     (``parallel/step.py::stream_places``), and the data-parallel step sums
     BatchNorm's statistics, the loss pair and the gradients over the
@@ -1029,10 +1060,10 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     empty; the JAX package stages it whole on every process, because its
     one program partitions the rows itself, where each rank here computes
     its own block.  A validation chunk is padded to a multiple of the
-    ranks with copies of its first row at weight 0 and each rank evaluates
-    its block through the weighted loss (K1w on a card), unweighted (K1)
-    where the chunk divides the ranks; the losses are summed over the
-    ranks once an epoch, in its one read-back.  The steps run eagerly, as
+    data indices with copies of its first row at weight 0 and each rank
+    evaluates its block through the weighted loss (K1w on a card),
+    unweighted (K1) where the chunk divides them; the losses are summed
+    over the ranks once an epoch, in its one read-back.  The steps run eagerly, as
     the in-memory data-parallel fit's (their collectives are not
     captured); the prefetch thread stages and uploads, which takes no
     collective, and the main thread alone issues the collectives, in the
@@ -1067,7 +1098,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     without a split on the last staged train part, as in the JAX package,
     while the part is in its buffer: after its last step or its loss and
     before the buffer is handed back to the staging; under a group on this
-    rank's block (with its weights), summed over the ranks.  ``tb``: take
+    rank's block (with its weights), summed over the ranks, and with the
+    weights' histograms gathered whole over the model axis.  ``tb``: take
     them (on every rank; ``tb_log``, the primary rank's logger, writes)."""
     device = network.device
     cuda = device.type == "cuda"
@@ -1090,11 +1122,12 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     chunk = max((min(max_device_cells, split_at) // bs) * bs, bs)
     dev_densify = use_device_densify(device)
     group = None if mesh is None else mesh.world
-    rank, world = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
-    if world > bs:
+    # the rows go by data index: the M ranks of one stage the same rows
+    data_index, n_data = (0, 1) if mesh is None else (mesh.data_index, mesh.n_data)
+    if n_data > bs:
         raise ValueError(f"streaming under a process group needs batch_size >= the number of "
-                         f"ranks ({world}); got batch_size {bs}: data parallelism needs at "
-                         "least one row per rank per batch")
+                         f"ranks on the data axis ({n_data}); got batch_size {bs}: data "
+                         "parallelism needs at least one row per rank per batch")
     # a rank stages (B, K) slabs of its own rows: the padded payload
     pmode = "padded" if group is not None else "auto"
 
@@ -1152,12 +1185,13 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     bufs = StepBuffers.create(n_train, bs, lr, device)
     n_full = bufs.n_full
     rem = n_train - n_full * bs
-    bufs.perm.copy_(torch.from_numpy(stream_places(n_train, bs, chunk, rank, world)))
+    bufs.perm.copy_(torch.from_numpy(stream_places(n_train, bs, chunk, data_index, n_data)))
     # the epoch's schedule, but for the row orders, is the same every
     # epoch: the buffers take this rank's largest part, and each (part
     # buffer, kind) it uses is captured once
-    schedule = _stream_tasks(tr, va, np.arange(n_train), bs, rank, world)
-    slots = [_PartSlot(max(len(t.rows) for t in schedule), g_in, g_out, device)
+    schedule = _stream_tasks(tr, va, np.arange(n_train), bs, data_index, n_data)
+    cols = (None, None) if mesh is None else (mesh.gene_block(g_in), mesh.gene_block(g_out))
+    slots = [_PartSlot(max(len(t.rows) for t in schedule), g_in, g_out, device, *cols)
              for _ in range(2)]
     train_step = make_sharded_train_step(network, opt, mesh)
     kinds = {(i % 2, t.kind == "rem") for i, t in enumerate(schedule) if t.kind != "val"}
@@ -1328,15 +1362,15 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
 
     # the validation chunks' weights on the device, by part: the same
     # every epoch
-    val_w = {pi: torch.from_numpy(_val_weights(t.n, rank, world)).to(device)
-             for pi, t in enumerate(schedule) if t.kind == "val" and t.n % world}
+    val_w = {pi: torch.from_numpy(_val_weights(t.n, data_index, n_data)).to(device)
+             for pi, t in enumerate(schedule) if t.kind == "val" and t.n % n_data}
     try:
         for epoch in range(start_epoch, epochs):
             t_ep = time.perf_counter()
             perm = rng_np.permutation(n_train)
             bufs.lr.fill_(cbs.lr)
             bufs.step_i.zero_()
-            tasks = _stream_tasks(tr, va, perm, bs, rank, world)
+            tasks = _stream_tasks(tr, va, perm, bs, data_index, n_data)
             if tl is not None:
                 tl.epoch = epoch
             val_losses, val_rows = [], []
@@ -1352,7 +1386,7 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 start = tl.start_event() if tl is not None else None
                 k, w, shard = len(rows), val_w.get(pi), None
                 if group is not None:
-                    shard = (batch_shard(mesh, k * world) if kind == "val"
+                    shard = (batch_shard(mesh, k * n_data) if kind == "val"
                              else held_shard(mesh, n_rows, k))
                 if kind == "full":
                     run((pi % 2, False), n_rows // bs)
@@ -1360,12 +1394,12 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                     run((pi % 2, True))
                 else:
                     with torch.no_grad():
-                        loss, _ = network.loss_fn(slot.x[:k], slot.sf[:k], slot.t[:k], False,
-                                                  sample_weights=w, shard=shard)
+                        loss, _ = network.loss_fn(*slot.head(k), False, sample_weights=w,
+                                                  shard=shard)
                     val_losses.append(loss.detach().reshape(1))
                     val_rows.append(n_rows)
                 if pi == grad_part:
-                    grads = _tb_grads(network, slot.x[:k], slot.sf[:k], slot.t[:k], w, shard)
+                    grads = _tb_grads(network, *slot.head(k), w, shard)
                 if tl is not None:
                     tl.device_span(pi, kind, "device", t0, start)
                 if cuda:
@@ -1406,11 +1440,14 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 if has_val:
                     msg += f" - val_loss: {val_loss:.4f}"
                 print(msg + f" - lr: {cbs.lr:.2e} [streaming]")
-            if tb_log is not None:
+            if tb:
                 t_tb = time.perf_counter()
-                tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr,
-                                     "val_loss": val_loss if has_val else None},
-                             flatten_tree(network.trees()[0]), grads or {})
+                # whole over the model axis: a collective every rank calls
+                weights = network.whole_named(flatten_tree(network.trees()[0]))
+                if tb_log is not None:
+                    tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr,
+                                         "val_loss": val_loss if has_val else None},
+                                 weights, grads or {})
                 hist.tb_s.append(time.perf_counter() - t_tb)
             stop = cbs.end_epoch(epoch, monitor)
             if ckpts is not None:

@@ -35,8 +35,9 @@ cases in another (2 x 2):
   (h) the CLI under ``torchrun --standalone --nproc-per-node 2 ...
       --devices all --modelparallel 2``: rank 0 alone prints and writes,
       and mean.tsv is within rtol 1e-4 of the one-process CLI's;
-  (i) the streaming trainer under model parallelism raises naming
-      ROADMAP.md;
+  (i) the streaming trainer under model parallelism trains on a 1 x 2
+      grid that ``dca`` starts from this process (its comparison with JAX:
+      tests/test_torch_stream_model_parallel.py);
   (j) a rank's many fits in one process group make the grid's data and
       model groups once.
 
@@ -500,13 +501,22 @@ def test_cli_under_torchrun_writes_on_rank_0_alone(tmp_path):
     assert sorted(os.listdir(tmp_path / "mp")) == sorted(os.listdir(tmp_path / "one"))
 
 
-def test_streaming_under_model_parallelism_is_refused_naming_the_roadmap():
+def test_streaming_under_model_parallelism_is_refused_naming_the_roadmap(capsys):
+    """Refused here before; now the streamed fit (parts of at most 8 cells)
+    runs on a 1 x 2 grid, here of two ranks that ``dca`` starts from this
+    process, and leaves the whole network (its comparison with the JAX
+    package: tests/test_torch_stream_model_parallel.py)."""
     from dca_tpu_torch import dca
     from dca_tpu_torch.data.adata import AnnData
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dca(AnnData(_counts()), epochs=1, devices="all", model_parallel=2, device="cpu",
-            training_kwds={"max_device_cells": 8})
+    ret, net = dca(AnnData(_counts()), epochs=2, devices=2, model_parallel=2, device="cpu",
+                   hidden_size=(8, 4, 8), verbose=True, copy=True, return_info=True,
+                   return_model=True, training_kwds={"max_device_cells": 8})
+    assert capsys.readouterr().out.count("[streaming]") == 2
+    hist = ret.uns["dca_loss_history"]
+    assert len(hist["loss"]) == 2 and np.isfinite(hist["loss"] + hist["val_loss"]).all()
+    assert net.model.state_dict()["trunk.enc0.kernel"].shape == (16, 8)
+    assert net.mesh is None and not torch.distributed.is_initialized()
 
 
 if __name__ == "__main__":

@@ -325,11 +325,18 @@ def test_model_parallel_is_refused_naming_the_roadmap(tmp_path):
 
 
 def test_several_devices_without_a_group_are_refused(tmp_path):
+    """Refused here before; now two devices without a process group start
+    their ranks from this process (``parallel/launch.py``, two gloo ranks
+    on the CPU), which alone predicts, and tear their group down after the
+    fit (tests/test_torch_launch.py holds them against the JAX mesh)."""
     from dca_tpu_torch import dca
 
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dca(_tiny_adata(), epochs=1, devices=2, device="cpu")
+    ret = dca(_tiny_adata(), epochs=1, devices=2, device="cpu", hidden_size=(8, 4, 8),
+              copy=True, return_info=True)
+    assert not torch.distributed.is_initialized()
+    assert len(ret.uns["dca_loss_history"]["loss"]) == 1
+    assert ret.X.shape == (40, 16) and np.isfinite(ret.X).all()
 
 
 def test_nccl_ranks_sharing_a_device_are_refused(monkeypatch):
@@ -341,7 +348,7 @@ def test_nccl_ranks_sharing_a_device_are_refused(monkeypatch):
                  ("LOCAL_WORLD_SIZE", "2"), ("MASTER_ADDR", "localhost"),
                  ("MASTER_PORT", "1")):
         monkeypatch.setenv(k, v)
-    with pytest.raises(RuntimeError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="refuses ranks that share a device"):
         multihost.initialize()
     assert not torch.distributed.is_initialized()
 

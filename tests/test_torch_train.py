@@ -171,13 +171,22 @@ def test_cli_prelu_adam_on_cpu(input_tsv, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--modelparallel", "2"]])
-def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags):
-    """Two devices in one process are not ported (ROADMAP.md);
-    --modelparallel without --devices raises with the message of the JAX
-    package's resolve_mesh assertion."""
-    match = "ROADMAP.md" if "--devices" in flags else "requires devices="
-    with pytest.raises((ValueError, NotImplementedError), match=match):
-        main([input_tsv, str(tmp_path / "out"), "-e", "1", "--device", "cpu", *flags])
+def test_cli_refuses_what_is_not_ported(input_tsv, tmp_path, flags, capsys):
+    """--devices 2 without torchrun, refused here before, trains now on two
+    ranks that the run starts from this process (``parallel/launch.py``;
+    two gloo ranks with --device cpu), and this process alone writes;
+    --modelparallel without --devices still raises with the message of the
+    JAX package's resolve_mesh assertion."""
+    out = str(tmp_path / "out")
+    if "--modelparallel" in flags:
+        with pytest.raises(ValueError, match="requires devices="):
+            main([input_tsv, out, "-e", "1", "--device", "cpu", *flags])
+        return
+    main([input_tsv, out, "-e", "1", "-s", "16,8,16", "--device", "cpu", *flags])
+    assert "Epoch 1/1" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
+    df = pd.read_csv(os.path.join(out, "mean.tsv"), sep="\t", index_col=0)
+    assert df.shape == (20, 60) and np.isfinite(df.to_numpy()).all()
 
 
 def _artefacts(out):
@@ -240,22 +249,26 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path, input_t
 
 
 @pytest.mark.parametrize("kwds", [{"model_parallel": 2}], ids=str)
-def test_train_refuses_paths_not_ported_by_name(kwds, monkeypatch):
-    """The JAX package's train keywords for paths the port lacks raise
-    NotImplementedError naming ROADMAP.md; through dca(training_kwds=...)
-    too.  What is left is model parallelism on the streaming trainer,
-    which DCA_TPU_DEVICE_BYTES=1 sends this input to.  (compiled=True,
-    refused here before, trains now, see
-    test_compiled_trains_through_both_entry_points; model parallelism in
-    memory: tests/test_torch_model_parallel.py.)"""
+def test_train_refuses_paths_not_ported_by_name(kwds, monkeypatch, capsys):
+    """No path of the JAX package's train is refused by name any more: the
+    last, model parallelism on the streaming trainer (which
+    DCA_TPU_DEVICE_BYTES=1 sends this input to), trains now
+    (tests/test_torch_stream_model_parallel.py).  What raises is what the
+    JAX package refuses too: model_parallel without devices, with its
+    resolve_mesh assertion's message, through dca(training_kwds=...) too;
+    with devices="all" and no process group the streamed fit runs on its
+    one rank."""
     monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", "1")
     adata = io.normalize(io.read_dataset(AnnData(make_counts(40, 10, seed=3))))
     net = NBAutoencoder(input_size=10, hidden_size=(8, 4, 8), device="cpu").build()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="requires devices="):
         train(adata, net, epochs=1, verbose=False, **kwds)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="requires devices="):
         dca_tpu_torch.dca(AnnData(make_counts(40, 10, seed=3)), epochs=1, device="cpu",
                           hidden_size=(8, 4, 8), training_kwds=kwds)
+    hist = train(adata, net, epochs=2, verbose=True, devices="all")
+    assert capsys.readouterr().out.count("[streaming]") == 2
+    assert len(hist.history["loss"]) == 2 and np.isfinite(hist.history["val_loss"]).all()
 
 
 def test_compiled_trains_through_both_entry_points():
