@@ -4,6 +4,17 @@ host, one rank per card over NCCL.
 
     python3 chip_dp.py [n_cards]     # default: every visible card
 
+First the graph pairs (``phase_graph_pairs``): over NCCL each rank
+replays its sharded step from CUDA graphs (``train/graphs.py``), and each
+grid is fitted both ways in this one call, captured and eager
+(``_graphs=False``), on spawned ranks, and again launched from this
+process (``parallel/launch.py``): the n x 1 grid in memory (zinb-conddisp 3
+epochs at 3451 genes), the 2 x 2 and 1 x 4 grids at MP_GENES, and the
+streamed 2 x 2 grid (parts of 512, 2 epochs, host tier): the same bits
+captured and eager, spawned and launched, each rank's launches its
+schedule's (the captured fits with their warm-ups), the first and steady
+epochs and capture seconds printed.  Then:
+
 Trains zinb-conddisp (64-32-64, batch 32) on ``chip_smoke.py``'s 2730 x
 3451 Paul15-shaped matrix on one card in this process, 2 epochs through
 ``chip_smoke.py``'s phase 4 (the steps replayed from CUDA graphs, and
@@ -30,7 +41,7 @@ block of 8 rows otherwise than the whole batch of 32 (at 2 ranks phase 7
 measured 4e-4 to 8e-4).  Then a 1-epoch streamed fit at BIG_CELLS x 3451
 (``chip_smoke.synthetic_sparse_counts``, ~10% nonzero) with parts of
 BIG_PART cells through the padded-payload tier, on one card (the steps
-replayed from CUDA graphs) and on ``n_cards`` ranks over NCCL (eager):
+replayed from CUDA graphs) and on ``n_cards`` ranks over NCCL (replayed too):
 each epoch's time, the same history on every rank, the loss within rtol
 1e-3 of the one card's and val_loss within rtol 1e-2, and the launches of
 each rank and of the one card exactly those of the schedule.  Then
@@ -57,15 +68,23 @@ here imports JAX or the JAX package.
     python3 chip_dp.py [n_cards] --launch-checks
 
 runs only the launcher's checks over NCCL (``phase_launch_checks``): a
-launched fit whose rank 1 dies, and one whose rank 1 stops answering,
-each from a child process that must survive, raise and leave nothing
-running; then the launched streamed 2 x 2 fit and the one-card
-``_one_card`` fit with ``threads`` 1 and the caller's default count, for
-their epoch times.
+launched fit whose rank 1 dies, and one whose rank 1 stops answering
+(rank 0 then waits in a collective), each from a child
+process that must survive, raise ``LaunchError`` naming rank 1 within
+FAIL_TIMEOUT + 30 s of rank 0's epoch 2, leave nothing running and then
+train a next launched fit.  The two children run at once, each on two
+cards of its own (``CUDA_VISIBLE_DEVICES``), so four cards are needed.
+
+    python3 chip_dp.py [n_cards] --thread-timings
+
+runs the launched streamed 2 x 2 fit and the one-card ``_one_card`` fit
+with ``threads`` 1 and the caller's default count, for their epoch times
+(``thread_timings``).
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import signal
@@ -133,7 +152,7 @@ def phase_big_stream(n):
     cs._check(one["launches"] == want_one, f"the large streamed fit on one card launched "
               f"{one['launches']}, expected {want_one}")
     for rk, res in enumerate(ranks):
-        want = cs.want_group_stream_launches(1, BIG_CELLS, BIG_PART, n, rk)
+        want = cs.want_group_stream_launches(1, BIG_CELLS, BIG_PART, n, rk, captured=True)
         cs._check(res["history"] == ranks[0]["history"]
                   and bool(np.isfinite(res["history"]["loss"] + res["history"]["val_loss"]).all()),
                   f"the large streamed fit: rank {rk}'s history {res['history']}, rank 0's "
@@ -150,10 +169,162 @@ def phase_big_stream(n):
     return one, ranks
 
 
+PAIR_EPOCHS = 3  # the in-memory fits of the graph pairs
+PAIR_TIMEOUT = 900  # seconds for the spawned ranks of the graph pairs, start-up included
+
+
+def pair_configs(n):
+    """The graph pairs' fits on ``n`` ranks: {name: (genes, model_parallel,
+    streamed)}: the data-parallel grid n x 1 at 3451 genes, the grids (n /
+    M) x M at MP_GENES for M = 2 and 4 where M divides n, and the streamed
+    (n / 2) x 2 grid at MP_GENES."""
+    out = {f"{n}x1 in memory": (3451, 1, False)}
+    for m in (2, 4):
+        if n % m == 0:
+            out[f"{n // m}x{m} in memory at {MP_GENES} genes"] = (MP_GENES, m, False)
+    if n % 2 == 0:
+        out[f"streamed {n // 2}x2 at {MP_GENES} genes"] = (MP_GENES, 2, True)
+    return out
+
+
+def _pair_fit(counts, model, streamed, graphs, devices):
+    """One fit of the graph pairs: zinb-conddisp 64-32-64 on ``counts`` over
+    ``devices`` ("all" on a spawned rank, n from this process) on a grid of
+    ``model`` columns, in memory through ``dca()`` for PAIR_EPOCHS or
+    streamed through ``train()`` (host tier, parts of STREAM_MAX_CELLS,
+    DP_STREAM_EPOCHS) from ``_stream_state``'s weights, its steps captured
+    (``graphs``) or eager (``_graphs=False``); {history, this rank's
+    launches, epoch seconds, capture seconds, the digest of the final
+    parameters (whole on every rank)}."""
+    import hashlib
+
+    import torch
+
+    from dca_tpu_torch.ops import fused_loss as fl
+
+    dev = torch.device("cuda")
+    if streamed:
+        with cs._switches(cs.STREAM_TIERS["host"]):
+            hist, launches, net = cs._stream_fit(
+                dev, cs._lazy_adata(counts), cs._stream_state(dev, counts.shape[1]),
+                cs.DP_STREAM_EPOCHS, verbose=False, devices=devices, model_parallel=model,
+                max_device_cells=cs.STREAM_MAX_CELLS, _graphs=graphs)
+    else:
+        fl.reset_launches()
+        _, net, hist = cs._mp_fit(counts, "zinb-conddisp", PAIR_EPOCHS, devices=devices,
+                                  model_parallel=model, training_kwds={"_graphs": graphs})
+        launches = dict(fl.launches)
+    torch.cuda.synchronize()
+    digest = hashlib.sha1(b"".join(v.detach().cpu().numpy().tobytes()
+                                   for v in net.model.state_dict().values())).hexdigest()
+    return {"history": hist.history, "launches": launches, "epoch_s": hist.epoch_s,
+            "capture_s": hist.capture_s, "params": digest}
+
+
+def _pair_rank(rank, world, port, out_dir):
+    """One spawned rank of the graph pairs, on its card over NCCL: each fit
+    of ``pair_configs``, captured then eager."""
+    import torch
+
+    from dca_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", world, rank, backend="nccl")
+    counts = cs.make_paul15_like()
+    res = {}
+    for name, (genes, model, streamed) in pair_configs(world).items():
+        for graphs in (True, False):
+            res[f"{name} {'captured' if graphs else 'eager'}"] = _pair_fit(
+                counts[:, :genes], model, streamed, graphs, "all")
+    with open(os.path.join(out_dir, f"pairs{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _want_pair(n, model, streamed, rank, graphs):
+    """Rank ``rank``'s K1/K2 launches in a pair fit on ``n`` ranks."""
+    n_data = n // model
+    if streamed:
+        return cs.want_group_stream_launches(cs.DP_STREAM_EPOCHS, 2730, cs.STREAM_MAX_CELLS,
+                                             n_data, rank // model, captured=graphs)
+    return cs.want_mp_launches("zinb", PAIR_EPOCHS, 2730, n_data, rank // model,
+                               captured=graphs)
+
+
+def phase_graph_pairs(n, cards):
+    """The sharded step replayed from CUDA graphs over NCCL against the same
+    step eager, in one call: each fit of ``pair_configs(n)``, captured and
+    eager, on ``n`` spawned ranks (a card a rank) and launched from this
+    process (``dca(devices=n)``/``train(devices=n)``).  Held, after every
+    fit has run and printed: captured and
+    eager the same bits (the histories, and the digest of the final
+    parameters), spawned and launched the same bits, a capture recorded
+    where the fit replays (the captured fits) and none elsewhere,
+    the histories the same on every spawned rank, each spawned rank's launches
+    (and the launched rank 0's) those of its schedule, the captured ones
+    with their warm-ups (``want_mp_launches``,
+    ``want_group_stream_launches``).  Prints each fit's first and steady
+    epochs (the best of the epochs after the first) and capture seconds.
+    Returns {fit: {spawned: rank 0's result, launched: this process's}}."""
+    out_dir = os.path.join(cs.OUT_DIR, "pairs")
+    os.makedirs(out_dir, exist_ok=True)
+    os.makedirs(LOG_DIR, exist_ok=True)
+    cs.run_ranks(_pair_rank, n, (out_dir,), PAIR_TIMEOUT, "the graph pairs")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"pairs{r}.json")) as f:
+            ranks.append(json.load(f))
+    counts = cs.make_paul15_like()
+    launched = {}
+    for name, (genes, model, streamed) in pair_configs(n).items():
+        for graphs in (True, False):
+            launched[f"{name} {'captured' if graphs else 'eager'}"] = _pair_fit(
+                counts[:, :genes], model, streamed, graphs, n)
+    out, bad = {}, []
+    for name, (genes, model, streamed) in pair_configs(n).items():
+        fits = {}
+        for how, res in (("spawned", ranks[0]), ("launched", launched)):
+            for mode in ("captured", "eager"):
+                fits[(how, mode)] = res[f"{name} {mode}"]
+        base = fits[("spawned", "eager")]
+        for (how, mode), f in fits.items():
+            ep = [t * 1e3 for t in f["epoch_s"]]
+            cap = "none" if f["capture_s"] is None else f"{f['capture_s']:.3f} s"
+            print(f"graph pair {name}, {how} {mode} ({n} cards over NCCL): first epoch "
+                  f"{ep[0]:.1f} ms, steady {min(ep[1:]):.1f} ms (epochs "
+                  f"{[round(t, 1) for t in ep]}), capture {cap}; "
+                  f"rank 0's launches { {k: v for k, v in f['launches'].items() if v} }; "
+                  f"the eager spawned fit's bits: "
+                  f"{f['history'] == base['history'] and f['params'] == base['params']}; "
+                  f"cards: {'; '.join(cards[:n])}")
+            if f["history"] != base["history"] or f["params"] != base["params"]:
+                bad.append(f"{name}: {how} {mode} history {f['history']} (parameters "
+                           f"{f['params']}) is not the eager spawned fit's {base['history']} "
+                           f"({base['params']})")
+            replays = mode == "captured"
+            if (f["capture_s"] is not None) != replays:
+                bad.append(f"{name}: {how} {mode} capture_s {f['capture_s']}")
+            want = _want_pair(n, model, streamed, 0, replays)
+            if f["launches"] != want:
+                bad.append(f"{name}: {how} {mode} rank 0 launched {f['launches']}, expected "
+                           f"{want}")
+        for rk, res in enumerate(ranks[1:], 1):
+            for mode in ("captured", "eager"):
+                f = res[f"{name} {mode}"]
+                want = _want_pair(n, model, streamed, rk, mode == "captured")
+                if f["history"] != base["history"] or f["launches"] != want:
+                    bad.append(f"{name}: spawned rank {rk} {mode}: history {f['history']}, "
+                               f"launches {f['launches']} (expected {want})")
+        out[name] = {f"{how} {mode}": f for (how, mode), f in fits.items()}
+    with open(os.path.join(LOG_DIR, "graph_pairs.json"), "w") as f:
+        json.dump({"fits": out, "bad": bad, "cards": cards[:n]}, f)
+    cs._check(not bad, "the graph pairs: " + "; ".join(bad))
+    return out
+
+
 def _print_mp(mp, n, cards):
     for key, v in mp.items():
         print(f"zinb-conddisp 2730 x {MP_GENES} epoch on the grid {key.split('-', 2)[-1]} "
-              f"({n} cards over NCCL, eager): {[round(t * 1e3, 1) for t in v['epoch_s']]} ms "
+              f"({n} cards over NCCL, CUDA graphs): {[round(t * 1e3, 1) for t in v['epoch_s']]} ms "
               f"on rank 0, against {[round(t * 1e3, 1) for t in v['one_card_epoch_s']]} ms "
               f"on one card (CUDA graphs); per-rank launches "
               f"{[{k: c for k, c in r.items() if c} for r in v['launches']]}; largest "
@@ -179,7 +350,8 @@ loop._FitCallbacks.end_epoch = failing
 launch._worker_main(*(int(a) for a in sys.argv[1:4]))
 """
 FAIL_TIMEOUT = 30.0  # the launcher's timeout in the failure checks, seconds
-FAIL_LIMITS = {"dies": 150, "hangs": 120}  # seconds for each check's child process
+FAIL_LIMITS = {"dies": 150, "hangs": 180}  # seconds for each check's child process
+FAIL_CARDS = {"dies": "0,1", "hangs": "2,3"}  # the cards of each check's child
 
 
 def _live_children():
@@ -195,16 +367,29 @@ def _live_children():
 
 def failure_child(how, dev, n_ranks=2):
     """A launched fit (``train(devices=n_ranks)``, zinb-conddisp 2730 x
-    3451, 5 epochs) from this process whose rank 1 ``how`` ("dies",
-    "hangs") after epoch 2, with the launcher's timeout FAIL_TIMEOUT; then,
-    after "dies", a launched 1-epoch fit in the same process.  Returns
-    {the error's type and first lines, seconds to it, a group or children
-    left, the next fit's history, ok}."""
+    3451, 5 epochs, over NCCL) from this process whose rank 1 ``how``
+    ("dies", "hangs") after epoch 2, with the launcher's timeout
+    FAIL_TIMEOUT; then a launched 1-epoch fit in the same process.  Rank 0
+    meanwhile waits in an epoch 3 collective.  Returns {the error's type and first lines,
+    seconds to it from the call and from rank 0's end of epoch 2, a group
+    or children left, the next fit's history, ok}: ok for "dies" a
+    ``LaunchError`` naming rank 1's exit code, for "hangs" one naming rank
+    1 and its lack of progress within FAIL_TIMEOUT + 30 s of rank 0's
+    epoch 2."""
     import torch
 
     from dca_tpu_torch.parallel import launch
+    from dca_tpu_torch.train import loop
 
     launch.TIMEOUT_S = FAIL_TIMEOUT
+    ended = {}
+    end = loop._FitCallbacks.end_epoch
+
+    def timed(self, epoch, monitor):
+        ended[epoch] = time.perf_counter()
+        return end(self, epoch, monitor)
+
+    loop._FitCallbacks.end_epoch = timed
     script = FAILING_WORKER.replace("HOW", how)
     inner = launch.worker_command
     launch.worker_command = lambda rank, world, port: [sys.executable, "-c", script, str(port),
@@ -217,44 +402,55 @@ def failure_child(how, dev, n_ranks=2):
         cs._stream_fit(dev, adata, state, 5, verbose=False, devices=n_ranks)
     except Exception as e:  # what the caller sees
         err = e
-    out = {"how": how, "seconds": time.perf_counter() - t0,
+    t_err = time.perf_counter()
+    out = {"how": how, "seconds": t_err - t0,
+           "after_epoch_2_s": t_err - ended[1] if 1 in ended else None,
            "error": None if err is None else type(err).__name__,
            "message": "" if err is None else str(err)[:1500],
            "group_left": torch.distributed.is_initialized(), "children_left": _live_children()}
-    out["ok"] = (err is not None and not out["group_left"] and not out["children_left"]
-                 and out["seconds"] < 3 * FAIL_TIMEOUT)
-    if how == "dies":
-        out["ok"] = out["ok"] and isinstance(err, launch.LaunchError) and (
-            f"rank 1 of {n_ranks}" in out["message"] and "exited with code 3" in out["message"])
-        launch.worker_command = inner
-        hist, _, _ = cs._stream_fit(dev, adata, state, 1, verbose=False, devices=n_ranks)
-        out["next_fit"] = hist.history
-        out["ok"] = out["ok"] and bool(np.isfinite(hist.history["loss"]).all()) and (
-            not torch.distributed.is_initialized() and not _live_children())
+    what = "exited with code 3" if how == "dies" else f"made no progress for {FAIL_TIMEOUT:g} s"
+    out["ok"] = (isinstance(err, launch.LaunchError) and f"rank 1 of {n_ranks}" in out["message"]
+                 and what in out["message"] and not out["group_left"]
+                 and not out["children_left"] and out["after_epoch_2_s"] is not None
+                 and out["after_epoch_2_s"] < FAIL_TIMEOUT + 30)
+    launch.worker_command = inner
+    hist, _, _ = cs._stream_fit(dev, adata, state, 1, verbose=False, devices=n_ranks)
+    out["next_fit"] = hist.history
+    out["ok"] = out["ok"] and bool(np.isfinite(hist.history["loss"]).all()) and (
+        not torch.distributed.is_initialized() and not _live_children())
     return out
 
 
-def _run_failure_child(how):
-    """``failure_child(how)`` in its own interpreter and session: a caller
-    that the failure kills shows as the child's exit code, and whatever
-    the child leaves is killed with its session."""
+def _start_failure_child(how):
+    """``failure_child(how)`` in its own interpreter and session, on the
+    cards ``FAIL_CARDS[how]``, its output into files (no pipe to fill
+    while the other child is read): a caller that the failure kills shows
+    as the child's exit code, and whatever the child leaves is killed with
+    its session."""
+    os.makedirs(LOG_DIR, exist_ok=True)
     cmd = [sys.executable, os.path.abspath(__file__), "--failure-child", how]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=FAIL_CARDS[how])
+    with open(os.path.join(LOG_DIR, f"failure_{how}.out"), "w") as out, \
+            open(os.path.join(LOG_DIR, f"failure_{how}.err"), "w") as err:
+        return subprocess.Popen(cmd, stdout=out, stderr=err, stdin=subprocess.DEVNULL,
+                                start_new_session=True, env=env)
+
+
+def _end_failure_child(how, proc, t_end):
+    """The result of ``_start_failure_child(how)``'s ``proc``, killed at
+    ``t_end`` (monotonic seconds) if it has not ended."""
     try:
-        out, err = proc.communicate(timeout=FAIL_LIMITS[how])
-        rc = proc.returncode
+        rc = proc.wait(timeout=max(t_end - time.monotonic(), 1.0))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
-        out, err = proc.communicate()
+        proc.wait()
         rc = f"killed after {FAIL_LIMITS[how]} s"
     try:
         os.killpg(proc.pid, signal.SIGKILL)  # anything of the child's left
     except ProcessLookupError:
         pass
-    os.makedirs(LOG_DIR, exist_ok=True)
-    with open(os.path.join(LOG_DIR, f"failure_{how}.log"), "w") as f:
-        f.write(f"rc {rc}\n--- stdout\n{out}\n--- stderr\n{err}")
+    with open(os.path.join(LOG_DIR, f"failure_{how}.out")) as f:
+        out = f.read()
     lines = [ln for ln in out.splitlines() if ln.startswith("{")]
     res = json.loads(lines[-1]) if lines else {"ok": False}
     res["rc"] = rc
@@ -304,29 +500,44 @@ def thread_timings(dev, n_ranks, cards):
 
 
 def phase_launch_checks(n, cards):
-    """The launcher's failure checks over NCCL, then ``thread_timings``."""
-    import torch
-
-    failures = {how: _run_failure_child(how) for how in FAIL_LIMITS}
+    """The launcher's failure checks over NCCL, the two children at once on
+    cards of their own."""
+    cs._check(n >= 4, f"--launch-checks runs its two children on two cards each: {n} cards")
+    t0 = time.monotonic()
+    procs = {how: _start_failure_child(how) for how in FAIL_LIMITS}
+    failures = {how: _end_failure_child(how, proc, t0 + FAIL_LIMITS[how])
+                for how, proc in procs.items()}
     for how, res in failures.items():
-        print(f"launched fit whose rank 1 {how}: {json.dumps(res)}")
-    timings = thread_timings(torch.device("cuda"), n, cards)
+        print(f"launched fit whose rank 1 {how} (cards {FAIL_CARDS[how]}): {json.dumps(res)}")
     with open(os.path.join(LOG_DIR, "launch_checks.json"), "w") as f:
-        json.dump({"failures": failures, "threads": timings, "cards": cards[:n]}, f)
+        json.dump({"failures": failures, "cards": cards[:n]}, f)
     bad = [how for how, res in failures.items() if not res.get("ok")]
     cs._check(not bad, f"the launcher's failure checks {bad} failed: {failures}")
+
+
+def phase_thread_timings(n, cards):
+    """``thread_timings`` on the ``n`` cards, written beside the checks."""
+    import torch
+
+    timings = thread_timings(torch.device("cuda"), n, cards)
+    with open(os.path.join(LOG_DIR, "thread_timings.json"), "w") as f:
+        json.dump({"threads": timings, "cards": cards[:n]}, f)
 
 
 def main():
     import torch
 
     if sys.argv[1:2] == ["--failure-child"]:
+        # the threads' stacks on stderr (the child's log) if it is still
+        # running shortly before its limit
+        faulthandler.dump_traceback_later(FAIL_LIMITS[sys.argv[2]] - 15)
         cs.phase_build()
         res = failure_child(sys.argv[2], torch.device("cuda", 0))
         print(json.dumps(res))
         return 0 if res["ok"] else 1
-    checks = "--launch-checks" in sys.argv
-    sys.argv = [a for a in sys.argv if a != "--launch-checks"]
+    flags = {"--launch-checks": phase_launch_checks, "--thread-timings": phase_thread_timings}
+    only = [phase for flag, phase in flags.items() if flag in sys.argv]
+    sys.argv = [a for a in sys.argv if a not in flags]
     if not torch.cuda.is_available():
         print("chip_dp: no CUDA device; this script runs only on GPUs", file=sys.stderr)
         return 1
@@ -340,15 +551,18 @@ def main():
                             "--format=csv,noheader"], capture_output=True, text=True,
                            timeout=60).stdout.strip().splitlines()
     models = tuple(m for m in (1, 2, 4) if n % m == 0)
-    if checks:
+    if only:
         try:
             cs.phase_build()
-            phase_launch_checks(n, cards)
+            for phase in only:
+                phase(n, cards)
         except cs.SmokeFailure as e:
             print(f"chip_dp: FAILED: {e}", file=sys.stderr)
             return 1
         return 0
     try:
+        cs.phase_build()
+        phase_graph_pairs(n, cards)
         _, _, hist, _, tb = cs.phase_api("zinb-conddisp", 2, tensorboard=True)
         one = cs.epoch_timings(epochs=2)
         stream = cs.stream_reference(torch.device("cuda"))
@@ -357,7 +571,8 @@ def main():
                                     single_stream=stream)
         big_one, big = phase_big_stream(n)
         mp = cs.phase_model_parallel(n, "nccl", models=models, runs=MP_RUNS)
-        launched = cs.phase_launch(dp, mp, n_ranks=n, one_card=False, runs=MP_RUNS)
+        launched = cs.phase_launch(dp, mp, n_ranks=n, one_card=False,
+                                   runs=MP_RUNS)
     except cs.SmokeFailure as e:
         print(f"chip_dp: FAILED: {e}", file=sys.stderr)
         return 1
@@ -371,17 +586,17 @@ def main():
               f"{'; '.join(cards[:n])}")
     print(f"zinb-conddisp 2730 x 3451 epoch: on one card {min(one['graph']):.1f} ms from "
           f"CUDA graphs, {min(one['eager']):.1f} ms eager (the best of 3 fits each); "
-          f"{dp['per_epoch_s'] * 1e3:.1f} ms data parallel on {n} cards over NCCL (eager); "
+          f"{dp['per_epoch_s'] * 1e3:.1f} ms data parallel on {n} cards over NCCL (CUDA graphs); "
           f"cards: {'; '.join(cards[:n])}")
     for tier, ep in dp["stream"]["epoch_s"].items():
         print(f"streamed 2730 x 3451 epoch, parts of {cs.STREAM_MAX_CELLS} ({tier} tier): "
               f"{[round(t * 1e3, 1) for t in stream['epoch_s']]} ms on one card from CUDA "
-              f"graphs, {[round(t * 1e3, 1) for t in ep]} ms on {n} cards over NCCL (eager)")
+              f"graphs, {[round(t * 1e3, 1) for t in ep]} ms on {n} cards over NCCL (CUDA graphs)")
     rel = {k: abs(big[0]["history"][k][0] / big_one["history"][k][0] - 1.0)
            for k in ("loss", "val_loss")}
     print(f"streamed {BIG_CELLS} x 3451 epoch, parts of {BIG_PART} (padded payloads): "
           f"{big_one['epoch_s'][0]:.3f} s on one card from CUDA graphs, "
-          f"{big[0]['epoch_s'][0]:.3f} s on {n} cards over NCCL (eager, rank 0); loss "
+          f"{big[0]['epoch_s'][0]:.3f} s on {n} cards over NCCL (CUDA graphs, rank 0); loss "
           f"{big_one['history']['loss']} / {big[0]['history']['loss']}, val_loss "
           f"{big_one['history']['val_loss']} / {big[0]['history']['val_loss']} (relative "
           f"differences {rel['loss']:.2e}, {rel['val_loss']:.2e}); launches "

@@ -200,7 +200,12 @@ Phases, each of which must pass:
    group left; its start-up and shared bytes printed.  A rank that fails
    or outlives its time limit fails the phase.  The data-parallel and
    model-parallel epoch times are printed: two ranks sharing one card
-   measure no scaling.
+   measure no scaling.  These ranks share the card over gloo, so their
+   steps run eagerly (gloo's collectives cannot be captured); over NCCL
+   (``chip_dp.py``, phase 14) the same steps are replayed from CUDA
+   graphs, and each fit then launches K1/K2 once more for each captured
+   step's warm-up (``want_mp_launches``, ``want_group_stream_launches``
+   with ``captured``).
 
 8. The native IO tier (``dca_tpu_torch/native``, g++ at first use) must
    build on the card's host; ``read_text`` of the 3451 x 2730 gene x cell
@@ -329,7 +334,22 @@ Phases, each of which must pass:
    times; and the one-card ``dca()`` compiled fit on the first 2720 cells
    that phase 7 holds its ranks to.
 
-The phases run in the order 1-3, 13, 4, 10, 11, 12, 9, 8, 5-7: phase 13
+14. The sharded step replayed from CUDA graphs under NCCL
+   (``phase_nccl_one_rank``): a process group of one rank over NCCL on the
+   card, in which ``train(devices="all")`` runs the sharded step of
+   ``parallel/step.py`` over a mesh of one rank, its collectives NCCL's,
+   captured inside the step's CUDA graphs.  zinb-conddisp 64-32-64 at
+   phase 4's 2730 x 3451 from one seed's weights, 3 epochs in memory,
+   captured and eager (``_graphs=False``) in turns (captured, eager,
+   eager, captured), then streamed (parts of 512, 2 epochs, host tier)
+   both ways, and the fit with no group's mesh for its epoch: captured and
+   eager the same bits (histories and final parameters), a capture
+   recorded under the group and none eager, the K1/K2 launches of each fit
+   those of its schedule (the captured in-memory fit the no-group graph
+   fit's, 2 warm-ups included; streamed 3); capture seconds and epoch
+   times printed beside the no-group graph epoch.
+
+The phases run in the order 1-3, 13, 4, 10, 11, 12, 9, 8, 5-7, 14: phase 13
 before any profiler session (phase 4's TensorBoard fit), which leaves
 each later launch of its whole-epoch graph milliseconds of host time.  Prints the card's name and
 power limit, then one ``{"kernels": [...]}``
@@ -2260,7 +2280,7 @@ def _check_dp_stream(ranks, single, n_ranks, backend):
         hist = runs[0]["history"]
         for rk, run in enumerate(runs):
             want = want_group_stream_launches(DP_STREAM_EPOCHS, 2730, STREAM_MAX_CELLS, n_ranks,
-                                              rk)
+                                              rk, captured=backend == "nccl")
             _check(run["history"] == hist, f"phase 7 streamed {tier}: rank {rk}'s history "
                    f"{run['history']} differs from rank 0's {hist}")
             _check(run["launches"] == want, f"phase 7 streamed {tier}: rank {rk} launched "
@@ -2357,9 +2377,14 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
             ranks.append(json.load(f))
 
     # every rank has rows in every step (the trailing 25 rows split 13/12,
-    # or 7/7/7/4 on 4 ranks); 273 validation rows need padding for 2 or 4
-    want = {"zinb-conddisp": {"zinb_nll_fwd": 154, "zinb_nll_bwd": 154, "zinb_nll_fwd_w": 2},
-            "nb-conddisp": {"nb_nll_fwd": 77, "nb_nll_bwd": 77, "nb_nll_fwd_w": 1}}
+    # or 7/7/7/4 on 4 ranks); 273 validation rows need padding for 2 or 4;
+    # over NCCL the steps are captured, after a warm-up of the full and the
+    # trailing step
+    warm = 2 if backend == "nccl" else 0
+    want = {"zinb-conddisp": {"zinb_nll_fwd": 154 + warm, "zinb_nll_bwd": 154 + warm,
+                              "zinb_nll_fwd_w": 2},
+            "nb-conddisp": {"nb_nll_fwd": 77 + warm, "nb_nll_bwd": 77 + warm,
+                            "nb_nll_fwd_w": 1}}
     out = {}
     for ae_type, epochs in DP_RUNS:
         runs = [rk[ae_type] for rk in ranks]
@@ -2404,8 +2429,8 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
     # the TensorBoard fit: the plain fit's history on every rank, and its
     # gradient one more K1w and one K2w a rank an epoch
     epochs = DP_RUNS[0][1]
-    tb_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), zinb_nll_fwd=154, zinb_nll_bwd=154,
-                   zinb_nll_fwd_w=2 + epochs, zinb_nll_bwd_w=epochs)
+    tb_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), zinb_nll_fwd=154 + warm,
+                   zinb_nll_bwd=154 + warm, zinb_nll_fwd_w=2 + epochs, zinb_nll_bwd_w=epochs)
     for rk, r in enumerate(ranks):
         _check(r["tensorboard"]["history"] == r["zinb-conddisp"]["history"],
                f"phase 7: rank {rk}'s TensorBoard fit's history {r['tensorboard']['history']} "
@@ -2417,7 +2442,7 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
     # the nb-conddisp TensorBoard fit: the 55 validation rows padded to 56,
     # one K1w an epoch, and the gradient's K1w and K2w
     nb_tb = [r["tensorboard_nb"] for r in ranks]
-    nb_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), nb_nll_fwd=16, nb_nll_bwd=16,
+    nb_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), nb_nll_fwd=16 + warm, nb_nll_bwd=16 + warm,
                    nb_nll_fwd_w=2, nb_nll_bwd_w=1)
     for rk, r in enumerate(nb_tb):
         _check(r["history"] == nb_tb[0]["history"]
@@ -2541,19 +2566,24 @@ def _mp_fit(counts, ae_type, epochs, **kw):
 
 
 def want_mp_launches(likelihood, epochs, n_cells, n_data, data_index, batch=32,
-                     val_split=0.1):
+                     val_split=0.1, captured=False):
     """The K1/K2 launches of one rank of a ``dca()`` fit over a grid of
     ``n_data`` data indices: a step where its block of the batch is not
     empty, and the validation once an epoch, through K1w where the
-    validation rows do not divide the data indices (padded), else K1."""
+    validation rows do not divide the data indices (padded), else K1.
+    ``captured`` (over NCCL): the steps replayed from CUDA graphs, whose
+    warm-up runs the full and the trailing step once each, the trailing
+    one launching nothing where this rank's block of it is empty."""
     n_train = int(n_cells * (1.0 - val_split))
     n_val = n_cells - n_train
     n_full, rem = divmod(n_train, batch)
     per = -(-rem // n_data)
-    steps = n_full + (1 if rem and data_index * per < rem else 0)
+    trailing = 1 if rem and data_index * per < rem else 0
+    steps = n_full + trailing
+    warm = ((n_full > 0) + trailing) if captured else 0
     out = dict.fromkeys(LAUNCH_NAMES, 0)
-    out[f"{likelihood}_nll_fwd"] = epochs * steps
-    out[f"{likelihood}_nll_bwd"] = epochs * steps
+    out[f"{likelihood}_nll_fwd"] = epochs * steps + warm
+    out[f"{likelihood}_nll_bwd"] = epochs * steps + warm
     out[f"{likelihood}_nll_fwd" + ("_w" if n_val % n_data else "")] += epochs
     return out
 
@@ -2692,7 +2722,7 @@ def phase_model_parallel(n_ranks=DP_RANKS, backend="gloo", models=(2,), runs=MP_
                 _check(fit["history"] == hist, f"{what}: rank {rk}'s history {fit['history']} "
                        f"differs from rank 0's {hist}")
                 want = want_mp_launches(core.LIKELIHOODS[ae_type], epochs, 2730, n_data,
-                                        rk // model)
+                                        rk // model, captured=backend == "nccl")
                 _check(fit["launches"] == want,
                        f"{what}: rank {rk} launched {fit['launches']}, expected {want}")
             ref, ref_epoch_s = refs[name]
@@ -2755,7 +2785,7 @@ def _check_mp_stream(ranks, one, n_ranks, model, genes, backend):
         first = first or hist
         for rk, fit in enumerate(fits):
             want = want_group_stream_launches(DP_STREAM_EPOCHS, 2730, STREAM_MAX_CELLS, n_data,
-                                              rk // model)
+                                              rk // model, captured=backend == "nccl")
             _check(fit["history"] == hist, f"{what}: rank {rk}'s history {fit['history']} "
                    f"differs from rank 0's {hist}")
             _check(fit["launches"] == want,
@@ -2943,26 +2973,30 @@ def _stream_schedule(n_cells, max_cells, batch=32, val_split=0.1):
 
 
 def want_group_stream_launches(epochs, n_cells, max_cells, n_ranks, rank, batch=32,
-                                val_split=0.1):
+                                val_split=0.1, captured=False):
     """``rank``'s launches in a streamed zinb fit under a group of
-    ``n_ranks``: eager, so no warm-up; K1 and K2 once a step, but for the
-    trailing batch where this rank's share of it is empty (blocks of
-    ceil(rows / ranks), ``process_row_range``), and each validation chunk
-    through K1, or through K1w where it is padded to a multiple of the
-    ranks."""
+    ``n_ranks``: K1 and K2 once a step, but for the trailing batch where
+    this rank's share of it is empty (blocks of ceil(rows / ranks),
+    ``process_row_range``), and each validation chunk through K1, or
+    through K1w where it is padded to a multiple of the ranks.  Eager (a
+    gloo group) it runs no warm-up; ``captured`` (NCCL) one for each
+    captured step, the trailing one launching nothing where this rank's
+    share is empty."""
     from dca_tpu_torch.parallel.multihost import process_row_range
 
-    steps, _, _ = _stream_schedule(n_cells, max_cells, batch, val_split)
+    steps, _, graphs = _stream_schedule(n_cells, max_cells, batch, val_split)
     n_train = int(n_cells * (1.0 - val_split))
     lo, hi = process_row_range(n_train % batch, rank, n_ranks)
-    steps -= int(n_train % batch > 0 and lo == hi)
+    empty = int(n_train % batch > 0 and lo == hi)
+    steps -= empty
+    warm = graphs - empty if captured else 0
     chunk = max((min(max_cells, n_train) // batch) * batch, batch)
     n_val = n_cells - n_train
     padded = [min(chunk, n_val - lo) % n_ranks > 0 for lo in range(0, n_val, chunk)]
     want = dict.fromkeys(LAUNCH_NAMES, 0)
-    want["zinb_nll_fwd"] = epochs * (steps + padded.count(False))
+    want["zinb_nll_fwd"] = epochs * (steps + padded.count(False)) + warm
     want["zinb_nll_fwd_w"] = epochs * padded.count(True)
-    want["zinb_nll_bwd"] = epochs * steps
+    want["zinb_nll_bwd"] = epochs * steps + warm
     return want
 
 
@@ -4318,6 +4352,106 @@ def dp_compiled_reference():
     return ret.uns["dca_loss_history"]
 
 
+NCCL_ONE_EPOCHS = 3  # phase 14's in-memory fits
+NCCL_ONE_TURNS = ("captured", "eager", "eager", "captured")  # A, B, B, A
+
+
+def phase_nccl_one_rank(dev):
+    """Phase 14: the sharded step replayed from CUDA graphs under NCCL, on
+    the one card: a process group of one rank over NCCL (NCCL allows a
+    world of one), in which ``train(devices=make_mesh(1))`` takes the
+    sharded step over a mesh of one rank, its collectives NCCL's (a group
+    of one rank with ``devices="all"`` is the single-device path).  zinb-conddisp
+    64-32-64 at phase 4's 2730 x 3451 (normalized with the z-scale
+    deferred) from one seed's weights, NCCL_ONE_EPOCHS epochs in memory,
+    captured (the default) and eager (``_graphs=False``) in turns
+    (NCCL_ONE_TURNS), then the same fit streamed (parts of
+    STREAM_MAX_CELLS, DP_STREAM_EPOCHS epochs, host tier) both ways; and
+    the fit with no group's mesh (``devices=None``, the one-card graph
+    path) for its epoch.  Held: captured and eager the same bits (the
+    histories and the final parameters); a capture recorded under the
+    group (``History.capture_s``) and none eager; the K1/K2 launches of
+    each fit those of its schedule, the captured ones the no-group graph
+    fit's (its warm-ups included).  Returns the launches, capture seconds
+    and epoch times."""
+    import torch
+    import torch.distributed as dist
+
+    from dca_tpu_torch.parallel import multihost
+    from dca_tpu_torch.parallel.mesh import make_mesh
+
+    _check(not dist.is_initialized(), "phase 14: a process group is already initialized")
+    adata = _lazy_adata(make_paul15_like())
+    state = _stream_state(dev, adata.n_vars)
+    steps, warm = _steps(2730), _warmups(2730)
+    out = {"epoch_ms": {}, "capture_s": {}, "launches": {}}
+
+    def fit(name, **kw):
+        hist, launches, net = _stream_fit(dev, adata, state, kw.pop("epochs", NCCL_ONE_EPOCHS),
+                                          verbose=False, **kw)
+        torch.cuda.synchronize()
+        out["epoch_ms"].setdefault(name, []).append([t * 1e3 for t in hist.epoch_s])
+        out["capture_s"].setdefault(name, []).append(hist.capture_s)
+        out["launches"][name] = launches
+        return hist, launches, {k: v.detach().cpu().numpy() for k, v in
+                                net.model.state_dict().items()}
+
+    multihost.initialize(f"localhost:{_free_port()}", 1, 0, backend="nccl", device=dev)
+    try:
+        _check(dist.get_backend() == "nccl", f"phase 14: backend {dist.get_backend()}")
+        one, one_launches, _ = fit("no group", devices=None)
+        _check(one.capture_s is not None, "phase 14: the no-group fit captured nothing")
+        mesh, fits = make_mesh(1), {}
+        for turn in NCCL_ONE_TURNS:
+            fits[turn] = fit(turn, devices=mesh, _graphs=turn == "captured")
+        with _switches(STREAM_TIERS["host"]):
+            for turn in ("captured", "eager"):
+                fits["streamed " + turn] = fit("streamed " + turn, devices=mesh,
+                                               _graphs=turn == "captured",
+                                               epochs=DP_STREAM_EPOCHS,
+                                               max_device_cells=STREAM_MAX_CELLS)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for kind in ("", "streamed "):
+        (gh, gl, gp), (eh, el, ep) = fits[kind + "captured"], fits[kind + "eager"]
+        what = f"phase 14 {kind or 'in memory '}under a one-rank NCCL group"
+        _check(gh.capture_s is not None and gh.capture_s > 0 and eh.capture_s is None,
+               f"{what}: capture_s {gh.capture_s} captured, {eh.capture_s} eager")
+        _check(gh.history == eh.history, f"{what}: captured history {gh.history} is not the "
+               f"eager one's {eh.history}")
+        _check(all(np.array_equal(gp[k], ep[k]) for k in gp),
+               f"{what}: the final parameters differ captured and eager")
+        _check(bool(np.isfinite(gh.history["loss"] + gh.history["val_loss"]).all()),
+               f"{what}: history {gh.history}")
+        if kind:
+            want = {t: want_group_stream_launches(DP_STREAM_EPOCHS, 2730, STREAM_MAX_CELLS, 1,
+                                                  0, captured=t == "captured")
+                    for t in ("captured", "eager")}
+        else:
+            want = {"captured": _want_launches("zinb", NCCL_ONE_EPOCHS, steps, warm),
+                    "eager": _want_launches("zinb", NCCL_ONE_EPOCHS, steps)}
+            _check(one_launches == want["captured"], f"phase 14: the no-group graph fit "
+                   f"launched {one_launches}, expected {want['captured']}")
+        for t, got in (("captured", gl), ("eager", el)):
+            _check(got == want[t], f"{what}: {t} launched {got}, expected {want[t]}")
+    out["one_rel"] = {k: float(np.max(np.abs(np.asarray(fits["captured"][0].history[k])
+                                             - one.history[k]) / np.abs(one.history[k])))
+                      for k in ("loss", "val_loss")}
+    ms = {k: [[round(t, 2) for t in fit] for fit in v] for k, v in out["epoch_ms"].items()}
+    print(f"phase 14: one-rank NCCL group, zinb-conddisp 2730 x 3451: in memory "
+          f"{NCCL_ONE_EPOCHS} epochs captured and eager the same bits, launches "
+          f"{ {k: v for k, v in out['launches']['captured'].items() if v} } captured, "
+          f"{ {k: v for k, v in out['launches']['eager'].items() if v} } eager; capture "
+          f"{out['capture_s']['captured']} s; epochs captured {ms['captured']} ms, eager "
+          f"{ms['eager']} ms, the no-group graph fit {ms['no group']} ms (capture "
+          f"{out['capture_s']['no group']} s; its history from the one-rank mesh's, largest "
+          f"relative differences {out['one_rel']}); streamed {DP_STREAM_EPOCHS} epochs, parts "
+          f"of {STREAM_MAX_CELLS}: the same bits, capture {out['capture_s']['streamed captured']}"
+          f" s, epochs captured {ms['streamed captured']} ms, eager {ms['streamed eager']} ms")
+    return out
+
+
 def _shard_entries(mp_times, name):
     """``mp_shard_timings``' entries of kernel ``name``, for its record."""
     return [dict(zip(("shape", "ms", "plain_ms", "bound_ms", "bound_by"), (list(shape), *t)))
@@ -4402,6 +4536,7 @@ def main():
                                  single_stream=stream_small["dp_reference"])
         mp = phase_model_parallel()
         launched = phase_launch(dp)
+        nccl_one = phase_nccl_one_rank(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4438,6 +4573,9 @@ def main():
             streamed["launches_launcher"] = {
                 f"phase 7 launched {key}, rank 0": v["launches"][name]
                 for key, v in launched.items()}
+            if fam == "zinb":
+                streamed["launches_nccl_one_rank"] = {
+                    f"phase 14 {key}": v[name] for key, v in nccl_one["launches"].items()}
             if fam == "zinb":
                 streamed["launches_compiled"]["phase 13 early stop"] = \
                     comp["stop"]["launches"][name]

@@ -29,16 +29,25 @@ share a group and nothing is started here.
     through the store; the training keywords as given.  Rank 0 alone
     writes ``output_dir``, as under torchrun.
   * Failures: a worker that exits before the fit has ended, or that has
-    not joined within TIMEOUT_S (also each collective's timeout), ends the
-    call: every worker is killed and the call raises, naming the rank and
-    the tail of its stderr.  Over gloo rank 0's pending collective fails as
-    soon as its peer is gone; over NCCL the monitor aborts the group
-    (``_abort_process_group``), and rank 0 runs with
-    TORCH_NCCL_ASYNC_ERROR_HANDLING=2 (abort the communicators, keep the
-    process), so that the abort does not take the caller's process down.
-    A worker that stays alive but stops answering in an NCCL collective
-    is left to NCCL's own timeout handling, which does not end the call.
-    No process group and no child outlives the call.
+    not joined within TIMEOUT_S, ends the call: every worker is killed and
+    the call raises, naming the rank and the tail of its stderr.  So does
+    a rank that falls silent: each rank posts its progress to the store
+    from the fit loop itself (``post_progress``: each epoch ended, each
+    step run from Python, each streamed part dispatched), never from a
+    thread of its own, which would go on beating while the loop hangs;
+    once no rank has moved for TIMEOUT_S the monitor fails the rank that
+    is behind (``behind``).  Over gloo rank 0's pending collective fails
+    as soon as its peer is gone; over NCCL the monitor aborts the group
+    (``_abort_group``: ``_abort_process_group``, which ends a collective
+    in flight, replayed from a CUDA graph or not, while the monitor
+    destroys rank 0's step graphs, without which NCCL does not finish the
+    abort), and rank 0 runs with TORCH_NCCL_ASYNC_ERROR_HANDLING=2 (abort
+    the communicators, keep the process), so that the abort does not take
+    the caller's process down; rank 0's next post of progress, or its
+    next replay, then raises, before it enqueues more work on the aborted
+    group.  Each collective's own timeout is twice TIMEOUT_S, a backstop
+    behind the progress rule.  No process
+    group and no child outlives the call.
   * The ranks of a gloo group (the CPU's, or ranks that share one card)
     compute with one intra-op thread each, unless ``threads`` is given;
     the caller's own count comes back after the fit.  NCCL ranks keep
@@ -51,7 +60,9 @@ share a group and nothing is started here.
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
+import functools
 import mmap
 import os
 import pickle
@@ -65,7 +76,7 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
-TIMEOUT_S = 600.0  # a worker's start-up, and each collective
+TIMEOUT_S = 600.0  # a worker's start-up, and the longest a fit may go with no rank moving
 # the intra-op threads of a gloo rank, unless ``threads`` says otherwise:
 # N ranks of as many threads as the host has cores spin against each other
 # in gloo's collectives (a CPU epoch many times slower).  NCCL ranks keep
@@ -186,12 +197,101 @@ def adata_from(desc, arrays):
 
 
 # ---------------------------------------------------------------------------
-# the caller: rank 0
+# progress
 # ---------------------------------------------------------------------------
 
 
 class LaunchError(RuntimeError):
     """A rank of a launched fit failed, or did not answer in time."""
+
+
+def _progress_key(rank):
+    return f"dca_tpu_torch/progress/{rank}"
+
+
+class Progress:
+    """A rank's progress, posted to the launcher's ``store`` by the fit
+    loop (``post_progress``): each call adds one to this rank's count.
+    ``failed``, on rank 0: a callable that raises once the launch has
+    failed, called before each post, so that rank 0 stops at its next
+    point of progress instead of enqueuing work on an aborted group."""
+
+    def __init__(self, store, rank, failed=None):
+        self.store = store
+        self.rank = rank
+        self.failed = failed
+        self.count = 0
+
+    def __call__(self):
+        if self.failed is not None:
+            self.failed()
+        self.count += 1
+        self.store.set(_progress_key(self.rank), str(self.count))
+
+
+_POSTER = threading.local()  # .post: the Progress of the fit this thread runs
+
+
+@contextlib.contextmanager
+def posting(progress):
+    """``post_progress`` calls ``progress`` in this thread inside."""
+    _POSTER.post = progress
+    try:
+        yield
+    finally:
+        _POSTER.post = None
+
+
+def post_progress():
+    """One point of progress of the fit this thread runs, called by the
+    fit loop itself: each epoch ended (``_FitCallbacks.end_epoch``, the
+    compiled fit's eager epochs), each step that ``EagerEpoch`` runs and
+    each streamed part dispatched.  Every rank runs the same points in
+    the same order, so the counts compare.  Nothing outside a launch."""
+    post = getattr(_POSTER, "post", None)
+    if post is not None:
+        post()
+
+
+def behind(counts, moved):
+    """The rank that is behind: the least count of ``counts`` ({rank:
+    count}); of equal counts the one that moved last the longest ago
+    (``moved``, {rank: time})."""
+    return min(counts, key=lambda r: (counts[r], moved[r], r))
+
+
+class _Stall:
+    """The progress rule over ``world`` ranks' counts in ``store`` (each
+    rank's key set before the ranks start): once no rank has moved for
+    ``timeout`` seconds, ``check`` names the rank that is behind
+    (``behind``).  The clock starts at construction."""
+
+    def __init__(self, store, world, timeout):
+        self.store = store
+        self.keys = [_progress_key(r) for r in range(world)]
+        self.timeout = timeout
+        now = time.monotonic()
+        self.counts = dict.fromkeys(range(world), 0)
+        self.moved = dict.fromkeys(range(world), now)
+        self.lock = threading.Lock()  # the monitor's thread and rank 0's settle
+
+    def check(self):
+        """The rank that is behind once no rank has moved for the timeout,
+        else None."""
+        with self.lock:
+            now = time.monotonic()
+            for r, key in enumerate(self.keys):
+                count = int(self.store.get(key))
+                if count != self.counts[r]:
+                    self.counts[r], self.moved[r] = count, now
+            if now - max(self.moved.values()) > self.timeout:
+                return behind(self.counts, self.moved)
+            return None
+
+
+# ---------------------------------------------------------------------------
+# the caller: rank 0
+# ---------------------------------------------------------------------------
 
 
 class _Worker:
@@ -229,15 +329,18 @@ def worker_command(rank, world, port):
 
 class _Monitor:
     """Polls the workers while rank 0 fits: the first that exits with an
-    error is the failure, and then every worker is killed and ``abort``,
-    where it is set (the NCCL group's), is called, so that rank 0's pending
-    collective fails at once (over gloo it does by itself)."""
+    error is the failure, or, once ``stall`` is set (a ``_Stall``), the
+    rank that is behind when no rank has moved for its timeout; then every
+    worker is killed and ``abort``, where it is set (the NCCL group's), is
+    called, so that rank 0's pending collective fails at once (over gloo it
+    does by itself)."""
 
     def __init__(self, workers):
         self.workers = workers
         self.failed = None
         self.abort = None
         self.aborted = False
+        self.stall = None
         self.lock = threading.Lock()
         self.ended = threading.Event()
         self.thread = threading.Thread(target=self._watch, daemon=True)
@@ -249,12 +352,27 @@ class _Monitor:
                 return
 
     def check(self):
-        """Whether a worker has exited with an error (its code), or was
+        """Whether a worker has exited with an error (its code), or no rank
+        has moved for the stall's timeout (the rank behind), or one was
         already failed."""
         for w in self.workers:
             if self.failed is None and w.proc.poll():
                 self.fail(w, f"exited with code {w.proc.returncode}")
+        stall = self.stall
+        if self.failed is None and stall is not None:
+            rank = stall.check()
+            if rank is not None:
+                worker = next((w for w in self.workers if w.rank == rank), None)
+                self.fail(worker, f"made no progress for {stall.timeout:g} s (progress "
+                                  f"counts {[stall.counts[r] for r in sorted(stall.counts)]}, "
+                                  "by rank)")
         return self.failed is not None
+
+    def raise_failed(self):
+        """Raise ``LaunchError`` if the launch has failed (rank 0's
+        ``Progress.failed``)."""
+        if self.failed is not None:
+            raise LaunchError("the launch failed; the fit was stopped")
 
     def settle(self, wait=2.0):
         """After rank 0's fit raised: whether a worker's exit with an error
@@ -266,6 +384,8 @@ class _Monitor:
         return self.failed is not None
 
     def fail(self, worker, what):
+        """Record the failure of ``worker`` (None: rank 0, this process),
+        kill every worker and abort the group, once."""
         with self.lock:
             first = self.failed is None
             if first:
@@ -300,8 +420,26 @@ def _wait_ready(store, workers, monitor, timeout):
         time.sleep(0.05)
 
 
+def _abort_group(thread):
+    """Abort the process group (``_abort_process_group``) and, meanwhile,
+    destroy the step graphs of the fit that ``thread`` (rank 0's) runs
+    (``graphs.release_graphs``): the abort sets NCCL's abort flag at once,
+    which ends a collective in flight, replayed or not, but finishes only
+    once no CUDA graph holds the communicator's collectives."""
+    from ..train.graphs import release_graphs
+
+    aborting = threading.Thread(target=dist.distributed_c10d._abort_process_group,
+                                daemon=True)
+    aborting.start()
+    release_graphs(thread)
+    aborting.join()
+
+
 def _raise_failure(monitor, world, cause=None):
     worker, what = monitor.failed
+    if worker is None:
+        raise LaunchError(f"rank 0 of {world} (this process, pid {os.getpid()}) {what}; the "
+                          "fit was stopped and every rank ended") from cause
     raise LaunchError(f"rank {worker.rank} of {world} (pid {worker.proc.pid}) {what}; the "
                       f"fit was stopped and every rank ended. Its stderr ends:\n"
                       f"{worker.stderr()}") from cause
@@ -344,6 +482,8 @@ def launch_train(train, adata, network, kwargs, devices):
         store = dist.TCPStore("127.0.0.1", 0, None, True,
                               datetime.timedelta(seconds=timeout), wait_for_workers=False)
         params, state = network.numpy_trees()
+        for r in range(world):
+            store.set(_progress_key(r), "0")
         store.set(SPEC_KEY, pickle.dumps(dict(
             ae_type=network.ae_type, ctor=network._ctor_config(), params=params, state=state,
             train=kwargs, adata=desc, arrays=shared.specs, backend=backend,
@@ -363,12 +503,17 @@ def launch_train(train, adata, network, kwargs, devices):
             # process, the caller's (the default ends it)
             os.environ[NCCL_HANDLING] = "2"
         initialize(num_processes=world, process_id=0, backend=backend, device=devices[0],
-                   store=store, timeout=timeout)
+                   store=store, timeout=2 * timeout)
         if backend == "nccl":
-            monitor.abort = dist.distributed_c10d._abort_process_group
+            monitor.abort = functools.partial(_abort_group, threading.get_ident())
+        # the monitor's own client: the progress rule polls beside the fit
+        monitor.stall = _Stall(dist.TCPStore("127.0.0.1", store.port, None, False,
+                                             datetime.timedelta(seconds=timeout)),
+                               world, timeout)
         t_group = time.perf_counter() - t0
         try:
-            hist = train(adata, network, **kwargs)
+            with posting(Progress(store, 0, monitor.raise_failed)):
+                hist = train(adata, network, **kwargs)
             # every rank leaves the group together: NCCL's teardown waits for
             # the other ranks' (a worker's hung while this rank waited for it)
             dist.barrier()
@@ -397,6 +542,7 @@ def launch_train(train, adata, network, kwargs, devices):
     finally:
         if monitor is not None:
             monitor.stop()
+            monitor.stall = None  # its store client
         for w in workers or ():
             w.kill()
         if dist.is_initialized():
@@ -437,8 +583,9 @@ def _worker_main(port, rank, world):
     network.load_trees(spec["params"], spec["state"])
     store.set(f"ready/{rank}", "1")
     initialize(num_processes=world, process_id=rank, backend=spec["backend"], device=device,
-               store=store, timeout=spec["timeout"])
-    train(adata, network, **spec["train"])
+               store=store, timeout=2 * spec["timeout"])
+    with posting(Progress(store, rank)):
+        train(adata, network, **spec["train"])
     dist.barrier()
     dist.destroy_process_group()
 

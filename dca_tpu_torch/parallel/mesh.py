@@ -118,10 +118,14 @@ def resolve_mesh(devices, model_parallel: int = 1):
     JAX package asserts; ``"all"``/True the ranks of the initialized
     process group; an int N, or a list of N, exactly those ranks, N of
     them.  A world of one rank with ``model_parallel`` 1 is the
-    single-device path.  ``model_parallel`` must divide the ranks.  More
+    single-device path; a ``Mesh`` is taken as it is (``make_mesh(1)``:
+    the sharded step over a group of one, as ``chip_smoke.py``'s phase 14
+    runs it).  ``model_parallel`` must divide the ranks.  More
     than one device with no process group is the launcher's to start
     (``parallel/launch.py``, which ``train`` calls first): here it
     raises."""
+    if isinstance(devices, Mesh):
+        return devices
     model = max(int(model_parallel or 1), 1)
     if devices is None or devices is False or (
         isinstance(devices, int) and not isinstance(devices, bool) and devices == 0

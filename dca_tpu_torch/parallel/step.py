@@ -32,10 +32,13 @@ the same summed gradients, so they hold the same parameters (or blocks of
 them) after every step.
 
 On every path the step takes its rows, its step index and its learning
-rate from device buffers and writes its loss there (``StepBuffers``), so
-one CUDA device can capture it in a graph and replay it
-(``train/graphs.py``); the distributed step runs the same body from
-Python, its collectives outside any graph.
+rate from device buffers and writes its loss there (``StepBuffers``), and
+reads nothing back to the host: its shard bounds come from the static
+length of the batch (``batch_shard``), so a CUDA device captures it in a
+graph and replays it (``train/graphs.py``), with or without a group.
+Over NCCL its collectives are captured with it (the flat gradient
+buffers of ``all_reduce_grads`` allocate from the graph's pool); over
+gloo, whose collectives run on the host, it runs from Python.
 
 The streaming trainer stages each part of the epoch into a part buffer,
 and under a group each rank stages only its data index's block of each
@@ -260,9 +263,10 @@ def make_sharded_train_step(network, opt, mesh=None):
     ``bufs.losses``.  A full step takes the ``bufs.step_i``-th batch and
     advances ``step_i``; the trailing step takes the rows after the full
     batches.  Nothing is read back to the host, so the step can be
-    captured in a CUDA graph.  Over a ``mesh`` (``parallel/mesh.py``) this
-    rank computes its block of the batch and the loss it writes is its
-    share; without one the step is the single-device step.  With a model
+    captured in a CUDA graph, its collectives too over NCCL.  Over a
+    ``mesh`` (``parallel/mesh.py``) this rank computes its block of the
+    batch and the loss it writes is its share; without one the step is
+    the single-device step.  With a model
     axis (X, T) hold this rank's gene columns of the input and the target
     (``Mesh.gene_block``).  Under a group (X, T, SF) may
     hold this rank's rows alone, the streaming trainer's part buffer, with

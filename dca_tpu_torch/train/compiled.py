@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel.launch import post_progress
 from ..parallel.step import StepBuffers, make_sharded_train_step
 from .graphs import GraphFit
 from .optim import state_tensors
@@ -218,6 +219,7 @@ def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_l
                 epoch()
                 stop = bool(st.stop)  # the epoch's one read
                 epoch_s.append(time.perf_counter() - t0)
+                post_progress()
                 if after_epoch is not None:
                     after_epoch()
                 if stop:

@@ -9,8 +9,9 @@ index and its learning rate from a ``StepBuffers`` and writes its loss
 there, and run one epoch for a permutation of the train rows:
 
   * ``EagerEpoch`` calls the step from Python, once a step: the CPU fit,
-    the ``debug`` fit (its sanitizer reads values back) and the
-    data-parallel fit (its collectives are not captured);
+    the ``debug`` fit (its sanitizer reads values back) and a fit over a
+    gloo group (gloo's collectives run on the host, which a CUDA graph
+    cannot capture: the CPU's ranks, and ranks that share one card);
   * ``GraphEpoch`` captures the full step and the trailing step once, as
     two CUDA graphs, and replays the full one n_full times and the
     trailing one once an epoch, after one host-to-device copy of the
@@ -23,6 +24,26 @@ there, and run one epoch for a permutation of the train rows:
     generator is registered with each graph, so a replay draws the dropout
     masks an eager step would.  Capture once per fit; a failure raises,
     and nothing falls back to the eager runner.
+
+Over an NCCL group (``parallel/step.py``'s sharded step: one rank a card)
+the steps are captured and replayed too, the counterpart of the JAX
+package's one ``jax.jit`` over the mesh (``dca_tpu/parallel/step.py``):
+the step's collectives (BatchNorm's sums, the input layer's sum over the
+model group, the loss's (sum, count) pair and the flat gradient buffers,
+``_AllReduceSum``'s backward among them, which the autograd thread issues)
+go through ``ProcessGroupNCCL`` on the capture stream, which joins its
+NCCL stream to the capture by events, so each lands in the graph as NCCL
+kernel nodes, and a replay runs them with no host hop.  Three rules make
+that hold on every rank: the warm-up runs every step once eagerly, which
+creates the communicator of every group the step uses (a communicator
+made inside a capture is illegal); every rank restores the same state
+after it, and captures the same steps in the same order; the predicate
+``capture_steps`` reads only what every rank shares.  A replayed
+collective is invisible to PyTorch's NCCL watchdog; the ranks that
+``parallel/launch.py`` starts have the launcher's progress rule instead,
+and its abort of a failed fit's group destroys the fit's step graphs
+meanwhile (``release_graphs``), since NCCL finishes the abort of a
+communicator only once no graph holds its collectives.
 
 ``GraphFit`` captures the whole epoch of the fit on the device
 (``train/compiled.py``, the counterpart of the JAX package's
@@ -58,10 +79,12 @@ import ctypes
 import functools
 import threading
 import time
+import weakref
 
 import torch
 
 from ..ops import counters
+from ..parallel.launch import post_progress
 
 _CAPTURE_LOCK = threading.Lock()
 _own = threading.local()
@@ -90,6 +113,17 @@ def _own_stream(device, role="capture"):
     return stream
 
 
+def capture_steps(device, backend, debug, graphs=True):
+    """Whether a fit replays its steps from CUDA graphs: on a CUDA
+    ``device`` with no process group (``backend`` None) or over NCCL,
+    unless ``debug`` (its sanitizer reads values back) or ``graphs`` is
+    False (``train(_graphs=False)``).  Gloo's collectives run on the host
+    and cannot be captured.  Every argument is the same on every rank of a
+    group, so every rank gives the same answer."""
+    return (bool(graphs) and not debug and torch.device(device).type == "cuda"
+            and backend in (None, "nccl"))
+
+
 def _warm_up(fns, state, generator, device, stream):
     """Run each of ``fns`` once on ``stream``, then restore in place every
     tensor of ``state`` and the ``generator``'s state, so that the run
@@ -109,7 +143,8 @@ def _warm_up(fns, state, generator, device, stream):
 
 class EagerEpoch:
     """Runs an epoch's steps from Python: ``step(trailing=False)`` n_full
-    times, then ``step(trailing=True)`` if there are trailing rows."""
+    times, then ``step(trailing=True)`` if there are trailing rows, each
+    step a point of progress of a launched rank (``launch.post_progress``)."""
 
     def __init__(self, step, bufs, rem):
         self.step = step
@@ -126,8 +161,10 @@ class EagerEpoch:
         self.start(perm)
         for _ in range(self.bufs.n_full):
             self.step()
+            post_progress()
         if self.rem:
             self.step(trailing=True)
+            post_progress()
 
 
 class GraphSteps:
@@ -165,14 +202,47 @@ class GraphSteps:
             pool = graph.pool()
         stream.synchronize()  # the warm-up; not the device: others may capture
         self.capture_s = time.perf_counter() - t0
+        self.thread = threading.get_ident()
+        self.lock = threading.Lock()  # the replays against ``release``
+        with _LIVE_LOCK:
+            _LIVE.add(self)
 
     def replay(self, key, times=1):
         """Replay the graph of ``key`` ``times`` times and count its
-        launches."""
-        graph = self.graphs[key]
-        for _ in range(times):
-            graph.replay()
+        launches; raises once the graphs are released."""
+        with self.lock:
+            if not self.graphs:
+                raise RuntimeError("the fit's CUDA graphs were released (release_graphs): "
+                                   "its process group is being aborted")
+            graph = self.graphs[key]
+            for _ in range(times):
+                graph.replay()
         counters.add(self.launches[key], times)
+
+    def release(self):
+        """Destroy the graphs (a replay in flight ends first, on its own)."""
+        with self.lock:
+            for graph in self.graphs.values():
+                graph.reset()
+            self.graphs.clear()
+
+
+_LIVE = weakref.WeakSet()  # every GraphSteps of this process
+_LIVE_LOCK = threading.Lock()
+
+
+def release_graphs(thread):
+    """Destroy the step graphs that thread ``thread`` captured
+    (``GraphSteps.release``), from another thread: the launcher's monitor,
+    while it aborts a failed fit's NCCL group (``parallel/launch.py``).
+    NCCL does not finish the abort of a communicator while a CUDA graph
+    holding its collectives lives, and the failed fit's thread, waiting on
+    its device or in the fit, cannot free them itself; its next replay
+    raises."""
+    with _LIVE_LOCK:
+        live = [steps for steps in _LIVE if steps.thread == thread]
+    for steps in live:
+        steps.release()
 
 
 class GraphEpoch(EagerEpoch):

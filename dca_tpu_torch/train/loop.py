@@ -11,13 +11,16 @@ A port of the JAX package's fit on every backend but the TPU
     the step reads its rows, its step index and its learning rate from
     device buffers and writes its loss there (``parallel/step.py``,
     ``StepBuffers``), so nothing of an epoch's steps goes through the host;
-  * on one CUDA device, outside ``debug``, the full step and the trailing
-    step are captured once a fit as two CUDA graphs and replayed, n_full
-    times and once an epoch: the counterpart of ``epoch_fn`` and
-    ``rem_step_fn`` (``train/graphs.py``).  A failed capture raises; it
-    never falls back to the eager loop.  The CPU fit, the ``debug`` fit
-    (its sanitizer reads values back, and the JAX package leaves jit there
-    too) and the data-parallel fit call the same step from Python;
+  * on a CUDA device, outside ``debug``, with no process group or over
+    NCCL, the full step and the trailing step are captured once a fit as
+    two CUDA graphs and replayed, n_full times and once an epoch: the
+    counterpart of ``epoch_fn`` and ``rem_step_fn``, and over a group of
+    the JAX package's one jitted step over the mesh (``train/graphs.py``,
+    ``capture_steps``).  A failed capture raises; it never falls back to
+    the eager loop.  The CPU fit, the ``debug`` fit (its sanitizer reads
+    values back, and the JAX package leaves jit there too) and a fit over
+    gloo (its collectives run on the host) call the same step from
+    Python;
   * the trailing partial batch keeps its own shape (no padding);
   * validation follows Keras ``validation_split``: the last fraction of the
     rows is held out before any shuffling, and is evaluated eagerly once
@@ -64,8 +67,9 @@ the matrix stays on the host and shuffled parts of it are staged, by one
 of the JAX package's tiers, into two part buffers on the device while the
 captured steps run on the other; its epochs print ``[streaming]``.  Under
 a process group each rank stages only its block of each batch and runs
-the data-parallel step eagerly on it; with ``model_parallel`` the M ranks
-of a data index stage the same rows and each steps on its gene columns.
+the data-parallel step on it (replayed from CUDA graphs over NCCL); with
+``model_parallel`` the M ranks of a data index stage the same rows and
+each steps on its gene columns.
 
 The fit's artefacts, on every trainer, as the JAX package writes them
 under ``output_dir``: ``checkpoint_every=N`` saves the whole training
@@ -121,13 +125,14 @@ from ..ops.densify import device_densify, device_densify_flat, device_densify_fl
 from ..ops.resident import PART_BYTES_PER_SLOT, ResidentCSR, derive_input
 from ..parallel.mesh import (gather_params, gather_tensor, rank_devices, resolve_mesh,
                              shard_named)
+from ..parallel.launch import post_progress
 from ..parallel.multihost import initialize, is_primary
 from ..parallel.step import (StepBuffers, all_reduce_grads, batch_shard, held_shard,
                              make_sharded_train_step, part_rows, place_train_state,
                              shard_train_data, sharded_params, stream_places)
 from ..tbevents import EventWriter
 from .checkpoint import TrainCheckpoint, optimizer_tree
-from .graphs import EagerEpoch, GraphEpoch, GraphSteps
+from .graphs import EagerEpoch, GraphEpoch, GraphSteps, capture_steps
 from .optim import get_optimizer, state_tensors
 
 
@@ -322,7 +327,9 @@ class _FitCallbacks:
     def end_epoch(self, epoch, monitor) -> bool:
         """Apply all callbacks for one finished epoch; True => stop.  An
         improved monitor writes ``weights.hdf5`` from the live parameters,
-        after the epoch's read-back."""
+        after the epoch's read-back.  Posts the epoch as the rank's
+        progress where the launcher runs it (``launch.post_progress``)."""
+        post_progress()
         stop = False
         if monitor < self.best_monitor:
             self.best_monitor = monitor
@@ -434,6 +441,11 @@ def _start_fit(output_dir, checkpoint_every, resume, network, opt_state, generat
     return ckpts, start
 
 
+def _backend(group):
+    """The backend of process group ``group``, None for no group."""
+    return None if group is None else dist.get_backend(group)
+
+
 def _pad_rows(arr, n_pad):
     """Append ``n_pad`` copies of row 0 (the padding rows carry sample
     weight 0 through the loss)."""
@@ -508,13 +520,16 @@ def train(
     from this process, which is rank 0 and returns its History
     (``parallel/launch.py``, ``mesh.rank_devices``).
 
-    On one CUDA device, outside ``debug``, the steps are replayed from
-    CUDA graphs captured at the start of the fit (``train/graphs.py``);
-    ``_graphs=False``, for the tests, calls them from Python there too.
+    On a CUDA device, outside ``debug``, with no process group or over
+    NCCL, the steps are replayed from CUDA graphs captured at the start of
+    the fit (``train/graphs.py::capture_steps``); ``_graphs=False``, for
+    the tests, calls them from Python there too.
     ``_perms``, for the tests, an (epochs, n_train) array of row orders,
     replaces the ones a ``compiled=True`` fit draws.  ``_one_card``, for
     the tests and ``chip_smoke.py``: the ranks that ``devices`` starts all
-    share the network's CUDA device, over gloo."""
+    share the network's CUDA device, over gloo.  A rank that the launcher
+    runs posts its progress from the fit loop (``launch.post_progress``:
+    each epoch ended, each eager step, each streamed part)."""
     assert network.model is not None, "network.build() must be called before train()"
     ranks = rank_devices(devices, network.device, _one_card)
     if ranks is not None:
@@ -687,8 +702,8 @@ def _train_in_memory(adata, network, opt, lr, mesh, *, epochs, reduce_lr, early_
     # a resumed state is in place before the graphs capture the steps on it
     ckpts, start_epoch = _start_fit(output_dir, checkpoint_every, resume, network, opt_state,
                                     generator, cbs, seed, hist, rng_np, n_train, verbose)
-    if (graphs and epochs > start_epoch and device.type == "cuda" and group is None
-            and not network.definition.debug):
+    if epochs > start_epoch and capture_steps(device, _backend(group),
+                                              network.definition.debug, graphs):
         written = params + list(network.model.buffers()) + state_tensors(opt_state)
         run_epoch = GraphEpoch(step, bufs, rem, written, generator)
         hist.capture_s = run_epoch.capture_s
@@ -1063,11 +1078,12 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     data indices with copies of its first row at weight 0 and each rank
     evaluates its block through the weighted loss (K1w on a card),
     unweighted (K1) where the chunk divides them; the losses are summed
-    over the ranks once an epoch, in its one read-back.  The steps run eagerly, as
-    the in-memory data-parallel fit's (their collectives are not
-    captured); the prefetch thread stages and uploads, which takes no
-    collective, and the main thread alone issues the collectives, in the
-    same order on every rank.  Tiers as in the JAX package: the host
+    over the ranks once an epoch, in its one read-back.  The steps are
+    replayed from CUDA graphs over NCCL and run eagerly over gloo, as the
+    in-memory data-parallel fit's (``graphs.capture_steps``); the prefetch
+    thread stages and uploads, which takes no collective, and the main
+    thread alone issues the collectives and the replays, in the same order
+    on every rank.  Tiers as in the JAX package: the host
     densify, or the device densify with padded payloads; no derived input
     and no resident corpus.
 
@@ -1205,8 +1221,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     ckpts, start_epoch = _start_fit(output_dir, checkpoint_every, resume, network, opt_state,
                                     generator, cbs, seed, hist, rng_np, n_train, verbose,
                                     " [streaming]")
-    if (graphs and epochs > start_epoch and cuda and group is None
-            and not network.definition.debug):
+    if epochs > start_epoch and capture_steps(device, _backend(group),
+                                              network.definition.debug, graphs):
         written = params + list(network.model.buffers()) + state_tensors(opt_state)
         runner = GraphSteps(steps, written + [bufs.step_i, bufs.losses], generator, device)
         hist.capture_s = runner.capture_s
@@ -1407,6 +1423,7 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 slot.free.release()
                 if tl is not None:
                     tl.rec(pi, kind, "dispatch", t0, time.perf_counter())
+                post_progress()
 
             t0 = time.perf_counter()
             with torch.no_grad():

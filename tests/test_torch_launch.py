@@ -33,6 +33,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -298,30 +299,40 @@ def test_cli_without_torchrun_matches_one_process(tmp_path, capsys):
     assert sorted(os.listdir(tmp_path / "two")) == sorted(os.listdir(tmp_path / "one"))
 
 
-# a worker that runs the real one, but dies at the end of its second epoch
-DYING = """
-import os, sys
+# a worker that runs the real one, but at the end of its second epoch
+# dies (exit code 3) or stops answering while its process lives on
+FAILING = """
+import os, sys, time
 from dca_tpu_torch.parallel import launch
 from dca_tpu_torch.train import loop
 end = loop._FitCallbacks.end_epoch
-def dying(self, epoch, monitor):
+def failing(self, epoch, monitor):
     if epoch == 1:
-        sys.stderr.write("the worker dies after epoch 2\\n")
+        sys.stderr.write("the worker HOW after epoch 2\\n")
         sys.stderr.flush()
-        os._exit(3)
+        if "HOW" == "dies":
+            os._exit(3)
+        time.sleep(120)
     return end(self, epoch, monitor)
-loop._FitCallbacks.end_epoch = dying
+loop._FitCallbacks.end_epoch = failing
 launch._worker_main(*(int(a) for a in sys.argv[1:4]))
 """
+# launch.TIMEOUT_S of each case: it also bounds a worker's start-up, which
+# takes several seconds on a loaded host, so the silent worker needs room
+FAIL_TIMEOUTS = {"dies": 60.0, "silent": 3.0, "hangs": 20.0}
 
 
-@pytest.mark.parametrize("how", ["dies", "silent"])
+@pytest.mark.parametrize("how", ["dies", "silent", "hangs"])
 def test_a_failed_worker_ends_the_call_naming_its_rank(monkeypatch, how):
+    """A worker that dies in the fit, one that never joins, and one that
+    stops answering after epoch 2 while its process lives (the progress
+    rule: no rank moved for TIMEOUT_S, and rank 1 is behind)."""
     from dca_tpu_torch.parallel import launch
     from dca_tpu_torch.train.loop import train
 
-    monkeypatch.setattr(launch, "TIMEOUT_S", 60.0 if how == "dies" else 3.0)
-    script = DYING if how == "dies" else "import time; time.sleep(120)"
+    monkeypatch.setattr(launch, "TIMEOUT_S", FAIL_TIMEOUTS[how])
+    script = ("import time; time.sleep(120)" if how == "silent"
+              else FAILING.replace("HOW", how))
     monkeypatch.setattr(launch, "worker_command", lambda rank, world, port: [
         sys.executable, "-c", script, str(port), str(rank), str(world)])
     net = _network(_own_weights())
@@ -334,9 +345,155 @@ def test_a_failed_worker_ends_the_call_naming_its_rank(monkeypatch, how):
     assert "rank 1 of 2" in msg, msg
     if how == "dies":
         assert "exited with code 3" in msg and "the worker dies after epoch 2" in msg, msg
+    elif how == "hangs":
+        assert "made no progress for 20 s" in msg and "the worker hangs after epoch 2" in msg, msg
     else:
         assert "did not join within 3 s" in msg, msg
     assert _left(before) == (False, [], [])
+
+
+class _FakeProc:
+    pid = 4242
+
+    def poll(self):
+        return None  # alive
+
+
+class _FakeWorker:
+    """A worker of ``launch._Monitor`` with no process behind it."""
+
+    def __init__(self, rank):
+        self.rank, self.proc, self.killed = rank, _FakeProc(), False
+
+    def kill(self):
+        self.killed = True
+
+    def stderr(self):
+        return ""
+
+
+def test_the_rank_behind_is_the_least_count_then_the_oldest_move():
+    from dca_tpu_torch.parallel.launch import behind
+
+    assert behind({0: 4, 1: 3, 2: 5}, {0: 1.0, 1: 3.0, 2: 2.0}) == 1
+    assert behind({0: 4, 1: 4, 2: 4}, {0: 3.0, 1: 2.0, 2: 1.0}) == 2
+    assert behind({0: 2, 1: 2}, {0: 1.0, 1: 1.0}) == 0
+
+
+@pytest.mark.parametrize("stops", [1, 0])
+def test_the_monitor_fails_the_rank_behind_once_no_rank_moves(stops):
+    """The progress rule on a real TCPStore with fake workers: while any
+    rank posts, no rank is failed, however long another has been silent;
+    once none has moved for the timeout the rank behind (``stops``, which
+    stopped first) is failed, every worker killed, and rank 0's next post
+    raises.  Rank 0 behind is named as this process."""
+    import datetime
+
+    from dca_tpu_torch.parallel import launch
+
+    store = torch.distributed.TCPStore("127.0.0.1", 0, None, True,
+                                       datetime.timedelta(seconds=30), wait_for_workers=False)
+    world, timeout = 3, 2.0  # seconds: room for a loaded host's scheduling
+    for r in range(world):
+        store.set(launch._progress_key(r), "0")
+    workers = [_FakeWorker(r) for r in range(1, world)]
+    monitor = launch._Monitor(workers)
+    try:
+        monitor.stall = launch._Stall(store, world, timeout)
+        posts = [launch.Progress(store, r, monitor.raise_failed if r == 0 else None)
+                 for r in range(world)]
+        for post in posts:
+            post()
+        # ``stops`` is silent for 4 timeouts while the others move
+        t_end = time.monotonic() + 4 * timeout
+        while time.monotonic() < t_end:
+            for r in range(world):
+                if r != stops:
+                    posts[r]()
+            time.sleep(timeout / 10)
+        assert monitor.failed is None
+        t_end = time.monotonic() + 10 * timeout
+        while monitor.failed is None and time.monotonic() < t_end:
+            time.sleep(0.05)
+        assert monitor.failed is not None
+        worker, what = monitor.failed
+        assert (worker.rank if worker is not None else 0) == stops
+        assert f"made no progress for {timeout:g} s" in what
+        assert all(w.killed for w in workers)
+        with pytest.raises(launch.LaunchError):
+            posts[0]()
+        with pytest.raises(launch.LaunchError, match=f"rank {stops} of {world}"):
+            launch._raise_failure(monitor, world)
+    finally:
+        monitor.stop()
+        monitor.stall = None
+        del store
+
+
+class _FakeGraph:
+    """A captured graph's stand-in: counts its replays, records its reset."""
+
+    def __init__(self):
+        self.replays, self.released = 0, threading.Event()
+
+    def replay(self):
+        self.replays += 1
+
+    def reset(self):
+        self.released.set()
+
+
+def _fake_steps(thread):
+    """A ``GraphSteps`` of two fake graphs, registered as a capture on
+    ``thread`` registers it (no CUDA device here)."""
+    from dca_tpu_torch.train import graphs
+
+    steps = object.__new__(graphs.GraphSteps)
+    steps.graphs = {False: _FakeGraph(), True: _FakeGraph()}
+    steps.launches = {False: {}, True: {}}
+    steps.thread, steps.lock = thread, threading.Lock()
+    with graphs._LIVE_LOCK:
+        graphs._LIVE.add(steps)
+    return steps
+
+
+def test_release_graphs_destroys_the_graphs_of_one_thread():
+    """``graphs.release_graphs(thread)`` resets the step graphs that
+    ``thread`` captured and no other; a replay of released steps raises."""
+    from dca_tpu_torch.train.graphs import release_graphs
+
+    mine, other = _fake_steps(threading.get_ident()), _fake_steps(-1)
+    mine.replay(False, 3)
+    fakes = list(mine.graphs.values())
+    release_graphs(threading.get_ident())
+    assert all(g.released.is_set() for g in fakes) and fakes[0].replays == 3
+    with pytest.raises(RuntimeError, match="released"):
+        mine.replay(False)
+    other.replay(True)
+    assert not any(g.released.is_set() for g in other.graphs.values())
+    assert other.graphs[True].replays == 1
+
+
+def test_the_abort_ends_once_the_fits_graphs_are_released(monkeypatch):
+    """The launcher's NCCL abort (``launch._abort_group``) starts the
+    group's abort and meanwhile destroys rank 0's step graphs: an abort
+    that, as NCCL's does, finishes only once no graph holds the
+    communicator's collectives ends, with the graphs released."""
+    import torch.distributed as dist
+
+    from dca_tpu_torch.parallel import launch
+
+    steps = _fake_steps(threading.get_ident())
+    fakes = list(steps.graphs.values())
+    seen = {}
+
+    def abort():  # NCCL's: the communicator goes once no graph holds it
+        seen["released"] = all(g.released.wait(10.0) for g in fakes)
+
+    monkeypatch.setattr(dist.distributed_c10d, "_abort_process_group", abort)
+    t0 = time.monotonic()
+    launch._abort_group(threading.get_ident())
+    assert seen == {"released": True} and time.monotonic() - t0 < 5.0
 
 
 def _own_weights():
