@@ -9,11 +9,14 @@ replays its sharded step from CUDA graphs (``train/graphs.py``), and each
 grid is fitted both ways in this one call, captured and eager
 (``_graphs=False``), on spawned ranks, and again launched from this
 process (``parallel/launch.py``): the n x 1 grid in memory (zinb-conddisp 3
-epochs at 3451 genes), the 2 x 2 and 1 x 4 grids at MP_GENES, and the
-streamed 2 x 2 grid (parts of 512, 2 epochs, host tier): the same bits
-captured and eager, spawned and launched, each rank's launches its
-schedule's (the captured fits with their warm-ups), the first and steady
-epochs and capture seconds printed.  Then:
+epochs at 3451 genes), the 2 x 2 and 1 x 4 grids at MP_GENES, the
+streamed 2 x 2 grid (parts of 512, 2 epochs, host tier), and the same
+three in-memory grids with ``compiled=True`` on the first 2720 cells
+(the whole-fit graph, one replay an epoch with the collectives inside,
+against its epochs from Python): the same bits captured and eager,
+spawned and launched, each rank's launches its schedule's (the captured
+fits with their warm-ups: the whole-fit graph's is an epoch), the first
+and steady epochs and capture seconds printed.  Then:
 
 Trains zinb-conddisp (64-32-64, batch 32) on ``chip_smoke.py``'s 2730 x
 3451 Paul15-shaped matrix on one card in this process, 2 epochs through
@@ -67,13 +70,22 @@ here imports JAX or the JAX package.
 
     python3 chip_dp.py [n_cards] --launch-checks
 
-runs only the launcher's checks over NCCL (``phase_launch_checks``): a
-launched fit whose rank 1 dies, and one whose rank 1 stops answering
-(rank 0 then waits in a collective), each from a child
+runs only the failure checks over NCCL (``phase_launch_checks``,
+FAIL_CASES): a fit of two ranks whose rank 1 dies, or stops answering
+while its process lives (rank 0 then waits in a collective), its ranks
+started by the launcher (``train(devices=2)``) or by hand
+(``init_process_group`` from torchrun's variables, no launcher: the
+group's own progress rule), under replayed steps (rank 1 fails at the
+end of epoch 2) or under the whole-fit graph (``compiled=True``: rank 1
+fails once its card has run epoch 2), eight checks, each from a child
 process that must survive, raise ``LaunchError`` naming rank 1 within
-FAIL_TIMEOUT + 30 s of rank 0's epoch 2, leave nothing running and then
-train a next launched fit.  The two children run at once, each on two
+FAIL_TIMEOUT + 30 s of its failure, leave no group and no child, and
+then train a next fit.  The children run two at a time, each on two
 cards of its own (``CUDA_VISIBLE_DEVICES``), so four cards are needed.
+
+    python3 chip_dp.py [n_cards] --compiled-pairs
+
+runs only the graph pairs' ``compiled=True`` fits.
 
     python3 chip_dp.py [n_cards] --thread-timings
 
@@ -85,6 +97,7 @@ with ``threads`` 1 and the caller's default count, for their epoch times
 from __future__ import annotations
 
 import faulthandler
+import functools
 import json
 import os
 import signal
@@ -173,29 +186,39 @@ PAIR_EPOCHS = 3  # the in-memory fits of the graph pairs
 PAIR_TIMEOUT = 900  # seconds for the spawned ranks of the graph pairs, start-up included
 
 
-def pair_configs(n):
+def pair_configs(n, kinds=("steps", "compiled")):
     """The graph pairs' fits on ``n`` ranks: {name: (genes, model_parallel,
-    streamed)}: the data-parallel grid n x 1 at 3451 genes, the grids (n /
-    M) x M at MP_GENES for M = 2 and 4 where M divides n, and the streamed
-    (n / 2) x 2 grid at MP_GENES."""
-    out = {f"{n}x1 in memory": (3451, 1, False)}
-    for m in (2, 4):
-        if n % m == 0:
-            out[f"{n // m}x{m} in memory at {MP_GENES} genes"] = (MP_GENES, m, False)
-    if n % 2 == 0:
-        out[f"streamed {n // 2}x2 at {MP_GENES} genes"] = (MP_GENES, 2, True)
+    fit)}, ``fit`` "memory", "streamed" or "compiled".  Of ``kinds``
+    "steps": the data-parallel grid n x 1 at 3451 genes, the grids (n / M)
+    x M at MP_GENES for M = 2 and 4 where M divides n, and the streamed (n
+    / 2) x 2 grid at MP_GENES; "compiled": the same in-memory grids with
+    ``compiled=True`` on the first ``cs.DP_COMPILED_CELLS`` cells (a split
+    that every grid's data indices divide)."""
+    out = {}
+    for kind, fit in (("steps", "memory"), ("compiled", "compiled")):
+        if kind not in kinds:
+            continue
+        label = "in memory" if fit == "memory" else "compiled"
+        out[f"{n}x1 {label}"] = (3451, 1, fit)
+        for m in (2, 4):
+            if n % m == 0:
+                out[f"{n // m}x{m} {label} at {MP_GENES} genes"] = (MP_GENES, m, fit)
+    if "steps" in kinds and n % 2 == 0:
+        out[f"streamed {n // 2}x2 at {MP_GENES} genes"] = (MP_GENES, 2, "streamed")
     return out
 
 
-def _pair_fit(counts, model, streamed, graphs, devices):
+def _pair_fit(counts, model, fit, graphs, devices):
     """One fit of the graph pairs: zinb-conddisp 64-32-64 on ``counts`` over
     ``devices`` ("all" on a spawned rank, n from this process) on a grid of
-    ``model`` columns, in memory through ``dca()`` for PAIR_EPOCHS or
-    streamed through ``train()`` (host tier, parts of STREAM_MAX_CELLS,
-    DP_STREAM_EPOCHS) from ``_stream_state``'s weights, its steps captured
-    (``graphs``) or eager (``_graphs=False``); {history, this rank's
-    launches, epoch seconds, capture seconds, the digest of the final
-    parameters (whole on every rank)}."""
+    ``model`` columns, in memory through ``dca()`` for PAIR_EPOCHS (with
+    ``compiled=True`` on the first DP_COMPILED_CELLS cells where ``fit`` is
+    "compiled") or streamed through ``train()`` (host tier, parts of
+    STREAM_MAX_CELLS, DP_STREAM_EPOCHS) from ``_stream_state``'s weights,
+    its steps (or the compiled fit's epochs) captured (``graphs``) or from
+    Python (``_graphs=False``); {history, this rank's launches, epoch
+    seconds, capture seconds, the digest of the final parameters (whole on
+    every rank)}."""
     import hashlib
 
     import torch
@@ -203,7 +226,10 @@ def _pair_fit(counts, model, streamed, graphs, devices):
     from dca_tpu_torch.ops import fused_loss as fl
 
     dev = torch.device("cuda")
-    if streamed:
+    kw = {"_graphs": graphs}
+    if fit == "compiled":
+        counts, kw["compiled"] = counts[:cs.DP_COMPILED_CELLS], True
+    if fit == "streamed":
         with cs._switches(cs.STREAM_TIERS["host"]):
             hist, launches, net = cs._stream_fit(
                 dev, cs._lazy_adata(counts), cs._stream_state(dev, counts.shape[1]),
@@ -212,7 +238,7 @@ def _pair_fit(counts, model, streamed, graphs, devices):
     else:
         fl.reset_launches()
         _, net, hist = cs._mp_fit(counts, "zinb-conddisp", PAIR_EPOCHS, devices=devices,
-                                  model_parallel=model, training_kwds={"_graphs": graphs})
+                                  model_parallel=model, training_kwds=kw)
         launches = dict(fl.launches)
     torch.cuda.synchronize()
     digest = hashlib.sha1(b"".join(v.detach().cpu().numpy().tobytes()
@@ -221,7 +247,7 @@ def _pair_fit(counts, model, streamed, graphs, devices):
             "capture_s": hist.capture_s, "params": digest}
 
 
-def _pair_rank(rank, world, port, out_dir):
+def _pair_rank(rank, world, port, out_dir, kinds):
     """One spawned rank of the graph pairs, on its card over NCCL: each fit
     of ``pair_configs``, captured then eager."""
     import torch
@@ -231,26 +257,30 @@ def _pair_rank(rank, world, port, out_dir):
     multihost.initialize(f"localhost:{port}", world, rank, backend="nccl")
     counts = cs.make_paul15_like()
     res = {}
-    for name, (genes, model, streamed) in pair_configs(world).items():
+    for name, (genes, model, fit) in pair_configs(world, kinds).items():
         for graphs in (True, False):
             res[f"{name} {'captured' if graphs else 'eager'}"] = _pair_fit(
-                counts[:, :genes], model, streamed, graphs, "all")
+                counts[:, :genes], model, fit, graphs, "all")
     with open(os.path.join(out_dir, f"pairs{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
 
 
-def _want_pair(n, model, streamed, rank, graphs):
-    """Rank ``rank``'s K1/K2 launches in a pair fit on ``n`` ranks."""
+def _want_pair(n, model, fit, rank, graphs):
+    """Rank ``rank``'s K1/K2 launches in a pair fit on ``n`` ranks: the
+    whole-fit graph's warm-up runs one epoch more."""
     n_data = n // model
-    if streamed:
+    if fit == "streamed":
         return cs.want_group_stream_launches(cs.DP_STREAM_EPOCHS, 2730, cs.STREAM_MAX_CELLS,
                                              n_data, rank // model, captured=graphs)
+    if fit == "compiled":
+        return cs.want_mp_launches("zinb", PAIR_EPOCHS + graphs, cs.DP_COMPILED_CELLS, n_data,
+                                   rank // model)
     return cs.want_mp_launches("zinb", PAIR_EPOCHS, 2730, n_data, rank // model,
                                captured=graphs)
 
 
-def phase_graph_pairs(n, cards):
+def phase_graph_pairs(n, cards, kinds=("steps", "compiled")):
     """The sharded step replayed from CUDA graphs over NCCL against the same
     step eager, in one call: each fit of ``pair_configs(n)``, captured and
     eager, on ``n`` spawned ranks (a card a rank) and launched from this
@@ -268,19 +298,19 @@ def phase_graph_pairs(n, cards):
     out_dir = os.path.join(cs.OUT_DIR, "pairs")
     os.makedirs(out_dir, exist_ok=True)
     os.makedirs(LOG_DIR, exist_ok=True)
-    cs.run_ranks(_pair_rank, n, (out_dir,), PAIR_TIMEOUT, "the graph pairs")
+    cs.run_ranks(_pair_rank, n, (out_dir, kinds), PAIR_TIMEOUT, "the graph pairs")
     ranks = []
     for r in range(n):
         with open(os.path.join(out_dir, f"pairs{r}.json")) as f:
             ranks.append(json.load(f))
     counts = cs.make_paul15_like()
     launched = {}
-    for name, (genes, model, streamed) in pair_configs(n).items():
+    for name, (genes, model, fit) in pair_configs(n, kinds).items():
         for graphs in (True, False):
             launched[f"{name} {'captured' if graphs else 'eager'}"] = _pair_fit(
-                counts[:, :genes], model, streamed, graphs, n)
+                counts[:, :genes], model, fit, graphs, n)
     out, bad = {}, []
-    for name, (genes, model, streamed) in pair_configs(n).items():
+    for name, (genes, model, fit) in pair_configs(n, kinds).items():
         fits = {}
         for how, res in (("spawned", ranks[0]), ("launched", launched)):
             for mode in ("captured", "eager"):
@@ -303,14 +333,14 @@ def phase_graph_pairs(n, cards):
             replays = mode == "captured"
             if (f["capture_s"] is not None) != replays:
                 bad.append(f"{name}: {how} {mode} capture_s {f['capture_s']}")
-            want = _want_pair(n, model, streamed, 0, replays)
+            want = _want_pair(n, model, fit, 0, replays)
             if f["launches"] != want:
                 bad.append(f"{name}: {how} {mode} rank 0 launched {f['launches']}, expected "
                            f"{want}")
         for rk, res in enumerate(ranks[1:], 1):
             for mode in ("captured", "eager"):
                 f = res[f"{name} {mode}"]
-                want = _want_pair(n, model, streamed, rk, mode == "captured")
+                want = _want_pair(n, model, fit, rk, mode == "captured")
                 if f["history"] != base["history"] or f["launches"] != want:
                     bad.append(f"{name}: spawned rank {rk} {mode}: history {f['history']}, "
                                f"launches {f['launches']} (expected {want})")
@@ -331,27 +361,73 @@ def _print_mp(mp, n, cards):
               f"relative differences from one card {v['rel']}; cards: {'; '.join(cards[:n])}")
 
 
-# a launched worker that runs the real one, but at the end of its second
-# epoch dies (exit code 3) or stops answering
+# the launcher's failure checks: {name: (who starts the ranks, what rank 1
+# does, where)}: "launched" by ``train(devices=2)`` (``parallel/launch.py``)
+# or "hand": two processes that join by ``init_process_group("nccl",
+# init_method="env://")`` (no launcher: the group's own progress rule);
+# rank 1 "dies" (exit code 3) or "hangs" (its process lives on, silent);
+# "step": at the end of epoch 2 of a fit whose steps replay from CUDA
+# graphs, "fit": once its device has run epoch 2 of the whole-fit graph
+# (``compiled=True``)
+FAIL_CASES = {
+    "dies": ("launched", "dies", "step"), "hangs": ("launched", "hangs", "step"),
+    "dies-fit": ("launched", "dies", "fit"), "hangs-fit": ("launched", "hangs", "fit"),
+    "hand-dies": ("hand", "dies", "step"), "hand-hangs": ("hand", "hangs", "step"),
+    "hand-dies-fit": ("hand", "dies", "fit"), "hand-hangs-fit": ("hand", "hangs", "fit"),
+}
+FAIL_TIMEOUT = 30.0  # the stall timeout in the failure checks, seconds
+FAIL_LIMIT = 180  # seconds for each check's child process
+FAIL_PAIRS = ("0,1", "2,3")  # the cards of the two checks that run at once
+FAIL_EPOCHS = 5
+# a launched worker that runs the real one, armed to fail
 FAILING_WORKER = """
-import os, sys, time
+import sys
+sys.path.insert(0, REPO)
+import chip_dp
 from dca_tpu_torch.parallel import launch
-from dca_tpu_torch.train import loop
-end = loop._FitCallbacks.end_epoch
-def failing(self, epoch, monitor):
-    if epoch == 1:
-        sys.stderr.write("the worker HOW after epoch 2\\n")
-        sys.stderr.flush()
-        if "HOW" == "dies":
-            os._exit(3)
-        time.sleep(3600)
-    return end(self, epoch, monitor)
-loop._FitCallbacks.end_epoch = failing
+chip_dp.arm_failure(HOW, WHERE, FAILED_AT)
 launch._worker_main(*(int(a) for a in sys.argv[1:4]))
 """
-FAIL_TIMEOUT = 30.0  # the launcher's timeout in the failure checks, seconds
-FAIL_LIMITS = {"dies": 150, "hangs": 180}  # seconds for each check's child process
-FAIL_CARDS = {"dies": "0,1", "hangs": "2,3"}  # the cards of each check's child
+
+
+def arm_failure(how, where, failed_at):
+    """Make this process's rank fail as ``how`` says ("dies": exit code 3;
+    "hangs": its process lives on, silent) at ``where`` ("step": the end of
+    epoch 2 of a Python-epoch fit, ``_FitCallbacks.end_epoch``; "fit":
+    once the device has run epoch 2 of the whole-fit graph, before its
+    point of progress, ``GraphFit.run_each``'s ``post``: so the other rank
+    has run it too and is ahead by that point),
+    first writing the wall time of the failure to ``failed_at``."""
+    from dca_tpu_torch.train import compiled, loop
+
+    def fail():
+        with open(failed_at, "w") as f:
+            f.write(repr(time.time()))
+        sys.stderr.write(f"rank 1 {how} after epoch 2\n")
+        sys.stderr.flush()
+        if how == "dies":
+            os._exit(3)
+        time.sleep(3600)
+
+    if where == "step":
+        end = loop._FitCallbacks.end_epoch
+
+        def failing(self, epoch, monitor):
+            if epoch == 1:
+                fail()
+            return end(self, epoch, monitor)
+
+        loop._FitCallbacks.end_epoch = failing
+    else:
+        post, posts = compiled.post_progress, []
+
+        def failing_post():
+            posts.append(1)
+            if len(posts) == 2:
+                fail()
+            post()
+
+        compiled.post_progress = failing_post
 
 
 def _live_children():
@@ -365,91 +441,153 @@ def _live_children():
     return sorted(kids)
 
 
-def failure_child(how, dev, n_ranks=2):
-    """A launched fit (``train(devices=n_ranks)``, zinb-conddisp 2730 x
-    3451, 5 epochs, over NCCL) from this process whose rank 1 ``how``
-    ("dies", "hangs") after epoch 2, with the launcher's timeout
-    FAIL_TIMEOUT; then a launched 1-epoch fit in the same process.  Rank 0
-    meanwhile waits in an epoch 3 collective.  Returns {the error's type and first lines,
-    seconds to it from the call and from rank 0's end of epoch 2, a group
-    or children left, the next fit's history, ok}: ok for "dies" a
-    ``LaunchError`` naming rank 1's exit code, for "hangs" one naming rank
-    1 and its lack of progress within FAIL_TIMEOUT + 30 s of rank 0's
-    epoch 2."""
+def _listen_port():
+    """A free port below the host's ephemeral range, for rank 0's store: a
+    port of that range that ``cs._free_port`` frees may be taken by another
+    process's outgoing connection before the store listens on it
+    (EADDRINUSE)."""
+    import random
+    import socket
+
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    while True:
+        port = random.randrange(max(low - 8192, 1024), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+
+
+def _fail_data(dev):
+    """The failure checks' data: ``chip_smoke.py``'s matrix on its first
+    DP_COMPILED_CELLS cells (a split that 2 ranks divide: ``compiled=True``
+    takes the whole-fit graph), with phase 10's weights."""
+    adata = cs._lazy_adata(cs.make_paul15_like()[:cs.DP_COMPILED_CELLS])
+    return adata, cs._stream_state(dev, adata.n_vars)
+
+
+def _hand_rank(how, where, failed_at):
+    """Rank 1 of a "hand" check: joins the group from torchrun's
+    variables, armed to fail."""
     import torch
+    import torch.distributed as dist
 
     from dca_tpu_torch.parallel import launch
-    from dca_tpu_torch.train import loop
 
     launch.TIMEOUT_S = FAIL_TIMEOUT
-    ended = {}
-    end = loop._FitCallbacks.end_epoch
+    torch.cuda.set_device(1)
+    dev = torch.device("cuda", 1)
+    dist.init_process_group("nccl", init_method="env://")
+    arm_failure(how, where, failed_at)
+    adata, state = _fail_data(dev)
+    cs._stream_fit(dev, adata, state, FAIL_EPOCHS, verbose=False, devices="all",
+                   compiled=where == "fit")
 
-    def timed(self, epoch, monitor):
-        ended[epoch] = time.perf_counter()
-        return end(self, epoch, monitor)
 
-    loop._FitCallbacks.end_epoch = timed
-    script = FAILING_WORKER.replace("HOW", how)
-    inner = launch.worker_command
-    launch.worker_command = lambda rank, world, port: [sys.executable, "-c", script, str(port),
-                                                       str(rank), str(world)]
-    adata = cs._lazy_adata(cs.make_paul15_like())
-    state = cs._stream_state(dev, adata.n_vars)
+def failure_child(name, dev, n_ranks=2):
+    """The failure check ``name`` (FAIL_CASES) from this process, rank 0
+    on ``dev``: a fit of zinb-conddisp 2720 x 3451 over NCCL, FAIL_EPOCHS
+    epochs, its steps replayed ("step") or ``compiled=True`` ("fit"), whose
+    rank 1 fails, with the stall timeout FAIL_TIMEOUT (``launch.TIMEOUT_S``);
+    then a next fit in the same process (launched again, or with no
+    group for a "hand" check).  Returns {the error's type and first lines,
+    seconds to it from the call and from rank 1's failure, a group or
+    children left, the next fit's history, ok}: ok for a ``LaunchError``
+    naming rank 1 (its exit code where the launcher saw it exit, else its
+    lack of progress) within FAIL_TIMEOUT + 30 s of its failure, nothing
+    left, and a next fit that trains."""
+    import torch
+    import torch.distributed as dist
+
+    from dca_tpu_torch.parallel import launch
+
+    start, how, where = FAIL_CASES[name]
+    launch.TIMEOUT_S = FAIL_TIMEOUT
+    failed_at = os.path.join(LOG_DIR, f"failed_at_{name}")
+    peer, inner = None, launch.worker_command
+    if start == "launched":
+        script = (FAILING_WORKER.replace("REPO", repr(REPO)).replace("HOW", repr(how))
+                  .replace("WHERE", repr(where)).replace("FAILED_AT", repr(failed_at)))
+        launch.worker_command = lambda rank, world, port: [
+            sys.executable, "-c", script, str(port), str(rank), str(world)]
+        devices = n_ranks
+    else:
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_listen_port()),
+                   WORLD_SIZE=str(n_ranks))
+        with open(os.path.join(LOG_DIR, f"failure_{name}_rank1.err"), "w") as log:
+            peer = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--hand-rank",
+                                     how, where, failed_at], env=dict(env, RANK="1"),
+                                    stdout=log, stderr=log, stdin=subprocess.DEVNULL)
+        os.environ.update(env, RANK="0")
+        dist.init_process_group("nccl", init_method="env://")
+        devices = "all"
+    adata, state = _fail_data(dev)
     t0 = time.perf_counter()
     err = None
     try:
-        cs._stream_fit(dev, adata, state, 5, verbose=False, devices=n_ranks)
+        cs._stream_fit(dev, adata, state, FAIL_EPOCHS, verbose=False, devices=devices,
+                       compiled=where == "fit")
     except Exception as e:  # what the caller sees
         err = e
-    t_err = time.perf_counter()
-    out = {"how": how, "seconds": t_err - t0,
-           "after_epoch_2_s": t_err - ended[1] if 1 in ended else None,
+    t_err, wall = time.perf_counter(), time.time()
+    failed = float(open(failed_at).read()) if os.path.exists(failed_at) else None
+    if peer is not None:
+        peer.kill()
+        out_peer = peer.wait()
+    out = {"case": name, "seconds": t_err - t0,
+           "after_failure_s": None if failed is None else wall - failed,
            "error": None if err is None else type(err).__name__,
            "message": "" if err is None else str(err)[:1500],
-           "group_left": torch.distributed.is_initialized(), "children_left": _live_children()}
-    what = "exited with code 3" if how == "dies" else f"made no progress for {FAIL_TIMEOUT:g} s"
+           "group_left": dist.is_initialized(), "children_left": _live_children()}
+    if peer is not None:
+        out["rank1_rc"] = out_peer
+    what = ("exited with code 3" if start == "launched" and how == "dies"
+            else f"made no progress for {FAIL_TIMEOUT:g} s")
     out["ok"] = (isinstance(err, launch.LaunchError) and f"rank 1 of {n_ranks}" in out["message"]
                  and what in out["message"] and not out["group_left"]
-                 and not out["children_left"] and out["after_epoch_2_s"] is not None
-                 and out["after_epoch_2_s"] < FAIL_TIMEOUT + 30)
+                 and not out["children_left"] and out["after_failure_s"] is not None
+                 and out["after_failure_s"] < FAIL_TIMEOUT + 30)
     launch.worker_command = inner
-    hist, _, _ = cs._stream_fit(dev, adata, state, 1, verbose=False, devices=n_ranks)
+    hist, _, _ = cs._stream_fit(dev, adata, state, 1, verbose=False,
+                                devices=n_ranks if start == "launched" else None)
     out["next_fit"] = hist.history
     out["ok"] = out["ok"] and bool(np.isfinite(hist.history["loss"]).all()) and (
-        not torch.distributed.is_initialized() and not _live_children())
+        not dist.is_initialized() and not _live_children())
     return out
 
 
-def _start_failure_child(how):
-    """``failure_child(how)`` in its own interpreter and session, on the
-    cards ``FAIL_CARDS[how]``, its output into files (no pipe to fill
-    while the other child is read): a caller that the failure kills shows
-    as the child's exit code, and whatever the child leaves is killed with
-    its session."""
+def _start_failure_child(name, cards):
+    """``failure_child(name)`` in its own interpreter and session, on
+    ``cards``, its output into files (no pipe to fill while the other
+    child is read): a caller that the failure kills shows as the child's
+    exit code, and whatever the child leaves is killed with its
+    session."""
     os.makedirs(LOG_DIR, exist_ok=True)
-    cmd = [sys.executable, os.path.abspath(__file__), "--failure-child", how]
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES=FAIL_CARDS[how])
-    with open(os.path.join(LOG_DIR, f"failure_{how}.out"), "w") as out, \
-            open(os.path.join(LOG_DIR, f"failure_{how}.err"), "w") as err:
+    cmd = [sys.executable, os.path.abspath(__file__), "--failure-child", name]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards)
+    with open(os.path.join(LOG_DIR, f"failure_{name}.out"), "w") as out, \
+            open(os.path.join(LOG_DIR, f"failure_{name}.err"), "w") as err:
         return subprocess.Popen(cmd, stdout=out, stderr=err, stdin=subprocess.DEVNULL,
                                 start_new_session=True, env=env)
 
 
-def _end_failure_child(how, proc, t_end):
-    """The result of ``_start_failure_child(how)``'s ``proc``, killed at
+def _end_failure_child(name, proc, t_end):
+    """The result of ``_start_failure_child(name)``'s ``proc``, killed at
     ``t_end`` (monotonic seconds) if it has not ended."""
     try:
         rc = proc.wait(timeout=max(t_end - time.monotonic(), 1.0))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.wait()
-        rc = f"killed after {FAIL_LIMITS[how]} s"
+        rc = f"killed after {FAIL_LIMIT} s"
     try:
         os.killpg(proc.pid, signal.SIGKILL)  # anything of the child's left
     except ProcessLookupError:
         pass
-    with open(os.path.join(LOG_DIR, f"failure_{how}.out")) as f:
+    with open(os.path.join(LOG_DIR, f"failure_{name}.out")) as f:
         out = f.read()
     lines = [ln for ln in out.splitlines() if ln.startswith("{")]
     res = json.loads(lines[-1]) if lines else {"ok": False}
@@ -499,19 +637,22 @@ def thread_timings(dev, n_ranks, cards):
     return out
 
 
-def phase_launch_checks(n, cards):
-    """The launcher's failure checks over NCCL, the two children at once on
-    cards of their own."""
-    cs._check(n >= 4, f"--launch-checks runs its two children on two cards each: {n} cards")
-    t0 = time.monotonic()
-    procs = {how: _start_failure_child(how) for how in FAIL_LIMITS}
-    failures = {how: _end_failure_child(how, proc, t0 + FAIL_LIMITS[how])
-                for how, proc in procs.items()}
-    for how, res in failures.items():
-        print(f"launched fit whose rank 1 {how} (cards {FAIL_CARDS[how]}): {json.dumps(res)}")
+def phase_launch_checks(n, cards, names=tuple(FAIL_CASES)):
+    """The failure checks ``names`` over NCCL, two at a time, each child on
+    two cards of its own (FAIL_PAIRS)."""
+    cs._check(n >= 4, f"--launch-checks runs its children on two cards each: {n} cards")
+    failures = {}
+    for i in range(0, len(names), len(FAIL_PAIRS)):
+        t_end = time.monotonic() + FAIL_LIMIT
+        procs = {name: _start_failure_child(name, pair)
+                 for name, pair in zip(names[i:i + len(FAIL_PAIRS)], FAIL_PAIRS)}
+        failures.update({name: _end_failure_child(name, proc, t_end)
+                         for name, proc in procs.items()})
+    for name, res in failures.items():
+        print(f"launch check {name} {FAIL_CASES[name]}: {json.dumps(res)}")
     with open(os.path.join(LOG_DIR, "launch_checks.json"), "w") as f:
         json.dump({"failures": failures, "cards": cards[:n]}, f)
-    bad = [how for how, res in failures.items() if not res.get("ok")]
+    bad = [name for name, res in failures.items() if not res.get("ok")]
     cs._check(not bad, f"the launcher's failure checks {bad} failed: {failures}")
 
 
@@ -530,12 +671,18 @@ def main():
     if sys.argv[1:2] == ["--failure-child"]:
         # the threads' stacks on stderr (the child's log) if it is still
         # running shortly before its limit
-        faulthandler.dump_traceback_later(FAIL_LIMITS[sys.argv[2]] - 15)
+        faulthandler.dump_traceback_later(FAIL_LIMIT - 15)
         cs.phase_build()
+        torch.cuda.set_device(0)
         res = failure_child(sys.argv[2], torch.device("cuda", 0))
         print(json.dumps(res))
         return 0 if res["ok"] else 1
-    flags = {"--launch-checks": phase_launch_checks, "--thread-timings": phase_thread_timings}
+    if sys.argv[1:2] == ["--hand-rank"]:
+        faulthandler.dump_traceback_later(FAIL_LIMIT - 15)
+        _hand_rank(*sys.argv[2:5])
+        return 0
+    flags = {"--compiled-pairs": functools.partial(phase_graph_pairs, kinds=("compiled",)),
+             "--launch-checks": phase_launch_checks, "--thread-timings": phase_thread_timings}
     only = [phase for flag, phase in flags.items() if flag in sys.argv]
     sys.argv = [a for a in sys.argv if a not in flags]
     if not torch.cuda.is_available():
@@ -552,14 +699,19 @@ def main():
                            timeout=60).stdout.strip().splitlines()
     models = tuple(m for m in (1, 2, 4) if n % m == 0)
     if only:
+        failed = False
         try:
             cs.phase_build()
-            for phase in only:
-                phase(n, cards)
         except cs.SmokeFailure as e:
             print(f"chip_dp: FAILED: {e}", file=sys.stderr)
             return 1
-        return 0
+        for phase in only:  # each runs whatever an earlier one gave
+            try:
+                phase(n, cards)
+            except cs.SmokeFailure as e:
+                print(f"chip_dp: FAILED: {e}", file=sys.stderr)
+                failed = True
+        return 1 if failed else 0
     try:
         cs.phase_build()
         phase_graph_pairs(n, cards)

@@ -159,10 +159,12 @@ Phases, each of which must pass:
    16 / 16 K1/K2, 2 K1w and 1 K2w a rank (the NB K2w's launch in a fit),
    rank 0's event file.  Then zinb-conddisp with ``compiled=True`` for 2
    epochs on the first 2720 cells (2448 train and 272 validation rows,
-   which divide the ranks: the whole fit, eager under the group): the
-   same history on both ranks, within rtol 1e-3 of phase 13's one-card
-   compiled fit of the same cells, 156 / 154 K1/K2 a rank and no weighted
-   kernel.  Then the streaming trainer under the group: phase 10 (a)'s
+   which divide the ranks: the whole fit, its epochs from Python over
+   gloo, from the whole-fit graph over NCCL in ``chip_dp.py``): the same
+   history on both ranks, within rtol 1e-3 of phase 13's one-card
+   compiled fit of the same cells, 156 / 154 K1/K2 a rank (234 / 231 with
+   the graph's warm-up epoch) and no weighted kernel.  Then the streaming
+   trainer under the group: phase 10 (a)'s
    zinb-conddisp fit from its weights, ``train(devices="all",
    max_device_cells=512)`` for 2 epochs through the host and the
    padded-payload tiers, each rank staging its block of each batch, with
@@ -347,7 +349,17 @@ Phases, each of which must pass:
    recorded under the group and none eager, the K1/K2 launches of each fit
    those of its schedule (the captured in-memory fit the no-group graph
    fit's, 2 warm-ups included; streamed 3); capture seconds and epoch
-   times printed beside the no-group graph epoch.
+   times printed beside the no-group graph epoch.  Then ``compiled=True``
+   under the group (``_nccl_one_compiled``): phase 13's zinb-conddisp fit,
+   5 epochs, from the whole-fit graph (its collectives in the graph's
+   epoch), from Python (``_graphs=False``) and with no group, the same
+   bits (histories, epochs run, final parameters); the early-stopped fit
+   (``early_stop=2`` over 300 epochs) both ways under the group, the same
+   bits, NaN past the stop; K1/K2 launches as phase 13's (468 / 462 with
+   the warm-up epoch); graph_if 5 without the group and none under it,
+   whose graph has no IF node (CUDA refuses NCCL's collectives in a
+   conditional body: ``train/graphs.py::GraphFit``), its replays ending
+   with the fit; the epochs beside the no-group whole-fit graph's.
 
 The phases run in the order 1-3, 13, 4, 10, 11, 12, 9, 8, 5-7, 14: phase 13
 before any profiler session (phase 4's TensorBoard fit), which leaves
@@ -2456,9 +2468,12 @@ def phase_data_parallel(single_hist, single_tb, n_ranks=DP_RANKS, backend="gloo"
            "phase 7: the nb-conddisp TensorBoard fit wrote no event file")
     out["tensorboard_nb"] = [r["launches"] for r in nb_tb]
     # the compiled fit: 2448 train rows (76 full steps, a trailing 16) and
-    # 272 validation rows, which divide the ranks: no weighted kernel
+    # 272 validation rows, which divide the ranks: no weighted kernel;
+    # over NCCL from the whole-fit graph, whose warm-up runs an epoch more
     comp = [r["compiled"] for r in ranks]
-    comp_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), zinb_nll_fwd=156, zinb_nll_bwd=154)
+    runs = 3 if backend == "nccl" else 2
+    comp_want = dict(dict.fromkeys(LAUNCH_NAMES, 0), zinb_nll_fwd=78 * runs,
+                     zinb_nll_bwd=77 * runs)
     for rk, r in enumerate(comp):
         _check(r["history"] == comp[0]["history"] and len(r["history"]["loss"]) == 2,
                f"phase 7: the compiled fit's history on rank {rk}: {r['history']}, rank 0's "
@@ -4410,6 +4425,7 @@ def phase_nccl_one_rank(dev):
                                                _graphs=turn == "captured",
                                                epochs=DP_STREAM_EPOCHS,
                                                max_device_cells=STREAM_MAX_CELLS)
+        out["compiled"] = _nccl_one_compiled(dev, mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4449,6 +4465,76 @@ def phase_nccl_one_rank(dev):
           f"relative differences {out['one_rel']}); streamed {DP_STREAM_EPOCHS} epochs, parts "
           f"of {STREAM_MAX_CELLS}: the same bits, capture {out['capture_s']['streamed captured']}"
           f" s, epochs captured {ms['streamed captured']} ms, eager {ms['streamed eager']} ms")
+    return out
+
+
+def _nccl_one_compiled(dev, mesh):
+    """Phase 14's whole fit on the device (``compiled=True``) under the
+    one-rank NCCL group's ``mesh``: phase 13's zinb-conddisp fit (2730 x
+    3451 preprocessed as ``dca()`` does, dropout 0.1) from one seed's
+    weights, COMPILED_EPOCHS epochs through the whole-fit graph
+    (``GraphFit``: an epoch a replay, its collectives in the graph), the
+    same fit with the epochs run from Python (``_graphs=False``) and the
+    no-group fit (phase 13's whole-fit graph); then the early-stopped fit
+    (COMPILED_STOP) both ways under the group.  Held: the three 5-epoch
+    fits the same bits (histories, epochs run, final parameters), a
+    capture under the group and none from Python; the early-stopped fits
+    the same bits, stopped before their last epoch, NaN past the stop;
+    K1/K2 launches those of the epochs run and the warm-up epoch; graph_if
+    once a replay without the group, never under it (its graph has no IF
+    node: ``GraphFit``), where the replays stop with the fit.  Returns the
+    launches, capture seconds and epoch times (device time between the
+    replays' events)."""
+    from dca_tpu_torch.models.network import get_ae_type
+
+    adata = _prepped_paul15()
+    steps = _steps(adata.n_obs)
+    state = _state_of(get_ae_type("zinb-conddisp")(input_size=adata.n_vars,
+                                                   hidden_size=(64, 32, 64), device=dev).build())
+    fits = {"group graph": dict(devices=mesh), "group eager": dict(devices=mesh, graphs=False),
+            "no group graph": {}}
+    res = {name: _compiled_fit(adata, state, "zinb-conddisp", **kw) for name, kw in fits.items()}
+    (gh, gl, gn), (eh, el, en), (oh, ol, on) = res.values()
+    what = "phase 14 compiled=True under a one-rank NCCL group"
+    _check(gh.fit is not None and gh.capture_s is not None and eh.fit is not None
+           and eh.capture_s is None, f"{what}: capture {gh.capture_s} graph, {eh.capture_s} "
+                                     "from Python")
+    _check(gh.history == eh.history == oh.history
+           and gh.fit.epochs_run == eh.fit.epochs_run == oh.fit.epochs_run == COMPILED_EPOCHS
+           and _same_state(gn, en) and _same_state(gn, on),
+           f"{what}: the graph fit {gh.history} is not the bits of the same fit from Python "
+           f"{eh.history} and of the no-group graph fit {oh.history}")
+    want = dict(_want_launches("zinb", COMPILED_EPOCHS + 1, steps), graph_if=0)  # + warm-up
+    want_one = dict(want, graph_if=COMPILED_EPOCHS)
+    want_eager = dict(_want_launches("zinb", COMPILED_EPOCHS, steps), graph_if=0)
+    _check(gl == want and ol == want_one and el == want_eager,
+           f"{what}: launches {gl} graph, {el} from Python, {ol} without the group; expected "
+           f"{want}, {want_eager}, {want_one}")
+    sg, sgl, sgn = _compiled_fit(adata, state, "zinb-conddisp", devices=mesh, **COMPILED_STOP)
+    se, _, sen = _compiled_fit(adata, state, "zinb-conddisp", devices=mesh, graphs=False,
+                               **COMPILED_STOP)
+    n_run = sg.fit.epochs_run
+    _check(n_run < COMPILED_STOP["epochs"] and n_run == se.fit.epochs_run
+           and sg.history == se.history and _same_state(sgn, sen)
+           and bool(np.isnan(sg.fit.loss[n_run:]).all())
+           and bool(np.isnan(sg.fit.val_loss[n_run:]).all()),
+           f"{what}: the early-stopped graph fit ran {n_run} epochs {sg.history}, from Python "
+           f"{se.fit.epochs_run} {se.history}")
+    want_stop = dict(_want_launches("zinb", n_run + 1, steps), graph_if=0)
+    _check(sgl == want_stop and len(sg.epoch_s) == n_run and not sg.fit.after_stop_s,
+           f"{what}: early-stopped launches {sgl}, expected {want_stop}; {len(sg.epoch_s)} "
+           f"replays timed, {len(sg.fit.after_stop_s)} after the stop")
+    out = {"launches": {"5 epochs": gl, "early stop": sgl}, "epochs_run": n_run,
+           "capture_s": {"group": gh.capture_s, "no group": oh.capture_s},
+           "epoch_ms": {k: [t * 1e3 for t in r[0].epoch_s] for k, r in res.items()}}
+    ms = {k: [round(t, 2) for t in v] for k, v in out["epoch_ms"].items()}
+    print(f"phase 14: compiled=True under the one-rank NCCL group (zinb-conddisp 2730 x 3451, "
+          f"{COMPILED_EPOCHS} epochs): the whole-fit graph the bits of the same fit from Python "
+          f"and of the no-group whole-fit graph (histories, epochs run, final parameters); "
+          f"early_stop=2 over 300 epochs stopped after {n_run} both ways, NaN past it; launches "
+          f"{gl} ({sgl} early-stopped); capture {gh.capture_s:.2f} s under the group, "
+          f"{oh.capture_s:.2f} s without; epochs (device time between the replays' events, "
+          f"host wall from Python) {ms} ms")
     return out
 
 
@@ -4581,6 +4667,9 @@ def main():
                     comp["stop"]["launches"][name]
                 streamed["launches_compiled"]["phase 7 compiled, per rank"] = \
                     [r[name] for r in dp["compiled"]]
+                for key, v in nccl_one["compiled"]["launches"].items():
+                    streamed["launches_compiled"][
+                        f"phase 14 compiled under the one-rank NCCL group, {key}"] = v[name]
                 streamed["launches_tensorboard"] = {
                     "phase 4 (tensorboard)": zinb_tb["launches"][name],
                     "phase 11": {k: v[name] for k, v in art["launches"].items()}}
@@ -4666,7 +4755,9 @@ def main():
         "launches_by_run": {f"phase 13 {k}": v["graph_if"]
                             for k, v in comp["launches"].items()}
                            | {"phase 13 early stop (300 replays)":
-                              comp["stop"]["launches"]["graph_if"]},
+                              comp["stop"]["launches"]["graph_if"]}
+                           | {f"phase 14 under the one-rank NCCL group, {k}": v["graph_if"]
+                              for k, v in nccl_one["compiled"]["launches"].items()},
         "max_abs_err": graph_if["max_abs_err"], "ms": graph_if["ms"],
         "plain_ms": graph_if["plain_ms"], "bound_ms": graph_if["bound_ms"],
         "bound_by": graph_if["bound_by"], "library_ms": None,

@@ -48,6 +48,13 @@ share a group and nothing is started here.
     group.  Each collective's own timeout is twice TIMEOUT_S, a backstop
     behind the progress rule.  No process
     group and no child outlives the call.
+  * Ranks that the launcher did not start (torchrun's, ``multihost.
+    initialize``'s, ``init_process_group`` by hand) get the same progress
+    rule from ``train`` (``watching``): each posts to the group's own
+    store, under keys of the fit, and a checker thread on every rank
+    aborts the group, the fit's graphs released, once no rank has moved
+    for the timeout; the fit then raises ``LaunchError`` naming the rank
+    behind.
   * The ranks of a gloo group (the CPU's, or ranks that share one card)
     compute with one intra-op thread each, unless ``threads`` is given;
     the caller's own count comes back after the fit.  NCCL ranks keep
@@ -63,6 +70,7 @@ import collections
 import contextlib
 import datetime
 import functools
+import itertools
 import mmap
 import os
 import pickle
@@ -253,6 +261,14 @@ def post_progress():
         post()
 
 
+def check_failed():
+    """Raise ``LaunchError`` where the progress rule of the fit this thread
+    runs has failed a rank; between points of progress (``GraphFit.wait``)."""
+    post = getattr(_POSTER, "post", None)
+    if post is not None and post.failed is not None:
+        post.failed()
+
+
 def behind(counts, moved):
     """The rank that is behind: the least count of ``counts`` ({rank:
     count}); of equal counts the one that moved last the longest ago
@@ -261,10 +277,10 @@ def behind(counts, moved):
 
 
 class _Stall:
-    """The progress rule over ``world`` ranks' counts in ``store`` (each
-    rank's key set before the ranks start): once no rank has moved for
-    ``timeout`` seconds, ``check`` names the rank that is behind
-    (``behind``).  The clock starts at construction."""
+    """The progress rule over ``world`` ranks' counts in ``store`` (a rank
+    whose key is not set yet has not begun: its count is 0): once no rank
+    has moved for ``timeout`` seconds, ``check`` names the rank that is
+    behind (``behind``).  The clock starts at construction."""
 
     def __init__(self, store, world, timeout):
         self.store = store
@@ -281,12 +297,154 @@ class _Stall:
         with self.lock:
             now = time.monotonic()
             for r, key in enumerate(self.keys):
+                if not self.store.check([key]):
+                    continue
                 count = int(self.store.get(key))
                 if count != self.counts[r]:
                     self.counts[r], self.moved[r] = count, now
             if now - max(self.moved.values()) > self.timeout:
                 return behind(self.counts, self.moved)
             return None
+
+
+# ---------------------------------------------------------------------------
+# the progress rule of a group that the launcher did not start
+# ---------------------------------------------------------------------------
+
+
+_FITS = itertools.count()  # the fits on a group in this process: their keys' namespace
+SETTLE_S = 5.0  # past the stall timeout, the longest a failed collective waits for the verdict
+POLL_S = 0.1  # the checker's interval
+
+
+class _GroupWatch:
+    """The launcher's progress rule for the ranks of a group that it did
+    not start (torchrun's, ``multihost.initialize``'s, ``init_process_group``
+    by hand), for one fit: this rank posts its ``progress`` to the group's
+    own store (the one torchrun or the caller made), under keys of this
+    fit (``_FITS`` advances alike on every rank, since every rank runs the
+    same fits), from the fit thread; a checker thread runs ``_Stall`` over
+    every rank's keys, and once no rank has moved for ``timeout`` seconds
+    records the rank behind and aborts the group with the fit thread's
+    CUDA graphs released (``_abort_group``); so does a store that stops
+    answering, its host gone.  The fit thread's next post then raises
+    ``LaunchError`` (``raise_failed``)."""
+
+    def __init__(self, timeout):
+        self.rank, self.world, self.timeout = dist.get_rank(), dist.get_world_size(), timeout
+        store = dist.PrefixStore(f"dca_tpu_torch/fit/{next(_FITS)}",
+                                 dist.distributed_c10d._get_default_store())
+        self.progress = Progress(store, self.rank, self.raise_failed)
+        store.set(_progress_key(self.rank), "0")
+        # the checker's own client: a fit thread waiting in the store
+        # (a subgroup's rendezvous) does not hold it up
+        self.stall = _Stall(store.clone(), self.world, timeout)
+        self.fit_thread = threading.get_ident()
+        self.failed = None
+        self.ended = threading.Event()
+        self.checker = threading.Thread(target=self._watch, daemon=True)
+        self.checker.start()
+
+    def _watch(self):
+        while not self.ended.wait(POLL_S):
+            try:
+                rank = self.stall.check()
+            except RuntimeError as e:  # the store's server is gone with its process
+                what = (f"the process group's store stopped answering ({type(e).__name__}): "
+                        "the rank that hosts it (rank 0, unless an agent such as torchrun's "
+                        "does) is gone")
+            else:
+                if rank is None:
+                    continue
+                counts = [self.stall.counts[r] for r in sorted(self.stall.counts)]
+                what = (f"rank {rank} of {self.world} made no progress for {self.timeout:g} s "
+                        f"(progress counts {counts}, by rank)")
+            self.failed = (f"{what}; the fit was stopped and the process group aborted on "
+                           f"rank {self.rank}")
+            _abort_group(self.fit_thread)
+            return
+
+    def raise_failed(self):
+        """Raise ``LaunchError`` once the rule has failed a rank."""
+        if self.failed is not None:
+            raise LaunchError(self.failed)
+
+    def settle(self, wait):
+        """Whether the rule fails a rank within ``wait`` seconds."""
+        t_end = time.monotonic() + wait
+        while self.failed is None and self.checker.is_alive() and time.monotonic() < t_end:
+            time.sleep(POLL_S / 2)
+        return self.failed is not None
+
+    def stop(self):
+        """End the checks; an abort under way is waited for, up to the
+        timeout (the fit's error is raised after it either way)."""
+        self.ended.set()
+        self.checker.join(self.timeout)
+        self.stall = None  # its store client
+
+
+def _in_collective(err):
+    """Whether ``err`` was raised inside ``torch.distributed``: a failed
+    collective, whose cause may be a peer."""
+    tb = err.__traceback__
+    while tb is not None:
+        if f"torch{os.sep}distributed{os.sep}" in tb.tb_frame.f_code.co_filename:
+            return True
+        tb = tb.tb_next
+    return False
+
+
+def _gloo_backends():
+    """The gloo backend of every process group of this process."""
+    out = []
+    for pg in list(dist.distributed_c10d._world.pg_map):
+        try:
+            backend = pg._get_backend(torch.device("cpu"))
+        except RuntimeError:  # a group with no CPU backend
+            continue
+        if backend.name() == "gloo":
+            out.append(backend)
+    return out
+
+
+@contextlib.contextmanager
+def watching(mesh):
+    """The progress rule (``_GroupWatch``) around a fit over ``mesh``
+    (``parallel/mesh.py``, None for none) whose ranks the launcher did not
+    start; nothing for no mesh or a launched rank (``posting`` already set
+    its own rule).  The timeout is ``initialize``'s where it made the group
+    with one, else TIMEOUT_S.  Gloo cannot abort a collective in flight,
+    so inside, each gloo group's collectives time out after the timeout at
+    most (their own timeouts come back after).  A collective that fails
+    inside (a gloo peer gone, an aborted NCCL group) waits up to the
+    timeout and SETTLE_S for the rule's verdict, then raises it as
+    ``LaunchError``."""
+    from .multihost import group_timeout
+
+    if mesh is None or getattr(_POSTER, "post", None) is not None:
+        yield
+        return
+    timeout = group_timeout() or TIMEOUT_S
+    cap = datetime.timedelta(seconds=timeout)
+    saved = [(b, b.options._timeout) for b in _gloo_backends()]
+    for b, t in saved:
+        b._set_default_timeout(min(t, cap))
+    watch = _GroupWatch(timeout)
+    try:
+        with posting(watch.progress):
+            yield
+    except BaseException as e:
+        if not isinstance(e, LaunchError) and (
+                watch.failed is not None
+                or (_in_collective(e) and watch.settle(timeout + SETTLE_S))):
+            raise LaunchError(watch.failed) from e
+        raise
+    finally:
+        watch.stop()
+        if watch.failed is None:
+            for b, t in saved:
+                b._set_default_timeout(t)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -32,6 +33,10 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+
+# (a weak reference to the group ``initialize`` made, its ``timeout``): the
+# progress rule's timeout for a fit on that group (``launch.watching``)
+_JOINED = (None, None)
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -50,7 +55,9 @@ def initialize(coordinator_address: Optional[str] = None,
     of processes and this one's rank are ``num_processes``/``process_id``
     or WORLD_SIZE/RANK.  A no-op when a group exists, and when none of
     these is given.  ``timeout``: seconds of each collective (the
-    backend's default without it).
+    backend's default without it), and the longest a fit on the group may
+    go with no rank making progress (``launch.watching``; without it
+    ``launch.TIMEOUT_S``).
 
     ``device`` is read as ``resolve_device`` reads it.  On the card a rank
     takes ``device``'s index where it names one (the launcher's ranks),
@@ -93,7 +100,16 @@ def initialize(coordinator_address: Optional[str] = None,
         # torchrun hosts the rendezvous store itself: env:// joins it
         init = f"tcp://{address}" if address is not None else "env://"
         dist.init_process_group(backend, init_method=init, world_size=world, rank=rank, **kw)
+    global _JOINED
+    _JOINED = (weakref.ref(dist.group.WORLD), timeout)
     return dist.group.WORLD
+
+
+def group_timeout():
+    """``initialize``'s ``timeout`` where it made the current group and was
+    given one, else None."""
+    ref, timeout = _JOINED
+    return timeout if ref is not None and ref() is dist.group.WORLD else None
 
 
 def process_index() -> int:

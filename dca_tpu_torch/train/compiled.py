@@ -25,9 +25,20 @@ epochs:
     IF node that runs only while ``stop`` is false, so the host enqueues
     every epoch with no wait between them and reads back once after the
     last; a replay after the early stop changes nothing;
-  * on the CPU, under a process group (whose collectives are not captured)
-    and with ``graphs=False``, the same epoch from Python, with one read of
-    ``stop`` an epoch.
+  * as a rank of an NCCL group, as one CUDA graph replayed once an epoch
+    too, its collectives (the steps' and the losses' sum) in the graph as
+    NCCL kernel nodes: the counterpart of the JAX package's whole-fit
+    program jitted over the mesh (``dca_tpu/train/loop.py::
+    _train_compiled`` with ``mesh``).  CUDA refuses NCCL's collectives in
+    a conditional node's body (``GraphFit``), so the epoch is the graph
+    itself: the host waits for each replay by polling its event, posts a
+    point of progress for each epoch the device completed (so the group's
+    progress rule follows the device and a dead or silent peer ends the
+    fit, ``parallel/launch.py``), then reads ``stop``, and replays again
+    while it is false;
+  * on the CPU, over gloo (whose collectives run on the host), in
+    ``debug`` and with ``graphs=False``, the same epoch from Python, with
+    one read of ``stop`` an epoch.
 
 Differences from the JAX package's program (documented, tested): the row
 orders are drawn on the host, from ``np.random.RandomState(seed)`` as the
@@ -46,7 +57,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.launch import post_progress
+from ..parallel.launch import check_failed, post_progress
 from ..parallel.step import StepBuffers, make_sharded_train_step
 from .graphs import GraphFit
 from .optim import state_tensors
@@ -126,9 +137,10 @@ def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_l
     (X_tr, T_tr, sf_tr) and ``val`` ((X, T, sf) of the validation split,
     None without one) from learning rate ``lr0``, with the row orders
     ``perms`` (a host (epochs, n_train) array), the optimizer state
-    ``opt_state`` of ``opt`` and the dropout ``generator``.  ``graphs``: on one CUDA device, replay the
-    epoch from a CUDA graph; ``after_epoch()`` is called after each epoch
-    is run or enqueued.
+    ``opt_state`` of ``opt`` and the dropout ``generator``.  ``graphs``:
+    replay the epoch from a CUDA graph (``GraphFit``; the caller's
+    ``graphs.capture_steps``), else run it from Python; ``after_epoch()``
+    is called after each epoch is run or enqueued.
 
     Over a ``mesh`` of ranks (``parallel/mesh.py``; with a model axis the
     network holds this rank's gene shards and the splits its gene columns)
@@ -202,15 +214,21 @@ def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_l
             end_epoch()
 
         epoch_s, after_stop_s, capture_s, enqueue_s = [], [], None, None
-        if epochs > 0 and graphs and device.type == "cuda" and mesh is None:
+        if epochs > 0 and graphs:
             written = (live + state_tensors(opt_state)
                        + [bufs.perm, bufs.step_i, bufs.losses] + st.tensors())
-            runner = GraphFit(epoch, written, generator, st.stop, device)
+            # over a group the epoch's collectives make it a plain graph,
+            # each replay waited for (``GraphFit``)
+            runner = GraphFit(epoch, written, generator, st.stop, device,
+                              conditional=mesh is None)
             capture_s = runner.capture_s
-            events = runner.run(epochs, after_epoch)
+            if mesh is None:
+                events = runner.run(epochs, after_epoch)
+            else:
+                events = runner.run_each(epochs, post_progress, check_failed, after_epoch)
             enqueue_s = runner.enqueue_s
             host = _read_back(st)  # the fit's one read-back
-            runner.credit(epochs, host[3])
+            runner.credit(len(events) - 1, host[3])
             times = [a.elapsed_time(b) / 1e3 for a, b in zip(events[:-1], events[1:])]
             epoch_s, after_stop_s = times[:host[3]], times[host[3]:]
         else:

@@ -39,17 +39,23 @@ creates the communicator of every group the step uses (a communicator
 made inside a capture is illegal); every rank restores the same state
 after it, and captures the same steps in the same order; the predicate
 ``capture_steps`` reads only what every rank shares.  A replayed
-collective is invisible to PyTorch's NCCL watchdog; the ranks that
-``parallel/launch.py`` starts have the launcher's progress rule instead,
-and its abort of a failed fit's group destroys the fit's step graphs
-meanwhile (``release_graphs``), since NCCL finishes the abort of a
-communicator only once no graph holds its collectives.
+collective is invisible to PyTorch's NCCL watchdog; every rank of a group
+has the progress rule of ``parallel/launch.py`` instead (the launcher's
+for the ranks it starts, the group's own for the others), and its abort
+of a failed fit's group destroys the fit's graphs meanwhile
+(``release_graphs``), since NCCL finishes the abort of a communicator only
+once no graph holds its collectives.
 
 ``GraphFit`` captures the whole epoch of the fit on the device
 (``train/compiled.py``, the counterpart of the JAX package's
 ``dca_tpu/train/compiled.py``): the steps, the validation, the callbacks
 and the history writes, as one graph whose epoch is a conditional IF node
 opened while the fit has not stopped; the host enqueues a replay an epoch.
+Over NCCL the epoch's collectives are captured as the steps' are, and the
+same three rules hold (the warm-up, an epoch run eagerly on the capture
+stream, makes every communicator); since CUDA refuses them inside a
+conditional node's body, a rank's whole-epoch graph has no IF node and the
+host reads ``stop`` after each replay.
 
 ``GraphSteps`` does the warm-up, the captures and the replays for a set of
 keyed steps: ``GraphEpoch``'s full and trailing step, and the streaming
@@ -75,6 +81,7 @@ would let another thread's work into the graph; and captures take turns
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -202,18 +209,14 @@ class GraphSteps:
             pool = graph.pool()
         stream.synchronize()  # the warm-up; not the device: others may capture
         self.capture_s = time.perf_counter() - t0
-        self.thread = threading.get_ident()
-        self.lock = threading.Lock()  # the replays against ``release``
-        with _LIVE_LOCK:
-            _LIVE.add(self)
+        _register(self)
 
     def replay(self, key, times=1):
         """Replay the graph of ``key`` ``times`` times and count its
         launches; raises once the graphs are released."""
         with self.lock:
             if not self.graphs:
-                raise RuntimeError("the fit's CUDA graphs were released (release_graphs): "
-                                   "its process group is being aborted")
+                raise _released()
             graph = self.graphs[key]
             for _ in range(times):
                 graph.replay()
@@ -227,22 +230,37 @@ class GraphSteps:
             self.graphs.clear()
 
 
-_LIVE = weakref.WeakSet()  # every GraphSteps of this process
+_LIVE = weakref.WeakSet()  # every GraphSteps and GraphFit of this process
 _LIVE_LOCK = threading.Lock()
 
 
+def _register(graphs):
+    """Register ``graphs`` (a ``GraphSteps`` or a ``GraphFit``) as captured
+    by this thread, for ``release_graphs``."""
+    graphs.thread = threading.get_ident()
+    graphs.lock = threading.Lock()  # the replays against ``release``
+    with _LIVE_LOCK:
+        _LIVE.add(graphs)
+
+
+def _released():
+    return RuntimeError("the fit's CUDA graphs were released (release_graphs): its process "
+                        "group is being aborted")
+
+
 def release_graphs(thread):
-    """Destroy the step graphs that thread ``thread`` captured
-    (``GraphSteps.release``), from another thread: the launcher's monitor,
-    while it aborts a failed fit's NCCL group (``parallel/launch.py``).
+    """Destroy the graphs that thread ``thread`` captured (``GraphSteps``'
+    step graphs, ``GraphFit``'s whole-epoch graph: their ``release``), from
+    another thread: the one that aborts a failed fit's NCCL group
+    (``parallel/launch.py``, the launcher's monitor or a group's checker).
     NCCL does not finish the abort of a communicator while a CUDA graph
     holding its collectives lives, and the failed fit's thread, waiting on
     its device or in the fit, cannot free them itself; its next replay
     raises."""
     with _LIVE_LOCK:
-        live = [steps for steps in _LIVE if steps.thread == thread]
-    for steps in live:
-        steps.release()
+        live = [graphs for graphs in _LIVE if graphs.thread == thread]
+    for graphs in live:
+        graphs.release()
 
 
 class GraphEpoch(EagerEpoch):
@@ -275,63 +293,141 @@ class GraphEpoch(EagerEpoch):
 class GraphFit:
     """A fit's whole epoch, ``body`` (its steps, the validation, the
     callbacks and the history writes: ``train/compiled.py``), captured as
-    one CUDA graph whose body is a conditional IF node that the device
+    one CUDA graph.
+
+    With ``conditional`` (a fit on one device, no process group) the
+    graph's epoch is the body of a conditional IF node that the device
     opens only while the fit's flag ``stop`` (a one-element bool tensor) is
     false (``ops/conditional.py``).  ``run(epochs)`` enqueues one replay an
     epoch, back to back, with no wait on the device: a replay after the
-    stop runs the kernel that reads the flag and nothing else.  Each replay
-    goes through ``CUDAGraph.replay``, which advances the registered
-    dropout generator's offset, so every epoch draws its own masks (one
-    replay of a graph that looped over the epochs would draw the same ones
-    every epoch).
+    stop runs the kernel that reads the flag and nothing else.
 
-    As ``GraphSteps``: before the capture the body runs once eagerly on the
-    stream that captures it (``_own_stream(device, "body")``), which builds
-    the kernel library, makes this thread's K1 workspace and cuBLAS's
-    handle and workspace for the stream, then every tensor of ``state``
-    (each tensor the body writes) and the generator's state are restored
-    in place; the generator is registered with the graph; the capture runs
-    in "thread_local" mode under ``_CAPTURE_LOCK``; a failed capture
-    raises.  ``capture_s`` is the wall time of the warm-up and the capture.
+    Without it (a rank of an NCCL group) the epoch, its collectives
+    included, is the graph itself: CUDA refuses NCCL's collectives inside
+    a conditional node's body under NCCL's defaults ("CUDA error: invalid
+    argument" at the body's capture; with ``NCCL_GRAPH_MIXING_SUPPORT=0``
+    it captures, but NCCL's abort of the group then did not return once
+    the graph was freed, and that setting voids NCCL's ordering of the
+    step graphs' replays against the eager collectives after them:
+    ``chip_abort.py``'s ``if-body`` variants, PERF.md).  ``run_each``
+    then replays it once an epoch, waits for each replay by polling its
+    event (``wait``: a point of progress an epoch, so the group's progress
+    rule follows the device, never blocked while a peer may be gone) and
+    reads ``stop`` after it, stopping there.
+
+    Each replay goes through ``CUDAGraph.replay``, which advances the
+    registered dropout generator's offset, so every epoch draws its own
+    masks (one replay of a graph that looped over the epochs would draw
+    the same ones every epoch).  As ``GraphSteps``: before the capture the
+    body runs once eagerly on the stream that captures it (the "body"
+    stream of ``_own_stream`` with the IF node, the capture stream
+    without), which builds the kernel library, makes this thread's K1
+    workspace, cuBLAS's handle and workspace for the stream and, under a
+    group, every communicator the epoch uses; then every tensor of
+    ``state`` (each tensor the body writes) and the generator's state are
+    restored in place; the generator is registered with the graph; the
+    capture runs in "thread_local" mode under ``_CAPTURE_LOCK``; a failed
+    capture raises; ``release_graphs`` destroys the graph of a failed
+    fit.  ``capture_s`` is the wall time of the warm-up and the capture.
     ``node_launches`` and ``body_launches`` are the tallies of a replay's
-    launches outside the node (the flag's kernel) and inside it
-    (``credit``)."""
+    launches outside the node (the flag's kernel) and inside it, the
+    whole graph's without one (``credit``)."""
 
-    def __init__(self, body, state, generator, stop, device):
+    def __init__(self, body, state, generator, stop, device, conditional=True):
         from ..ops.conditional import if_body
 
         t0 = time.perf_counter()
+        self.stop = stop
         stream = _own_stream(device)
-        inner = _own_stream(device, "body")
+        inner = _own_stream(device, "body") if conditional else stream
         _warm_up([body], list(state), generator, device, inner)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
         pool = torch.cuda.graph_pool_handle()
-        with _CAPTURE_LOCK, counters.capturing(stream.cuda_stream) as node_tally, \
-                counters.capturing(inner.cuda_stream) as body_tally:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                with if_body(stop, stream, inner, pool):
-                    body()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_CAPTURE_LOCK)
+            body_tally = stack.enter_context(counters.capturing(inner.cuda_stream))
+            node_tally = (stack.enter_context(counters.capturing(stream.cuda_stream))
+                          if conditional else {})
+            stack.enter_context(torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                                 capture_error_mode="thread_local"))
+            if conditional:
+                stack.enter_context(if_body(stop, stream, inner, pool))
+            body()
         self.node_launches, self.body_launches = node_tally, body_tally
         inner.synchronize()  # the warm-up; not the device: others may capture
         self.capture_s = time.perf_counter() - t0
+        _register(self)
+
+    def _replay(self):
+        with self.lock:
+            if self.graph is None:
+                raise _released()
+            self.graph.replay()
 
     def run(self, epochs, after_epoch=None):
-        """Enqueue ``epochs`` replays on the current stream, with a CUDA
-        event before the first and after each (``after_epoch()`` is called
-        after each enqueue); returns the ``epochs + 1`` events.
-        ``enqueue_s`` is the host's wall time of the enqueue."""
+        """Enqueue ``epochs`` replays of the conditional graph on the
+        current stream, with a CUDA event before the first and after each
+        (``after_epoch()`` is called after each enqueue); returns the
+        ``epochs + 1`` events.  ``enqueue_s`` is the host's wall time of the
+        enqueue.  A replay after ``release`` raises."""
         events = [torch.cuda.Event(enable_timing=True) for _ in range(epochs + 1)]
         t0 = time.perf_counter()
         events[0].record()
         for e in range(epochs):
-            self.graph.replay()
+            self._replay()
             events[e + 1].record()
             if after_epoch is not None:
                 after_epoch()
         self.enqueue_s = time.perf_counter() - t0
         return events
+
+    def run_each(self, epochs, post, check, after_epoch=None):
+        """Replay the graph once an epoch on the current stream, up to
+        ``epochs`` times, each after the last has run (``wait`` on its
+        event, with ``post`` and ``check``), and read ``stop`` after each:
+        the epoch that sets it is the last.  Returns the events, one before
+        the first replay and one after each; ``enqueue_s`` is the host's
+        time in the replays' launches."""
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        self.enqueue_s = 0.0
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            self._replay()
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            self.enqueue_s += time.perf_counter() - t0
+            if after_epoch is not None:
+                after_epoch()
+            self.wait(events[-2:], post, check)
+            if bool(self.stop):  # the epoch has run: no wait on the device
+                break
+        return events
+
+    @staticmethod
+    def wait(events, post, check, poll=1e-4):
+        """Wait until the device has run the replays that ``events``
+        follow (the first is the one before them) without blocking on it:
+        poll each replay's event, with a sleep of ``poll`` seconds and a
+        call of ``check()`` between polls, and call ``post()`` once the
+        device has completed each.  A fit under a process group waits so
+        (``post``, ``check``: its progress rule, ``launch.post_progress``
+        and ``launch.check_failed``, which raise once the rule has failed
+        a rank), since a peer that dies or falls silent leaves a replay
+        waiting in its collectives until the rule aborts the group."""
+        for event in events[1:]:
+            while not event.query():
+                check()
+                time.sleep(poll)
+            post()
+
+    def release(self):
+        """Destroy the graph (a replay in flight ends first, on its own)."""
+        with self.lock:
+            if self.graph is not None:
+                self.graph.reset()
+                self.graph = None
 
     def credit(self, replays, ran):
         """Count ``replays`` replays of which the body ran in ``ran``."""

@@ -91,7 +91,8 @@ the primary rank writes; every rank takes part in the collectives.
 ``train/compiled.py``: the JAX package's whole-fit program, which its
 ``"auto"`` takes on a TPU): the epochs, their steps, the validation, the
 callbacks and the histories without a host hop, one CUDA graph replayed
-once an epoch on one CUDA device, read back once after the fit.  Here
+once an epoch on a CUDA device, alone or as a rank of an NCCL group (its
+collectives in the graph), read back once after the fit.  Here
 ``"auto"`` keeps the Python-epoch loop (ROADMAP.md).
 """
 
@@ -125,7 +126,7 @@ from ..ops.densify import device_densify, device_densify_flat, device_densify_fl
 from ..ops.resident import PART_BYTES_PER_SLOT, ResidentCSR, derive_input
 from ..parallel.mesh import (gather_params, gather_tensor, rank_devices, resolve_mesh,
                              shard_named)
-from ..parallel.launch import post_progress
+from ..parallel.launch import post_progress, watching
 from ..parallel.multihost import initialize, is_primary
 from ..parallel.step import (StepBuffers, all_reduce_grads, batch_shard, held_shard,
                              make_sharded_train_step, part_rows, place_train_state,
@@ -527,9 +528,13 @@ def train(
     ``_perms``, for the tests, an (epochs, n_train) array of row orders,
     replaces the ones a ``compiled=True`` fit draws.  ``_one_card``, for
     the tests and ``chip_smoke.py``: the ranks that ``devices`` starts all
-    share the network's CUDA device, over gloo.  A rank that the launcher
-    runs posts its progress from the fit loop (``launch.post_progress``:
-    each epoch ended, each eager step, each streamed part)."""
+    share the network's CUDA device, over gloo.  Every rank of a group
+    posts its progress from the fit loop (``launch.post_progress``: each
+    epoch ended, each eager step, each streamed part, each epoch of the
+    whole-fit graph that the device completed): to the launcher's store
+    on the ranks it starts, else to the group's own store
+    (``launch.watching``); a rank that dies or falls silent ends every
+    other rank's fit with ``launch.LaunchError`` naming it."""
     assert network.model is not None, "network.build() must be called before train()"
     ranks = rank_devices(devices, network.device, _one_card)
     if ranks is not None:
@@ -569,7 +574,7 @@ def train(
     artefacts = dict(output_dir=output_dir, save_weights=save_weights,
                      checkpoint_every=checkpoint_every, resume=resume, tb_log=tb)
     try:
-        with _fit_trace(tb_dir if tb is not None else None, device) as trace:
+        with watching(mesh), _fit_trace(tb_dir if tb is not None else None, device) as trace:
             if stream:
                 hist = _train_streaming(
                     adata, network, opt, lr, epochs=epochs, reduce_lr=reduce_lr,
@@ -784,6 +789,8 @@ def _train_compiled(network, opt, lr, mesh, train_split, val, val_shard, perms, 
 
     has_val = val is not None
     track_best = bool(save_weights and output_dir is not None)
+    graphs = capture_steps(network.device, _backend(None if mesh is None else mesh.world),
+                           network.definition.debug, graphs)
     fit = build_fit_fn(network, opt, n_train=n_train, batch_size=batch_size, epochs=epochs,
                        has_val=has_val, reduce_lr=reduce_lr, early_stop=early_stop,
                        track_best=track_best, mesh=mesh)

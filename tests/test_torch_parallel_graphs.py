@@ -142,6 +142,45 @@ def test_the_capture_predicate(device, backend, debug, graphs):
     assert capture_steps(torch.device(device), backend, debug, graphs) is want
 
 
+@pytest.mark.parametrize("graphs", [True, False])
+@pytest.mark.parametrize("debug", [False, True])
+@pytest.mark.parametrize("backend", [None, "gloo", "nccl"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_the_whole_fit_graph_predicate(monkeypatch, device, backend, debug, graphs):
+    """``compiled=True`` takes the whole-fit graph (``graphs.GraphFit``)
+    exactly where the steps would be captured: on CUDA, with no group or
+    over NCCL, outside debug, unless _graphs=False; a group no longer
+    keeps it from the graph.  What ``_train_compiled`` hands the fit, on a
+    stand-in network and mesh."""
+    from types import SimpleNamespace
+
+    from dca_tpu_torch.train import compiled, loop
+
+    seen = {}
+
+    class Handed(Exception):
+        pass
+
+    def build_fit_fn(network, opt, **kw):
+        def fit(*args, graphs, **kwargs):
+            seen["graphs"] = graphs
+            raise Handed
+
+        return fit
+
+    monkeypatch.setattr(compiled, "build_fit_fn", build_fit_fn)
+    monkeypatch.setattr(loop, "_backend", lambda group: backend)
+    net = SimpleNamespace(device=torch.device(device), definition=SimpleNamespace(debug=debug))
+    mesh = None if backend is None else SimpleNamespace(world=object())
+    with pytest.raises(Handed):
+        loop._train_compiled(net, None, 0.1, mesh, (None, None, None), None, None, None, None,
+                             None, n_train=42, batch_size=16, epochs=3, reduce_lr=0,
+                             early_stop=0, save_weights=False, output_dir=None, verbose=False,
+                             graphs=graphs, tb=False, tb_log=None, trace=None)
+    want = device == "cuda" and backend in (None, "nccl") and not debug and graphs
+    assert seen["graphs"] is want
+
+
 @pytest.mark.parametrize("streamed", [False, True])
 def test_a_group_of_one_rank_is_a_mesh_of_one(streamed):
     """Under a process group of one rank the mesh of one
