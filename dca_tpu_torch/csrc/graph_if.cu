@@ -15,11 +15,19 @@
 // thread, reads the one byte of `stop` and sets the node's condition
 // (cudaGraphSetConditional) on every launch of the graph.  It moves one
 // byte: its time is the launch's, not a bound of bytes or operations.
-// dca_graph_if_end ends the body's capture; the parent capture goes on
-// after the node.  Needs CUDA 12.4 or later (conditional nodes captured
+// dca_graph_if_end ends the body's capture, and counts the body's nodes
+// into `counts` unless it is NULL; the parent capture goes on after the
+// node.  Needs CUDA 12.4 or later (conditional nodes captured
 // from streams).
+//
+// dca_capture_node_counts reads the graph a stream is capturing into:
+// its kernel, memcpy, memset and other nodes so far (cudaGraphGetNodes,
+// cudaGraphNodeGetType), the node counts of train/graphs.py's captures;
+// an IF node's body is counted when its capture ends.
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 namespace {
 
@@ -42,9 +50,40 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph, const cudaGraphNode
     return err;
 }
 
+// counts[4]: the kernel, memcpy, memset and other nodes of `graph`
+cudaError_t count_nodes(cudaGraph_t graph, long long* counts) {
+    size_t n = 0;
+    cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+    if (err != cudaSuccess) return err;
+    std::vector<cudaGraphNode_t> nodes(n);
+    if (n > 0) err = cudaGraphGetNodes(graph, nodes.data(), &n);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < 4; ++i) counts[i] = 0;
+    for (size_t i = 0; i < n; ++i) {
+        cudaGraphNodeType type;
+        err = cudaGraphNodeGetType(nodes[i], &type);
+        if (err != cudaSuccess) return err;
+        counts[type == cudaGraphNodeTypeKernel   ? 0
+               : type == cudaGraphNodeTypeMemcpy ? 1
+               : type == cudaGraphNodeTypeMemset ? 2
+                                                 : 3] += 1;
+    }
+    return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
+
+int dca_capture_node_counts(void* stream, long long* counts) {
+    cudaGraph_t graph;
+    const cudaGraphNode_t* deps;
+    size_t n_deps;
+    cudaError_t err = capture_info((cudaStream_t)stream, &graph, &deps, &n_deps);
+    if (err != cudaSuccess) return (int)err;
+    return (int)count_nodes(graph, counts);
+}
+
 
 int dca_graph_if_begin(void* parent, void* body, const void* stop) {
     cudaStream_t ps = (cudaStream_t)parent;
@@ -84,9 +123,11 @@ int dca_graph_if_begin(void* parent, void* body, const void* stop) {
                                               cudaStreamCaptureModeThreadLocal);
 }
 
-int dca_graph_if_end(void* body) {
+int dca_graph_if_end(void* body, long long* counts) {
     cudaGraph_t graph;
-    return (int)cudaStreamEndCapture((cudaStream_t)body, &graph);
+    cudaError_t err = cudaStreamEndCapture((cudaStream_t)body, &graph);
+    if (err != cudaSuccess || counts == nullptr) return (int)err;
+    return (int)count_nodes(graph, counts);
 }
 
 }  // extern "C"

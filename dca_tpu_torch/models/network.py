@@ -51,7 +51,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .. import losses
+from .. import losses, timeline
 from ..bridge import copy_tree_into, flatten_tree
 from ..config import use_device_densify
 from ..data.io import densify, scale_stats, size_factors, write_text_matrix
@@ -330,8 +330,16 @@ class Autoencoder:
         worker thread and scattered dense on the device, the z-scale fused
         there (``ops/densify.py``).
         ``chunk_rows=None`` sizes the blocks from DCA_TPU_PREDICT_BLOCK_BYTES;
-        ``keys`` restricts the outputs, and the heads computed, to those."""
+        ``keys`` restricts the outputs, and the heads computed, to those.
+        Each block's host half, device half and fetch are the recorder's
+        spans ``dca.predict.prep``, ``dca.predict.compute`` and
+        ``dca.predict.fetch`` (``timeline.py``; ``part`` the block's index)."""
         assert self.model is not None, "call build() first"
+        with timeline.session():
+            yield from self._forward_blocks(count, size_factors, scale_mean, scale_std,
+                                            chunk_rows, keys)
+
+    def _forward_blocks(self, count, size_factors, scale_mean, scale_std, chunk_rows, keys):
         n = count.shape[0]
         sf = (np.ones((n,), np.float32) if size_factors is None
               else np.asarray(size_factors, np.float32))
@@ -349,21 +357,22 @@ class Autoencoder:
                 mean_d = torch.tensor(np.asarray(scale_mean, np.float32), device=self.device)
                 std_d = torch.tensor(np.asarray(scale_std, np.float32), device=self.device)
 
-        def prep(lo, hi):
+        def prep(i, lo, hi):
             """Host half, on the worker thread: the payload, or the dense
             and scaled rows."""
-            if use_payload:
-                rows = np.arange(lo, hi, dtype=np.int64)
-                return flat_payload_from_csr(count, rows,
-                                             flat_slots_for(count, rows, nnz_moments, nnz))
-            x = densify(count[lo:hi])
-            if scale_mean is not None:
-                x = (x - scale_mean) / scale_std
-            return x
+            with timeline.span("dca.predict.prep", part=i, rows=hi - lo):
+                if use_payload:
+                    rows = np.arange(lo, hi, dtype=np.int64)
+                    return flat_payload_from_csr(count, rows,
+                                                 flat_slots_for(count, rows, nnz_moments, nnz))
+                x = densify(count[lo:hi])
+                if scale_mean is not None:
+                    x = (x - scale_mean) / scale_std
+                return x
 
-        def compute(x, lo, hi):
+        def compute(x, i, lo, hi):
             """Device half: upload and forward, queued on the device."""
-            with torch.no_grad():
+            with timeline.span("dca.predict.compute", part=i, rows=hi - lo), torch.no_grad():
                 if use_payload:
                     x = device_densify_flat(*x, hi - lo, count.shape[1], mean_d, std_d,
                                             device=self.device)
@@ -378,26 +387,29 @@ class Autoencoder:
             chunk_rows = self._auto_chunk_rows(len(keys) if keys is not None else 5)
         blocks = [(lo, min(lo + chunk_rows, n))
                   for lo in range(0, n, chunk_rows)] or [(0, 0)]
+
+        def fetch(i, lo, hi, dev):
+            with timeline.span("dca.predict.fetch", part=i, rows=hi - lo):
+                return fetch_to_host(dev)
+
         if len(blocks) == 1 or os.environ.get("DCA_TPU_PREFETCH", "1") == "0":
-            for lo, hi in blocks:
-                yield lo, hi, fetch_to_host(compute(prep(lo, hi), lo, hi))
+            for i, (lo, hi) in enumerate(blocks):
+                yield lo, hi, fetch(i, lo, hi, compute(prep(i, lo, hi), i, lo, hi))
             return
 
         pool = ThreadPoolExecutor(max_workers=1)
         try:
-            prep_fut = pool.submit(prep, *blocks[0])
+            prep_fut = pool.submit(prep, 0, *blocks[0])
             pending = None
             for i, (lo, hi) in enumerate(blocks):
                 prepped = prep_fut.result()
                 if i + 1 < len(blocks):
-                    prep_fut = pool.submit(prep, *blocks[i + 1])
-                dev = compute(prepped, lo, hi)
+                    prep_fut = pool.submit(prep, i + 1, *blocks[i + 1])
+                dev = compute(prepped, i, lo, hi)
                 if pending is not None:
-                    plo, phi, pdev = pending
-                    yield plo, phi, fetch_to_host(pdev)
-                pending = (lo, hi, dev)
-            plo, phi, pdev = pending
-            yield plo, phi, fetch_to_host(pdev)
+                    yield pending[1], pending[2], fetch(*pending)
+                pending = (i, lo, hi, dev)
+            yield pending[1], pending[2], fetch(*pending)
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 

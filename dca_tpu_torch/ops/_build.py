@@ -56,10 +56,12 @@ _SIGNATURES = {
     # the plan (kind, bm, bn, bk, splits, cluster), stream
     "dca_fused_dense": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P], _I),
+    # capturing stream, out: its graph's kernel, memcpy, memset, other nodes
+    "dca_capture_node_counts": ([_P, ctypes.POINTER(_LL)], _I),
     # parent stream (capturing), body stream, stop flag: the IF node
     "dca_graph_if_begin": ([_P, _P, _P], _I),
-    # body stream: end the IF node's body
-    "dca_graph_if_end": ([_P], _I),
+    # body stream, out (or NULL): end the IF node's body, count its nodes
+    "dca_graph_if_end": ([_P, ctypes.POINTER(_LL)], _I),
 }
 
 

@@ -17,6 +17,7 @@ graphs; the fit on the CPU, and every fit that is not captured, reads
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -61,7 +62,8 @@ def if_body(stop, stream, body_stream, pool):
     from the graph's pool and lives as long as the graph.  The body stream
     must have run the body's work once before (``GraphFit``'s warm-up):
     cuBLAS's workspace for a stream is allocated at its first product and
-    kept."""
+    kept.  Yields a list that holds, after the block, the body's kernel,
+    memcpy, memset and other nodes (``train/graphs.py::node_counts``)."""
     from ._build import library
 
     if not stop.is_cuda or stop.dtype != torch.bool or stop.numel() != 1:
@@ -74,13 +76,16 @@ def if_body(stop, stream, body_stream, pool):
     counters.record(launches, ["graph_if"], stream.cuda_stream)
     torch._C._cuda_endAllocateToPool(index, pool)
     end = None
+    counts = (ctypes.c_longlong * 4)()
+    nodes = []
     try:
         with torch.cuda.stream(body_stream):
             torch._C._cuda_beginAllocateCurrentStreamToPool(index, pool)
             try:
-                yield
+                yield nodes
             finally:
-                end = lib.dca_graph_if_end(body_stream.cuda_stream)
+                end = lib.dca_graph_if_end(body_stream.cuda_stream, counts)
+                nodes[:] = list(counts)
                 torch._C._cuda_endAllocateToPool(index, pool)
                 torch._C._cuda_releasePool(index, pool)
     finally:

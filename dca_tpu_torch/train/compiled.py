@@ -51,12 +51,12 @@ table); as there, ModelCheckpoint writes the best state once after the fit.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import timeline
 from ..parallel.launch import check_failed, post_progress
 from ..parallel.step import StepBuffers, make_sharded_train_step
 from .graphs import GraphFit
@@ -73,10 +73,11 @@ class FitResult:
     ``network.model.parameters()`` then ``buffers()``).  ``epoch_s``: each
     epoch run's time (from CUDA events between the replays on the graph
     path, else the host's wall time of its steps, validation, callbacks and
-    read of ``stop``); ``after_stop_s``: each replay's after the stop, on
-    the graph path; ``capture_s``: the graph's warm-up and capture, and
-    ``enqueue_s``: the host's enqueue of every replay, None without a
-    graph."""
+    read of ``stop``, the span ``dca.fit.epoch``); ``after_stop_s``: each
+    replay's after the stop, on the graph path; ``capture_s``: the graph's
+    warm-up and capture (``dca.graphs.capture``), and ``enqueue_s``: the
+    host's enqueue of every replay (the sum of the spans
+    ``dca.fit.replay``), None without a graph."""
 
     loss: np.ndarray
     val_loss: np.ndarray
@@ -227,22 +228,25 @@ def build_fit_fn(network, opt, *, n_train, batch_size, epochs, has_val, reduce_l
             else:
                 events = runner.run_each(epochs, post_progress, check_failed, after_epoch)
             enqueue_s = runner.enqueue_s
-            host = _read_back(st)  # the fit's one read-back
+            with timeline.span("dca.fit.fetch"):
+                host = _read_back(st)  # the fit's one read-back
             runner.credit(len(events) - 1, host[3])
             times = [a.elapsed_time(b) / 1e3 for a, b in zip(events[:-1], events[1:])]
             epoch_s, after_stop_s = times[:host[3]], times[host[3]:]
         else:
-            for _ in range(epochs):
-                t0 = time.perf_counter()
-                epoch()
-                stop = bool(st.stop)  # the epoch's one read
-                epoch_s.append(time.perf_counter() - t0)
+            for e in range(epochs):
+                timeline.begin_epoch(e)
+                with timeline.timed("dca.fit.epoch", leaf=False) as span:
+                    epoch()
+                    stop = bool(st.stop)  # the epoch's one read
+                epoch_s.append(span.dur)
                 post_progress()
                 if after_epoch is not None:
                     after_epoch()
                 if stop:
                     break
-            host = _read_back(st)
+            with timeline.span("dca.fit.fetch"):
+                host = _read_back(st)
         loss, val_loss, lr, n_run = host
         return FitResult(loss=loss, val_loss=val_loss, lr=lr, epochs_run=n_run,
                          best=st.best, epoch_s=epoch_s, after_stop_s=after_stop_s,

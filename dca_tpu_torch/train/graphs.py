@@ -63,6 +63,14 @@ trainer's full and trailing step on each of its two part buffers
 (``train/loop.py::_train_streaming``, the counterpart of the JAX package's
 ``chunk_fn``/``rem_fn``).
 
+Each capture is the span ``dca.graphs.capture`` of the port's recorder
+(``timeline.py``), whose duration is ``capture_s``; at each capture the
+graph's nodes are counted through the kernel library
+(``dca_capture_node_counts``: kernels, copies, memsets and others) into
+``last_nodes`` and the recorder's ``graphs.nodes`` counter,
+and each ``GraphSteps.replay`` reports its replays to the recorder
+(``graphs.replays``).
+
 The kernels' launch counters (``ops/fused_loss.launches``,
 ``ops/fused_dense.launches``) count launches on the card: a wrapper counts
 when it enqueues its kernel, which under capture enqueues it into the graph
@@ -90,11 +98,15 @@ import weakref
 
 import torch
 
+from .. import timeline
 from ..ops import counters
 from ..parallel.launch import post_progress
 
 _CAPTURE_LOCK = threading.Lock()
 _own = threading.local()
+# {"full", "trailing" or "epoch": nodes} of this process's last capture of
+# each kind of graph (``node_counts``)
+last_nodes = {}
 
 
 def _own_stream(device, role="capture"):
@@ -118,6 +130,30 @@ def _own_stream(device, role="capture"):
         stream = torch.cuda.ExternalStream(handle.value, device=torch.device("cuda", index))
         mine[(index, role)] = stream
     return stream
+
+
+def node_counts(stream):
+    """(kernels, copies, memsets, other) nodes of the graph that ``stream``
+    (a ``torch.cuda.Stream``) is capturing into so far, read through the
+    kernel library."""
+    from ..ops._build import KernelError, library
+
+    counts = (ctypes.c_longlong * 4)()
+    lib = library()
+    err = lib.dca_capture_node_counts(ctypes.c_void_p(stream.cuda_stream), counts)
+    if err != 0:
+        raise KernelError(f"reading a captured graph's nodes failed: CUDA error {err} "
+                          f"({lib.dca_cuda_error_string(err).decode()})")
+    return tuple(counts)
+
+
+def _count_nodes(kind, counts, **attrs):
+    """Keep a captured graph's ``counts`` (``node_counts``) as
+    ``last_nodes[kind]`` and the ``graphs.nodes`` counter."""
+    total = sum(counts)
+    last_nodes[kind] = total
+    timeline.count("graphs.nodes", total, kind=kind, kernels=counts[0], copies=counts[1],
+                   memsets=counts[2], other=counts[3], **attrs)
 
 
 def capture_steps(device, backend, debug, graphs=True):
@@ -166,6 +202,10 @@ class EagerEpoch:
 
     def __call__(self, perm):
         self.start(perm)
+        self.run()
+
+    def run(self):
+        """The epoch's steps, after ``start``."""
         for _ in range(self.bufs.n_full):
             self.step()
             post_progress()
@@ -187,28 +227,34 @@ class GraphSteps:
     nothing of the fit.  The generator is registered with each graph, so a
     replay draws the dropout masks an eager call would.  The graphs share
     one memory pool.  ``capture_s`` is the wall time of the warm-up and
-    the captures; a failed capture raises.  ``launches[key]`` is the tally
-    of a replay's launches (``ops/counters.capturing``)."""
+    the captures (the span ``dca.graphs.capture``); a failed capture
+    raises.  ``launches[key]`` is the tally of a replay's launches
+    (``ops/counters.capturing``); each graph's nodes are counted as a
+    trailing step's when the key (or its last element) is true, else as
+    a full step's (``last_nodes``)."""
 
     def __init__(self, steps, state, generator, device):
-        t0 = time.perf_counter()
-        stream = _own_stream(device)
-        _warm_up(steps.values(), list(state), generator, device, stream)
-        self.graphs = {}
-        self.launches = {}
-        pool = None
-        for key, fn in steps.items():
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(generator)
-            with _CAPTURE_LOCK, counters.capturing(stream.cuda_stream) as tally:
-                with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    fn()
-            self.launches[key] = tally
-            self.graphs[key] = graph
-            pool = graph.pool()
-        stream.synchronize()  # the warm-up; not the device: others may capture
-        self.capture_s = time.perf_counter() - t0
+        with timeline.timed("dca.graphs.capture") as span:
+            stream = _own_stream(device)
+            _warm_up(steps.values(), list(state), generator, device, stream)
+            self.graphs = {}
+            self.launches = {}
+            pool = None
+            for key, fn in steps.items():
+                graph = torch.cuda.CUDAGraph()
+                graph.register_generator_state(generator)
+                with _CAPTURE_LOCK, counters.capturing(stream.cuda_stream) as tally:
+                    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                          capture_error_mode="thread_local"):
+                        fn()
+                        counts = node_counts(stream)
+                trailing = key[-1] if isinstance(key, tuple) else key
+                _count_nodes("trailing" if trailing else "full", counts, key=repr(key))
+                self.launches[key] = tally
+                self.graphs[key] = graph
+                pool = graph.pool()
+            stream.synchronize()  # the warm-up; not the device: others may capture
+        self.capture_s = span.dur
         _register(self)
 
     def replay(self, key, times=1):
@@ -221,6 +267,7 @@ class GraphSteps:
             for _ in range(times):
                 graph.replay()
         counters.add(self.launches[key], times)
+        timeline.count("graphs.replays", times, key=repr(key))
 
     def release(self):
         """Destroy the graphs (a replay in flight ends first, on its own)."""
@@ -282,8 +329,7 @@ class GraphEpoch(EagerEpoch):
         self.graphs, self.launches = self.steps.graphs, self.steps.launches
         self.capture_s = self.steps.capture_s
 
-    def __call__(self, perm):
-        self.start(perm)
+    def run(self):
         if self.bufs.n_full:
             self.steps.replay(False, self.bufs.n_full)
         if self.rem:
@@ -328,7 +374,9 @@ class GraphFit:
     restored in place; the generator is registered with the graph; the
     capture runs in "thread_local" mode under ``_CAPTURE_LOCK``; a failed
     capture raises; ``release_graphs`` destroys the graph of a failed
-    fit.  ``capture_s`` is the wall time of the warm-up and the capture.
+    fit.  ``capture_s`` is the wall time of the warm-up and the capture
+    (the span ``dca.graphs.capture``); the graph's nodes, its IF node's
+    body's included, are counted as ``last_nodes["epoch"]``.
     ``node_launches`` and ``body_launches`` are the tallies of a replay's
     launches outside the node (the flag's kernel) and inside it, the
     whole graph's without one (``credit``)."""
@@ -336,27 +384,41 @@ class GraphFit:
     def __init__(self, body, state, generator, stop, device, conditional=True):
         from ..ops.conditional import if_body
 
-        t0 = time.perf_counter()
-        self.stop = stop
-        stream = _own_stream(device)
-        inner = _own_stream(device, "body") if conditional else stream
-        _warm_up([body], list(state), generator, device, inner)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
-        pool = torch.cuda.graph_pool_handle()
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(_CAPTURE_LOCK)
-            body_tally = stack.enter_context(counters.capturing(inner.cuda_stream))
-            node_tally = (stack.enter_context(counters.capturing(stream.cuda_stream))
-                          if conditional else {})
-            stack.enter_context(torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                                 capture_error_mode="thread_local"))
-            if conditional:
-                stack.enter_context(if_body(stop, stream, inner, pool))
-            body()
-        self.node_launches, self.body_launches = node_tally, body_tally
-        inner.synchronize()  # the warm-up; not the device: others may capture
-        self.capture_s = time.perf_counter() - t0
+        with timeline.timed("dca.graphs.capture") as span:
+            self.stop = stop
+            stream = _own_stream(device)
+            inner = _own_stream(device, "body") if conditional else stream
+            _warm_up([body], list(state), generator, device, inner)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.register_generator_state(generator)
+            pool = torch.cuda.graph_pool_handle()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_CAPTURE_LOCK)
+                body_tally = stack.enter_context(counters.capturing(inner.cuda_stream))
+                node_tally = (stack.enter_context(counters.capturing(stream.cuda_stream))
+                              if conditional else {})
+                stack.enter_context(torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                                     capture_error_mode="thread_local"))
+                body_nodes = None
+                if conditional:
+                    with if_body(stop, stream, inner, pool) as body_nodes:
+                        body()
+                else:
+                    body()
+                if body_nodes is None:
+                    counts = node_counts(stream)
+                else:
+                    # the body's nodes, counted when its capture ended, and
+                    # the graph's own two: the kernel that sets the
+                    # condition and the IF node (CUDA 12.8 fails, with an
+                    # unknown error that lasts, a read of a graph that holds
+                    # a conditional node while it is captured); the card
+                    # runs the body's copy nodes as kernels
+                    counts = tuple(a + b for a, b in zip(body_nodes, (1, 0, 0, 1)))
+            _count_nodes("epoch", counts)
+            self.node_launches, self.body_launches = node_tally, body_tally
+            inner.synchronize()  # the warm-up; not the device: others may capture
+        self.capture_s = span.dur
         _register(self)
 
     def _replay(self):
@@ -369,17 +431,19 @@ class GraphFit:
         """Enqueue ``epochs`` replays of the conditional graph on the
         current stream, with a CUDA event before the first and after each
         (``after_epoch()`` is called after each enqueue); returns the
-        ``epochs + 1`` events.  ``enqueue_s`` is the host's wall time of the
-        enqueue.  A replay after ``release`` raises."""
+        ``epochs + 1`` events.  ``enqueue_s`` is the host's time in the
+        replays' enqueues (each replay and its event: the spans
+        ``dca.fit.replay``).  A replay after ``release`` raises."""
         events = [torch.cuda.Event(enable_timing=True) for _ in range(epochs + 1)]
-        t0 = time.perf_counter()
         events[0].record()
+        self.enqueue_s = 0.0
         for e in range(epochs):
-            self._replay()
-            events[e + 1].record()
+            with timeline.timed("dca.fit.replay", epoch=e) as span:
+                self._replay()
+                events[e + 1].record()
+            self.enqueue_s += span.dur
             if after_epoch is not None:
                 after_epoch()
-        self.enqueue_s = time.perf_counter() - t0
         return events
 
     def run_each(self, epochs, post, check, after_epoch=None):
@@ -388,16 +452,16 @@ class GraphFit:
         event, with ``post`` and ``check``), and read ``stop`` after each:
         the epoch that sets it is the last.  Returns the events, one before
         the first replay and one after each; ``enqueue_s`` is the host's
-        time in the replays' launches."""
+        time in the replays' launches (the spans ``dca.fit.replay``)."""
         events = [torch.cuda.Event(enable_timing=True)]
         events[0].record()
         self.enqueue_s = 0.0
-        for _ in range(epochs):
-            t0 = time.perf_counter()
-            self._replay()
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-            self.enqueue_s += time.perf_counter() - t0
+        for e in range(epochs):
+            with timeline.timed("dca.fit.replay", epoch=e) as span:
+                self._replay()
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            self.enqueue_s += span.dur
             if after_epoch is not None:
                 after_epoch()
             self.wait(events[-2:], post, check)

@@ -94,6 +94,18 @@ callbacks and the histories without a host hop, one CUDA graph replayed
 once an epoch on a CUDA device, alone or as a rank of an NCCL group (its
 collectives in the graph), read back once after the fit.  Here
 ``"auto"`` keeps the Python-epoch loop (ROADMAP.md).
+
+Every trainer's epochs go through the port's recorder (``timeline.py``):
+the in-memory epoch is the span ``dca.fit.epoch`` (its duration is
+``History.epoch_s``), tiled back to back by the leaf spans
+``dca.fit.perm`` (learning rate, row order, step counter),
+``dca.fit.steps`` (the replays or the eager steps), ``dca.fit.validation``
+(enqueued) and ``dca.fit.fetch`` (the group's sum and the read-back),
+with on a card the device span ``dca.fit.device`` (CUDA events from the
+epoch's first operation to its validation's last), followed by
+``dca.fit.callbacks`` and the siblings ``dca.fit.tb``,
+``dca.fit.weights`` and ``dca.fit.checkpoint``; off, they cost a flag
+test, or the two clock reads of the field they fill.
 """
 
 from __future__ import annotations
@@ -105,7 +117,6 @@ import math
 import os
 import random
 import threading
-import time
 from collections import deque
 from typing import NamedTuple
 from concurrent.futures import ThreadPoolExecutor
@@ -115,7 +126,7 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
-from .. import native
+from .. import native, timeline
 from ..bridge import copy_tree_into, flatten_tree, unflatten_tree
 from ..config import use_device_densify
 from ..data.io import densify, scale_stats, size_factors
@@ -147,6 +158,9 @@ class History:
     the epoch); ``checkpoint_s`` and ``weights_s``: each checkpoint's and
     each ``weights.hdf5``'s save (read-back and file); ``restore_s``: a
     resume's restore (file read and copies in place), None without one;
+    each the duration of a span of the port's recorder (``timeline.py``:
+    ``dca.fit.epoch``, ``dca.graphs.capture``, ``dca.fit.tb``,
+    ``dca.fit.checkpoint``, ``dca.fit.weights``, ``dca.fit.restore``);
     ``fit``: the ``compiled.FitResult`` of a ``compiled=True`` fit (its
     histories NaN past the epochs run, the device times of the replays
     after the stop), None for the Python-epoch loop; such a fit's
@@ -312,6 +326,7 @@ class _FitCallbacks:
         self.es_wait = 0
         self.rlr_best = math.inf  # ReduceLROnPlateau tracks its own best
         self.rlr_wait = 0
+        self.improved = False
 
     def restore(self, meta):
         self.lr = meta["lr"]
@@ -327,18 +342,15 @@ class _FitCallbacks:
 
     def end_epoch(self, epoch, monitor) -> bool:
         """Apply all callbacks for one finished epoch; True => stop.  An
-        improved monitor writes ``weights.hdf5`` from the live parameters,
-        after the epoch's read-back.  Posts the epoch as the rank's
-        progress where the launcher runs it (``launch.post_progress``)."""
+        improved monitor makes ``save_best`` write ``weights.hdf5``.  Posts
+        the epoch as the rank's progress where the launcher runs it
+        (``launch.post_progress``)."""
         post_progress()
         stop = False
-        if monitor < self.best_monitor:
+        self.improved = monitor < self.best_monitor
+        if self.improved:
             self.best_monitor = monitor
             self.es_wait = 0
-            if self.save_weights and self.output_dir is not None:
-                t0 = time.perf_counter()
-                self.network.save_weights(os.path.join(self.output_dir, "weights.hdf5"))
-                self.hist.weights_s.append(time.perf_counter() - t0)
         else:
             self.es_wait += 1
             if self.early_stop and self.es_wait >= self.early_stop:
@@ -360,6 +372,14 @@ class _FitCallbacks:
                     self.lr = new_lr
                     self.rlr_wait = 0
         return stop
+
+    def save_best(self):
+        """After ``end_epoch``: an improved monitor writes ``weights.hdf5``
+        from the live parameters (the span ``dca.fit.weights``)."""
+        if self.improved and self.save_weights and self.output_dir is not None:
+            with timeline.timed("dca.fit.weights") as span:
+                self.network.save_weights(os.path.join(self.output_dir, "weights.hdf5"))
+            self.hist.weights_s.append(span.dur)
 
 
 class _Checkpoints:
@@ -411,12 +431,13 @@ class _Checkpoints:
         """Save after the callbacks, every ``every`` epochs, at a stop and
         at the last epoch."""
         if self.every and ((epoch + 1) % self.every == 0 or stop or epoch == epochs - 1):
-            t0 = time.perf_counter()
-            tree = self._tree(whole=True)
-            self.ckpt.save(epoch, tree["params"], tree["state"], tree["opt_state"],
-                           lr=self.cbs.lr, seed=self.seed, callback_state=self.cbs.state_dict(),
-                           extra={"rng/generator": self.generator.get_state()})
-            self.hist.checkpoint_s.append(time.perf_counter() - t0)
+            with timeline.timed("dca.fit.checkpoint") as span:
+                tree = self._tree(whole=True)
+                self.ckpt.save(epoch, tree["params"], tree["state"], tree["opt_state"],
+                               lr=self.cbs.lr, seed=self.seed,
+                               callback_state=self.cbs.state_dict(),
+                               extra={"rng/generator": self.generator.get_state()})
+            self.hist.checkpoint_s.append(span.dur)
 
 
 def _start_fit(output_dir, checkpoint_every, resume, network, opt_state, generator, cbs,
@@ -432,9 +453,9 @@ def _start_fit(output_dir, checkpoint_every, resume, network, opt_state, generat
                          seed, hist)
     start = 0
     if resume:
-        t0 = time.perf_counter()
-        start = ckpts.restore()
-        hist.restore_s = time.perf_counter() - t0
+        with timeline.timed("dca.fit.restore") as span:
+            start = ckpts.restore()
+        hist.restore_s = span.dur
     for _ in range(start):
         rng_np.permutation(n_train)
     if start and verbose:
@@ -574,7 +595,8 @@ def train(
     artefacts = dict(output_dir=output_dir, save_weights=save_weights,
                      checkpoint_every=checkpoint_every, resume=resume, tb_log=tb)
     try:
-        with watching(mesh), _fit_trace(tb_dir if tb is not None else None, device) as trace:
+        with (timeline.fit(), watching(mesh),
+              _fit_trace(tb_dir if tb is not None else None, device) as trace):
             if stream:
                 hist = _train_streaming(
                     adata, network, opt, lr, epochs=epochs, reduce_lr=reduce_lr,
@@ -611,6 +633,7 @@ def _train_in_memory(adata, network, opt, lr, mesh, *, epochs, reduce_lr, early_
     (``_train_compiled``), with the row orders ``perms`` if given.
     ``mesh``: the ranks' grid (``parallel/mesh.py``), or None."""
     device = network.device
+    cuda = device.type == "cuda"
     group = None if mesh is None else mesh.world
     # ----- host arrays -----
     X = densify(adata.X)
@@ -716,60 +739,69 @@ def _train_in_memory(adata, network, opt, lr, mesh, *, epochs, reduce_lr, early_
         run_epoch = EagerEpoch(step, bufs, rem)
 
     for epoch in range(start_epoch, epochs):
-        t0 = time.perf_counter()
-        bufs.lr.fill_(cbs.lr)
-        run_epoch(rng_np.permutation(n_train))
-
-        with torch.no_grad():
-            sums = [bufs.losses[:n_full].sum(), bufs.losses[n_full]]
-            if has_val:
-                sums.append(network.loss_fn(X_val, sf_val, T_val, False, sample_weights=w_val,
-                                            shard=val_shard)[0])
-            sums = torch.stack(sums)
+        # the epoch's phases, leaf spans of the recorder that tile
+        # ``dca.fit.epoch``, whose duration is ``epoch_s``: the row order, the
+        # steps, the validation enqueued, the read-back
+        # ``dca.fit.device``: on a card, the stream's time from the epoch's
+        # first operation to its validation's last
+        timeline.begin_epoch(epoch)
+        with timeline.tiled("dca.fit.epoch", "dca.fit.perm") as span:
+            with timeline.device_span("dca.fit.device", cuda):
+                bufs.lr.fill_(cbs.lr)
+                run_epoch.start(rng_np.permutation(n_train))
+                span.phase("dca.fit.steps")
+                run_epoch.run()
+                span.phase("dca.fit.validation")
+                with torch.no_grad():
+                    sums = [bufs.losses[:n_full].sum(), bufs.losses[n_full]]
+                    if has_val:
+                        sums.append(network.loss_fn(X_val, sf_val, T_val, False,
+                                                    sample_weights=w_val, shard=val_shard)[0])
+                    sums = torch.stack(sums)
+            span.phase("dca.fit.fetch")
             if group is not None:
                 # each rank's losses are its shares: their sums are the means
                 dist.all_reduce(sums, group=group)
             sums = sums.tolist()  # the epoch's one read-back
-        hist.epoch_s.append(time.perf_counter() - t0)
+        hist.epoch_s.append(span.dur)
         train_loss = (sums[0] * bs + sums[1] * rem) / max(n_train, 1)
-        hist.append("loss", train_loss)
-        hist.append("lr", cbs.lr)
-        val_loss = None
-        if has_val:
-            val_loss = sums[2]
-            hist.append("val_loss", val_loss)
-            monitor = val_loss
-        else:
-            monitor = train_loss
-
-        if verbose:
-            msg = f"Epoch {epoch + 1}/{epochs} - loss: {train_loss:.4f}"
-            if has_val:
-                msg += f" - val_loss: {val_loss:.4f}"
-            print(msg + f" - lr: {cbs.lr:.2e}")
+        val_loss = sums[2] if has_val else None
+        monitor = val_loss if has_val else train_loss
 
         if tb:
-            t_tb = time.perf_counter()
-            grads = tb_grads()
-            weights = network.whole_named(flatten_tree(network.trees()[0]))
-            terms = None
-            if network.definition.debug and has_val:
-                terms = _loss_terms(network, X_val, sf_val, T_val, val_shard)
-                if terms is not None and mesh is not None:
-                    terms = [_gather_terms(t, mesh, n_val, network.definition.output_size)
-                             for t in terms]
-            if tb_log is not None:
-                tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr, "val_loss": val_loss},
-                             weights, grads)
-                if terms is not None:
-                    tb_log.loss_terms(epoch, *terms)
-            hist.tb_s.append(time.perf_counter() - t_tb)
+            with timeline.timed("dca.fit.tb") as span:
+                grads = tb_grads()
+                weights = network.whole_named(flatten_tree(network.trees()[0]))
+                terms = None
+                if network.definition.debug and has_val:
+                    terms = _loss_terms(network, X_val, sf_val, T_val, val_shard)
+                    if terms is not None and mesh is not None:
+                        terms = [_gather_terms(t, mesh, n_val, network.definition.output_size)
+                                 for t in terms]
+                if tb_log is not None:
+                    tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr,
+                                         "val_loss": val_loss}, weights, grads)
+                    if terms is not None:
+                        tb_log.loss_terms(epoch, *terms)
+            hist.tb_s.append(span.dur)
 
-        stop = cbs.end_epoch(epoch, monitor)
+        with timeline.span("dca.fit.callbacks"):
+            hist.append("loss", train_loss)
+            hist.append("lr", cbs.lr)
+            if has_val:
+                hist.append("val_loss", val_loss)
+            if verbose:
+                msg = f"Epoch {epoch + 1}/{epochs} - loss: {train_loss:.4f}"
+                if has_val:
+                    msg += f" - val_loss: {val_loss:.4f}"
+                print(msg + f" - lr: {cbs.lr:.2e}")
+            stop = cbs.end_epoch(epoch, monitor)
+            if trace is not None:
+                trace.step()
+            timeline.end_epoch()
+        cbs.save_best()
         if ckpts is not None:
             ckpts.after_epoch(epoch, epochs, stop)
-        if trace is not None:
-            trace.step()
         if stop:
             break
     return hist
@@ -814,27 +846,27 @@ def _train_compiled(network, opt, lr, mesh, train_split, val, val_shard, perms, 
     if tb and res.epochs_run > 0:
         # the final parameters, and their gradient on the validation split
         # (a collective under a group: every rank takes part)
-        t_tb = time.perf_counter()
-        grads = {}
-        if has_val:
-            grads = _tb_grads(network, val[0], val[2], val[1], shard=val_shard)
-        weights = network.whole_named(flatten_tree(network.trees()[0]))
-        if tb_log is not None:
-            tb_log.epoch(res.epochs_run - 1, {}, weights, grads)
-        hist.tb_s.append(time.perf_counter() - t_tb)
+        with timeline.timed("dca.fit.tb") as span:
+            grads = {}
+            if has_val:
+                grads = _tb_grads(network, val[0], val[2], val[1], shard=val_shard)
+            weights = network.whole_named(flatten_tree(network.trees()[0]))
+            if tb_log is not None:
+                tb_log.epoch(res.epochs_run - 1, {}, weights, grads)
+        hist.tb_s.append(span.dur)
     if track_best:
-        t0 = time.perf_counter()
-        live = list(network.model.parameters()) + list(network.model.buffers())
-        with torch.no_grad():
-            final = [t.detach().clone() for t in live]
-            for t, b in zip(live, res.best):
-                t.copy_(b)
-            try:
-                network.save_weights(os.path.join(output_dir, "weights.hdf5"))
-            finally:
-                for t, f in zip(live, final):
-                    t.copy_(f)
-        hist.weights_s.append(time.perf_counter() - t0)
+        with timeline.timed("dca.fit.weights") as span:
+            live = list(network.model.parameters()) + list(network.model.buffers())
+            with torch.no_grad():
+                final = [t.detach().clone() for t in live]
+                for t, b in zip(live, res.best):
+                    t.copy_(b)
+                try:
+                    network.save_weights(os.path.join(output_dir, "weights.hdf5"))
+                finally:
+                    for t, f in zip(live, final):
+                        t.copy_(f)
+        hist.weights_s.append(span.dur)
     return hist
 
 
@@ -890,67 +922,6 @@ def _derivable_row_scale(Xn, raw):
     if not np.allclose(recon, Xn.data[sel], rtol=1e-5, atol=1e-6):
         return None
     return m.astype(np.float32)
-
-
-class _StreamTimeline:
-    """Opt-in (``DCA_TPU_TIMELINE=<path>``) event log of streaming epochs,
-    one JSON line per (epoch, part, stage) with absolute perf_counter
-    stamps, so that an epoch's stages add up to its wall time (the JAX
-    package's format; ``scripts/timeline_report.py`` summarizes it).
-    Stages:
-
-      prep      host payload build or densify      (prefetch thread)
-      ship      upload and device scatter enqueued (prefetch thread)
-      wait      main thread blocked on the staged part
-      dispatch  main thread enqueueing the part's steps or evaluation
-      fetch     the epoch's one read-back of its losses
-      epoch     the whole epoch
-      device    on a CUDA device: the main stream's time from the part's
-                first to its last operation (CUDA events; t0 is the
-                dispatch's start, t1 = t0 + dur)
-      stage     on a CUDA device: the staging stream's time for the part's
-                writes, likewise
-
-    Σ device / epoch is the main stream's busy share of the epoch."""
-
-    def __init__(self, path, cuda):
-        self.path = path
-        self.cuda = cuda
-        self.events = []
-        self.pending = []  # (part, kind, stage, t0, start event, end event)
-        self.epoch = -1
-
-    def rec(self, part, kind, stage, t0, t1):
-        self.events.append((self.epoch, part, kind, stage, t0, t1))
-
-    def start_event(self):
-        if not self.cuda:
-            return None
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def device_span(self, part, kind, stage, t0, start):
-        """Close the span opened by ``start_event`` on the current stream."""
-        if start is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self.pending.append((self.epoch, part, kind, stage, t0, start, end))
-
-    def flush(self):
-        import json
-
-        for e, part, kind, stage, t0, start, end in self.pending:
-            dur = start.elapsed_time(end) / 1e3
-            self.events.append((e, part, kind, stage, t0, t0 + dur))
-        self.pending = []
-        with open(self.path, "a") as f:
-            for e, part, kind, stage, t0, t1 in self.events:
-                f.write(json.dumps(dict(
-                    epoch=e, part=part, kind=kind, stage=stage,
-                    t0=round(t0, 4), t1=round(t1, 4),
-                    dur=round(t1 - t0, 6))) + "\n")
-        self.events = []
 
 
 class _PartSlot:
@@ -1243,8 +1214,6 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     stage_stream = torch.cuda.Stream(device) if cuda else None
     if cuda:
         stage_stream.wait_stream(torch.cuda.current_stream(device))
-    tl_path = os.environ.get("DCA_TPU_TIMELINE")
-    tl = _StreamTimeline(tl_path, cuda) if tl_path else None
     closing = threading.Event()
 
     def to_device(c, out, mean=None, std=None):
@@ -1300,13 +1269,10 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
         if not cuda:
             write()
             return
-        t0 = time.perf_counter()
         with torch.cuda.stream(stage_stream):
             stage_stream.wait_event(slot.done)
-            start = tl.start_event() if tl is not None else None
-            write()
-            if tl is not None:
-                tl.device_span(pi, kind, "stage", t0, start)
+            with timeline.device_span("dca.stream.stage", cuda, part=pi, kind=kind):
+                write()
             slot.ready = torch.cuda.Event()
             slot.ready.record(stage_stream)
 
@@ -1337,35 +1303,29 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             window = []
             for pi, (kind, sd, _, idx) in enumerate(tasks):
                 slot = slots[pi % 2]
-                t0 = time.perf_counter()
-                if cuda and ahead and len(window) >= ahead:
-                    window.pop(0).synchronize()
-                rows = idx if sd is tr else np.asarray(idx) + split_at
-                stage(pi, kind, slot, lambda: resident.part(rows, slot.x_flat, slot.t_flat,
-                                                            slot.sf))
-                if cuda and ahead:
-                    window.append(slot.ready)
-                if tl is not None:
-                    tl.rec(pi, kind, "wait", t0, time.perf_counter())
+                with timeline.span("dca.stream.wait", part=pi, kind=kind):
+                    if cuda and ahead and len(window) >= ahead:
+                        window.pop(0).synchronize()
+                    rows = idx if sd is tr else np.asarray(idx) + split_at
+                    stage(pi, kind, slot, lambda: resident.part(rows, slot.x_flat,
+                                                                slot.t_flat, slot.sf))
+                    if cuda and ahead:
+                        window.append(slot.ready)
                 yield slot
             return
         if pool is None:
             for pi, (kind, sd, _, rows) in enumerate(tasks):
-                t0 = time.perf_counter()
-                ship(pi, kind, slots[pi % 2], prepare(sd, rows))
-                if tl is not None:
-                    tl.rec(pi, kind, "wait", t0, time.perf_counter())
+                with timeline.span("dca.stream.wait", part=pi, kind=kind):
+                    ship(pi, kind, slots[pi % 2], prepare(sd, rows))
                 yield slots[pi % 2]
             return
 
+        @timeline.carry  # the prefetch thread's spans are the fit's
         def work(pi, kind, sd, rows):
-            t0 = time.perf_counter()
-            p = prepare(sd, rows)
-            t1 = time.perf_counter()
-            ship(pi, kind, slots[pi % 2], p)
-            if tl is not None:
-                tl.rec(pi, kind, "prep", t0, t1)
-                tl.rec(pi, kind, "ship", t1, time.perf_counter())
+            with timeline.span("dca.stream.prep", part=pi, kind=kind):
+                p = prepare(sd, rows)
+            with timeline.span("dca.stream.ship", part=pi, kind=kind):
+                ship(pi, kind, slots[pi % 2], p)
 
         pending = deque()
         for pi, (kind, sd, _, rows) in enumerate(tasks):
@@ -1377,10 +1337,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
 
     def _take(pending):
         ppi, pkind, fut = pending.popleft()
-        t0 = time.perf_counter()
-        fut.result()
-        if tl is not None:
-            tl.rec(ppi, pkind, "wait", t0, time.perf_counter())
+        with timeline.span("dca.stream.wait", part=ppi, kind=pkind):
+            fut.result()
         return slots[ppi % 2]
 
     # the validation chunks' weights on the device, by part: the same
@@ -1389,95 +1347,93 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
              for pi, t in enumerate(schedule) if t.kind == "val" and t.n % n_data}
     try:
         for epoch in range(start_epoch, epochs):
-            t_ep = time.perf_counter()
-            perm = rng_np.permutation(n_train)
-            bufs.lr.fill_(cbs.lr)
-            bufs.step_i.zero_()
-            tasks = _stream_tasks(tr, va, perm, bs, data_index, n_data)
-            if tl is not None:
-                tl.epoch = epoch
-            val_losses, val_rows = [], []
-            grads = None
-            # the part whose rows the TensorBoard gradients are taken on:
-            # the first validation chunk, or the last train part
-            n_parts = sum(t.kind != "val" for t in tasks)
-            grad_part = (n_parts if has_val else n_parts - 1) if tb else -1
-            for pi, ((kind, _, n_rows, rows), slot) in enumerate(zip(tasks, staged(tasks))):
-                t0 = time.perf_counter()
-                if cuda:
-                    torch.cuda.current_stream(device).wait_event(slot.ready)
-                start = tl.start_event() if tl is not None else None
-                k, w, shard = len(rows), val_w.get(pi), None
-                if group is not None:
-                    shard = (batch_shard(mesh, k * n_data) if kind == "val"
-                             else held_shard(mesh, n_rows, k))
-                if kind == "full":
-                    run((pi % 2, False), n_rows // bs)
-                elif kind == "rem":
-                    run((pi % 2, True))
-                else:
-                    with torch.no_grad():
-                        loss, _ = network.loss_fn(*slot.head(k), False, sample_weights=w,
-                                                  shard=shard)
-                    val_losses.append(loss.detach().reshape(1))
-                    val_rows.append(n_rows)
-                if pi == grad_part:
-                    grads = _tb_grads(network, *slot.head(k), w, shard)
-                if tl is not None:
-                    tl.device_span(pi, kind, "device", t0, start)
-                if cuda:
-                    slot.done.record()
-                slot.free.release()
-                if tl is not None:
-                    tl.rec(pi, kind, "dispatch", t0, time.perf_counter())
-                post_progress()
+            timeline.begin_epoch(epoch)
+            # the recorder's spans (timeline.py): the epoch, whose duration is
+            # ``epoch_s``; a part's wait for its staging and the dispatch of
+            # its steps or its evaluation, and on the card its device time
+            # on the main stream (and its staging's on the side stream); the
+            # prefetch thread's prep and ship; the read-back
+            with timeline.timed("dca.fit.epoch", leaf=False) as span:
+                perm = rng_np.permutation(n_train)
+                bufs.lr.fill_(cbs.lr)
+                bufs.step_i.zero_()
+                tasks = _stream_tasks(tr, va, perm, bs, data_index, n_data)
+                val_losses, val_rows = [], []
+                grads = None
+                # the part whose rows the TensorBoard gradients are taken on:
+                # the first validation chunk, or the last train part
+                n_parts = sum(t.kind != "val" for t in tasks)
+                grad_part = (n_parts if has_val else n_parts - 1) if tb else -1
+                for pi, ((kind, _, n_rows, rows), slot) in enumerate(zip(tasks,
+                                                                         staged(tasks))):
+                    with timeline.span("dca.stream.dispatch", part=pi, kind=kind):
+                        if cuda:
+                            torch.cuda.current_stream(device).wait_event(slot.ready)
+                        with timeline.device_span("dca.stream.device", cuda, part=pi,
+                                                  kind=kind):
+                            k, w, shard = len(rows), val_w.get(pi), None
+                            if group is not None:
+                                shard = (batch_shard(mesh, k * n_data) if kind == "val"
+                                         else held_shard(mesh, n_rows, k))
+                            if kind == "full":
+                                run((pi % 2, False), n_rows // bs)
+                            elif kind == "rem":
+                                run((pi % 2, True))
+                            else:
+                                with torch.no_grad():
+                                    loss, _ = network.loss_fn(*slot.head(k), False,
+                                                              sample_weights=w, shard=shard)
+                                val_losses.append(loss.detach().reshape(1))
+                                val_rows.append(n_rows)
+                            if pi == grad_part:
+                                grads = _tb_grads(network, *slot.head(k), w, shard)
+                        if cuda:
+                            slot.done.record()
+                        slot.free.release()
+                    post_progress()
 
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                sums = torch.cat([bufs.losses[:n_full].sum().view(1),
-                                  bufs.losses[n_full:]] + val_losses)
-                if group is not None:
-                    # each rank's losses are its shares: their sums are the means
-                    dist.all_reduce(sums, group=group)
-                sums = sums.tolist()  # the epoch's one read-back
-            hist.epoch_s.append(time.perf_counter() - t_ep)
-            if tl is not None:
-                now = time.perf_counter()
-                tl.rec(-1, "", "fetch", t0, now)
-                tl.rec(-1, "", "epoch", t_ep, now)
-                tl.flush()
+                with timeline.span("dca.fit.fetch"), torch.no_grad():
+                    sums = torch.cat([bufs.losses[:n_full].sum().view(1),
+                                      bufs.losses[n_full:]] + val_losses)
+                    if group is not None:
+                        # each rank's losses are its shares: their sums are the means
+                        dist.all_reduce(sums, group=group)
+                    sums = sums.tolist()  # the epoch's one read-back
+            hist.epoch_s.append(span.dur)
             # the in-memory fit's arithmetic, so the same steps give the
             # same history
             train_loss = (sums[0] * bs + sums[1] * rem) / max(n_train, 1)
-            hist.append("loss", train_loss)
-            hist.append("lr", cbs.lr)
+            val_loss = None
             if has_val:
                 # each chunk's mean, weighted by its rows; one chunk gives
                 # its loss exactly
                 val_loss = sum(v * k for v, k in zip(sums[2:], val_rows)) / max(sum(val_rows), 1)
-                hist.append("val_loss", val_loss)
-                monitor = val_loss
-            else:
-                monitor = train_loss
-            if verbose:
-                msg = f"Epoch {epoch + 1}/{epochs} - loss: {train_loss:.4f}"
-                if has_val:
-                    msg += f" - val_loss: {val_loss:.4f}"
-                print(msg + f" - lr: {cbs.lr:.2e} [streaming]")
+            monitor = val_loss if has_val else train_loss
             if tb:
-                t_tb = time.perf_counter()
-                # whole over the model axis: a collective every rank calls
-                weights = network.whole_named(flatten_tree(network.trees()[0]))
-                if tb_log is not None:
-                    tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr,
-                                         "val_loss": val_loss if has_val else None},
-                                 weights, grads or {})
-                hist.tb_s.append(time.perf_counter() - t_tb)
-            stop = cbs.end_epoch(epoch, monitor)
+                with timeline.timed("dca.fit.tb") as span:
+                    # whole over the model axis: a collective every rank calls
+                    weights = network.whole_named(flatten_tree(network.trees()[0]))
+                    if tb_log is not None:
+                        tb_log.epoch(epoch, {"loss": train_loss, "lr": cbs.lr,
+                                             "val_loss": val_loss}, weights, grads or {})
+                hist.tb_s.append(span.dur)
+            with timeline.span("dca.fit.callbacks"):
+                hist.append("loss", train_loss)
+                hist.append("lr", cbs.lr)
+                if has_val:
+                    hist.append("val_loss", val_loss)
+                if verbose:
+                    msg = f"Epoch {epoch + 1}/{epochs} - loss: {train_loss:.4f}"
+                    if has_val:
+                        msg += f" - val_loss: {val_loss:.4f}"
+                    print(msg + f" - lr: {cbs.lr:.2e} [streaming]")
+                stop = cbs.end_epoch(epoch, monitor)
+                if trace is not None:
+                    trace.step()
+                timeline.end_epoch(flush=True)
+            cbs.save_best()
             if ckpts is not None:
                 ckpts.after_epoch(epoch, epochs, stop)
-            if trace is not None:
-                trace.step()
             if stop:
                 break
     finally:

@@ -591,6 +591,134 @@ def test_graph_fit_matches_eager_fit_on_card(cuda, ae_type, validation_split, n_
 
 
 @pytest.mark.gpu
+def test_graph_nodes_are_the_device_operations_of_a_replay(cuda, tmp_path):
+    """The nodes of the full step's graph, as the kernel library counts them
+    at its capture (``graphs.nodes``, ``graphs.last_nodes``), are the
+    kernels, copies and memsets that one
+    profiled replay of that graph runs; a replay is counted as one
+    (``graphs.replays``)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dca_tpu_torch import timeline
+    from dca_tpu_torch.train import graphs as G
+
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(200, 300, 6))))
+    X = torch.from_numpy(np.array(adata.X, np.float32)).to(cuda)
+    T = torch.from_numpy(np.array(adata.raw.X, np.float32)).to(cuda)
+    SF = torch.from_numpy(np.array(adata.obs.size_factors, np.float32)).to(cuda)
+    opt = optim.get_optimizer("RMSprop", clipvalue=5.0)
+    net = get_ae_type("zinb-conddisp")(input_size=300, hidden_size=(64, 32, 64),
+                                       device=cuda).build()
+    params = list(net.model.parameters())
+    opt_state = opt.init(params)
+    bufs = StepBuffers.create(200, 64, 1e-3, cuda)
+    train_step = make_sharded_train_step(net, opt)
+
+    def step(trailing=False):
+        train_step(X, T, SF, bufs, opt_state, None, trailing)
+
+    written = params + list(net.model.buffers()) + opt_state["a"]
+    with timeline.recording() as rec:
+        run = GraphEpoch(step, bufs, 8, written, torch.Generator(device=cuda))
+        run.start(np.random.RandomState(1).permutation(200))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run.steps.replay(False)
+            torch.cuda.synchronize()
+    path = str(tmp_path / "replay.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = sum(e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              for e in events)
+    nodes = {c.attrs["kind"]: c for c in rec.counted("graphs.nodes")}
+    assert nodes["full"].n > 0 and nodes["full"].n == ops
+    assert G.last_nodes["full"] == nodes["full"].n
+    assert G.last_nodes["trailing"] == nodes["trailing"].n > 0
+    assert nodes["full"].attrs["kernels"] > 0 and nodes["full"].attrs["other"] == 0
+    assert [(c.n, c.attrs["key"]) for c in rec.counted("graphs.replays")] == [(1, "False")]
+
+
+@pytest.mark.gpu
+def test_the_whole_epoch_graph_counts_its_nodes(cuda, monkeypatch, tmp_path):
+    """``compiled=True`` on the card: the whole-epoch graph's kernel, copy
+    and memset nodes, its IF node's body's included, are as many as the
+    device operations that its first replay (the condition true: the body
+    runs) runs under the profiler, and its other node is the IF node.  The
+    card runs the body's copies as kernels, so the profiler's split
+    differs from the nodes'.  The sum of its replays' ``dca.fit.replay``
+    spans is ``enqueue_s``, its read-back a ``dca.fit.fetch``."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dca_tpu_torch import timeline
+    from dca_tpu_torch.train import compiled
+    from dca_tpu_torch.train import graphs as G
+
+    traces = []
+
+    class Profiled(compiled.GraphFit):
+        def _replay(self):
+            if traces:
+                return super()._replay()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                super()._replay()
+                torch.cuda.synchronize()
+            path = str(tmp_path / "epoch.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                traces.append(json.load(f)["traceEvents"])
+
+    monkeypatch.setattr(compiled, "GraphFit", Profiled)
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(200, 300, 6))))
+    net = get_ae_type("nb-conddisp")(input_size=300, hidden_size=(64, 32, 64),
+                                     device=cuda).build()
+    with timeline.recording() as rec:
+        hist = train(adata, net, epochs=3, batch_size=64, verbose=False, compiled=True)
+    (epoch,) = [c for c in rec.counted("graphs.nodes") if c.attrs["kind"] == "epoch"]
+    assert epoch.n == G.last_nodes["epoch"] > 0
+    ops = {cat: sum(e.get("ph") == "X" and e.get("cat") == cat for e in traces[0])
+           for cat in ("kernel", "gpu_memcpy", "gpu_memset")}
+    counted = {k: epoch.attrs[k] for k in ("kernels", "copies", "memsets", "other")}
+    assert sum(ops.values()) == counted["kernels"] + counted["copies"] + counted["memsets"], (
+        ops, counted)
+    assert counted["kernels"] > 0 and counted["other"] == 1, counted
+    assert hist.fit.enqueue_s == sum(s.dur for s in rec.named("dca.fit.replay"))
+    assert len(rec.named("dca.fit.replay")) == 3 and len(rec.named("dca.fit.fetch")) == 1
+    assert hist.fit.capture_s == rec.named("dca.graphs.capture")[0].dur
+
+
+@pytest.mark.gpu
+def test_the_epoch_is_tiled_and_timed_on_the_card(cuda):
+    """The fit replayed from graphs under the recorder: each epoch's leaf
+    spans tile it, ``epoch_s`` is its spans' durations, and its device span
+    (CUDA events from its first operation to its validation's last) lies
+    within it; one replay a step is counted."""
+    from dca_tpu_torch import timeline
+
+    adata = io.normalize(io.read_dataset(AnnData(_small_counts(400, 300, 5))))
+    net = get_ae_type("nb-conddisp")(input_size=300, hidden_size=(64, 32, 64),
+                                     device=cuda).build()
+    with timeline.recording() as rec:
+        hist = train(adata, net, epochs=3, batch_size=32, verbose=False)
+    epochs = rec.named("dca.fit.epoch")
+    assert [s.dur for s in epochs] == hist.epoch_s
+    device = rec.named("dca.fit.device")
+    assert [s.epoch for s in device] == [0, 1, 2]
+    for ep, dev in zip(epochs, device):
+        leaves = [s for s in rec.spans if s.epoch == ep.epoch and s.name in (
+            "dca.fit.perm", "dca.fit.steps", "dca.fit.validation", "dca.fit.fetch")]
+        assert leaves[0].t0 == ep.t0 and leaves[-1].t1 == ep.t1
+        assert 0 < dev.dur < ep.dur
+    replays = [c.n for c in rec.counted("graphs.replays")]
+    assert replays == [11, 1] * 3  # 360 training rows: 11 full steps and a trailing one
+
+
+@pytest.mark.gpu
 def test_graph_epoch_with_only_a_trailing_step(cuda):
     """A batch longer than the split: no full step, only the trailing graph
     (``train`` cuts the batch to the split and never forms this).  Its
@@ -1192,8 +1320,8 @@ def test_an_epoch_after_the_stop_changes_nothing_on_card(cuda, monkeypatch):
     runners = []
 
     class Recording(compiled.GraphFit):
-        def __init__(self, body, state, *args):
-            super().__init__(body, state, *args)
+        def __init__(self, body, state, *args, **kwargs):
+            super().__init__(body, state, *args, **kwargs)
             runners.append((self, list(state)))
 
     monkeypatch.setattr(compiled, "GraphFit", Recording)
