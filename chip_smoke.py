@@ -68,6 +68,16 @@ Phases, each of which must pass:
    version (``conditional.if_reference``) is true; then its time, a node
    with its body skipped in a graph of 100, against ``logical_not`` of
    the flag, in turns (``phase_graph_if``).
+   K5 (``csrc/fused_optim.cu``, RMSprop's whole update in one launch, no
+   TPU counterpart) against the plain loop (``train/optim.py::
+   _rmsprop_loop``) over 20 updates from the same state, the rate cut
+   after 10: at the leaves of nb-conddisp and zinb-conddisp at 3451
+   genes, at odd sizes (1, 3, 3451, 1725, 862) on fresh tensors and on
+   misaligned views into flat buffers, and with gradients of +-inf, NaN,
+   exactly +-5 and past it, clipped and not: the same bits after every
+   update; then its time at both configurations' leaves, a graph replay,
+   beside its bound (20 bytes an element) and the plain loop's
+   (``phase_optim``).
 2. Kernel timings at (32, 3451), NB and ZINB: median device time of 50
    launches after a warm-up, each launch a CUDA graph replay between CUDA
    events (see ``_device_ms``); beside them the plain version's time and
@@ -1051,6 +1061,180 @@ def dense_timings(dev):
     return out
 
 
+# K5: the updates each comparison runs, the odd leaf sizes, the gradients
+# that test clamp's edges (clip 5)
+RMSPROP_STEPS = 20
+RMSPROP_ODD = ((1,), (3,), (3451,), (1725,), (862,), (64, 3451), (32, 1725))
+RMSPROP_SPECIALS = (np.inf, -np.inf, np.nan, 5.0, -5.0, np.nextafter(np.float32(5), np.inf),
+                    -np.nextafter(np.float32(5), np.inf), 1e30, -1e30, 0.0, -0.0)
+RMSPROP_CASES = [
+    ("nb-conddisp leaves", "nb-conddisp", "fresh", False, 5.0, "tensor"),
+    ("zinb-conddisp leaves", "zinb-conddisp", "fresh", False, 5.0, "tensor"),
+    ("nb-conddisp leaves, flat views", "nb-conddisp", "flat", False, 5.0, "tensor"),
+    ("odd sizes", "odd", "fresh", False, 5.0, "float"),
+    ("odd sizes, flat views", "odd", "flat", False, 5.0, "tensor"),
+    ("edge gradients", "odd", "flat", True, 5.0, "tensor"),
+    ("edge gradients, no clip", "odd", "fresh", True, None, "float"),
+]
+
+
+def rmsprop_shapes(leaves, genes=3451):
+    """The parameters' shapes of ``leaves``: a configuration's network
+    (64-32-64 at ``genes``) or ``"odd"`` (``RMSPROP_ODD``)."""
+    from dca_tpu_torch.models.network import get_ae_type
+
+    if leaves == "odd":
+        return list(RMSPROP_ODD)
+    net = get_ae_type(leaves)(input_size=genes, hidden_size=(64, 32, 64), device="cpu").build()
+    return [tuple(p.shape) for p in net.model.parameters()]
+
+
+def _placed_leaves(dev, arrays, flat_offset=None):
+    """Float32 tensors on ``dev`` of ``arrays``: each its own allocation,
+    or with ``flat_offset`` contiguous views one after another into one
+    flat buffer from that many floats in, as the gradients of a flat
+    all-reduce are (misaligned where an offset is not a multiple of 4)."""
+    import torch
+
+    if flat_offset is None:
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+    flat = torch.zeros(flat_offset + sum(a.size for a in arrays), device=dev)
+    out, off = [], flat_offset
+    for a in arrays:
+        out.append(flat[off:off + a.size].view(a.shape))
+        out[-1].copy_(torch.from_numpy(a))
+        off += a.size
+    return out
+
+
+def _rmsprop_grads(rs, shapes, specials):
+    """Gradients of ``shapes``, a fifth of them past the clip value 5;
+    with ``specials`` each leaf holds ``RMSPROP_SPECIALS`` at random
+    places too."""
+    grads = [(rs.normal(size=s) * 4.0).astype(np.float32) for s in shapes]
+    if specials:
+        vals = np.array(RMSPROP_SPECIALS, np.float32)
+        for g in grads:
+            flat = g.reshape(-1)
+            k = min(flat.size, vals.size)
+            flat[rs.choice(flat.size, size=k, replace=False)] = vals[:k]
+    return grads
+
+
+def check_rmsprop_case(dev, leaves, layout, specials, clip, lr_kind, seed=0,
+                       steps=RMSPROP_STEPS):
+    """K5 (``fused_optim.rmsprop``) and the plain loop
+    (``optim._rmsprop_loop``) on ``dev`` from the same parameters and
+    accumulators, ``steps`` updates on the same gradients, the rate (a 0-d
+    tensor rewritten in place, or a float) cut tenfold halfway: the same
+    bits after every update, NaN included, or SmokeFailure.  ``layout``
+    "flat": the gradients views into one flat buffer at an odd offset, the
+    parameters and accumulators into others.  Returns the elements a
+    side."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_optim
+    from dca_tpu_torch.train import optim
+
+    shapes = rmsprop_shapes(leaves)
+    rs = np.random.RandomState(seed)
+    p0 = [rs.normal(size=s).astype(np.float32) for s in shapes]
+    a0 = [rs.uniform(0.0, 2.0, size=s).astype(np.float32) for s in shapes]
+    flat = layout == "flat"
+    sides = [(_placed_leaves(dev, p0, 1 if flat else None),
+              _placed_leaves(dev, a0, 3 if flat else None)) for _ in range(2)]
+    lr = torch.tensor(1e-3, device=dev) if lr_kind == "tensor" else 1e-3
+    for step in range(steps):
+        if step == steps // 2:
+            lr = lr.fill_(1e-4) if torch.is_tensor(lr) else 1e-4
+        g = _placed_leaves(dev, _rmsprop_grads(rs, shapes, specials), 2 if flat else None)
+        with torch.no_grad():
+            fused_optim.rmsprop(sides[0][0], g, sides[0][1], lr, clip)
+            optim._rmsprop_loop(sides[1][0], g, sides[1][1], lr, clip, 0.9, 1e-7)
+        for i, (k, want) in enumerate(zip(sides[0][0] + sides[0][1], sides[1][0] + sides[1][1])):
+            what = "parameter" if i < len(shapes) else "accumulator"
+            if not bits_equal(k, want):
+                bad = (k.view(torch.int32) != want.view(torch.int32)).nonzero()[:3].tolist()
+                raise SmokeFailure(
+                    f"K5 ({leaves}, {layout}, clip {clip}, lr {lr_kind}): {what} "
+                    f"{i % len(shapes)} {tuple(k.shape)} differs from the plain loop after "
+                    f"update {step + 1} at {bad}: {k.view(-1)[:4].tolist()} against "
+                    f"{want.view(-1)[:4].tolist()}")
+    return sum(int(np.prod(s)) for s in shapes)
+
+
+def bits_equal(a, b):
+    """The same float32 bits, NaN included, where ``torch.equal`` calls
+    two NaNs unequal."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.reshape(-1).view(torch.int32),
+                                              b.reshape(-1).view(torch.int32))
+
+
+def rmsprop_bound_ms(n_elements):
+    """K5's least time: p, g and a read and p and a written once, 20
+    bytes an element; a dozen operations an element take far less."""
+    return _bound_ms(20 * n_elements, 12 * n_elements)
+
+
+def phase_optim(dev):
+    """K5 against the plain loop (``RMSPROP_CASES``), then its time at both
+    configurations' leaves: replays of a graph of one update (the 13.5 /
+    18.0 MB stay in the 50 MB L2 from replay to replay), and the same with
+    a 128 MB buffer written between updates, against the plain loop's
+    replays and the bound.  Returns {name: entry}."""
+    import torch
+
+    from dca_tpu_torch.ops import fused_optim
+    from dca_tpu_torch.train import optim
+
+    n_checked = 0
+    for name, leaves, layout, specials, clip, lr_kind in RMSPROP_CASES:
+        n = check_rmsprop_case(dev, leaves, layout, specials, clip, lr_kind,
+                               seed=len(name))
+        n_checked += n
+        print(f"phase 1: K5 {name}: the plain loop's bits after each of {RMSPROP_STEPS} "
+              f"updates ({n} elements)")
+    out = {"cases": len(RMSPROP_CASES), "elements": n_checked}
+    flush = torch.empty(32 << 20, device=dev)  # 128 MB, past the L2
+    for leaves in ("nb-conddisp", "zinb-conddisp"):
+        shapes = rmsprop_shapes(leaves)
+        rs = np.random.RandomState(7)
+        params = _placed_leaves(dev, [rs.normal(size=s).astype(np.float32) for s in shapes])
+        accs = _placed_leaves(dev, [np.zeros(s, np.float32) for s in shapes])
+        grads = _placed_leaves(dev, _rmsprop_grads(rs, shapes, False))
+        lr = torch.tensor(1e-3, device=dev)
+        n = sum(p.numel() for p in params)
+
+        def kernel():
+            fused_optim.rmsprop(params, grads, accs, lr, 5.0)
+
+        def plain():
+            optim._rmsprop_loop(params, grads, accs, lr, 5.0, 0.9, 1e-7)
+
+        def cold():
+            flush.fill_(1.0)
+            kernel()
+
+        with torch.no_grad():
+            k1, p1, p2, k2 = (_device_ms(kernel), _device_ms(plain), _device_ms(plain),
+                              _device_ms(kernel))
+            fill = _device_ms(lambda: flush.fill_(1.0))
+            cold_ms = _device_ms(cold) - fill
+        bound, by = rmsprop_bound_ms(n)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        out[leaves] = {"leaves": len(shapes), "elements": n, "ms": ms, "plain_ms": plain_ms,
+                       "cold_ms": cold_ms, "bound_ms": bound, "bound_by": by,
+                       "roofline_pct": 100 * bound / ms, "cold_roofline_pct": 100 * bound / cold_ms}
+        print(f"phase 2: K5 {leaves} ({len(shapes)} leaves, {n} elements): {ms * 1e3:.2f} us "
+              f"warm (in turns {k1 * 1e3:.2f}, {k2 * 1e3:.2f}), {cold_ms * 1e3:.2f} us after a "
+              f"128 MB write (its {fill * 1e3:.2f} us taken off); plain loop "
+              f"{plain_ms * 1e3:.2f} us ({p1 * 1e3:.2f}, {p2 * 1e3:.2f}); bound "
+              f"{bound * 1e3:.2f} us by {by} ({20 * n / 1e6:.2f} MB)")
+    return out
+
+
 def load_parent(path, name="dca_parent"):
     """``dca_tpu_torch/ops/fused_loss.py`` of another checkout of the repo
     at ``path`` (an earlier commit, unpacked), imported as the package
@@ -1358,6 +1542,7 @@ def phase_api(ae_type, epochs, tensorboard=False):
     from dca_tpu_torch.data.adata import AnnData
     from dca_tpu_torch.models import core
     from dca_tpu_torch.ops import fused_loss as fl
+    from dca_tpu_torch.ops import fused_optim
 
     counts = make_paul15_like()
     n_cells, n_genes = counts.shape
@@ -1373,6 +1558,7 @@ def phase_api(ae_type, epochs, tensorboard=False):
     runs = {}
     for graphs in (True, False):
         fl.reset_launches()
+        fused_optim.reset_launches()
         t0 = time.perf_counter()
         ret, net = dca_tpu_torch.dca(AnnData(counts.copy()), epochs=epochs, verbose=graphs,
                                      return_model=True, training_kwds={"_graphs": graphs}, **kw)
@@ -1396,6 +1582,11 @@ def phase_api(ae_type, epochs, tensorboard=False):
                               _warmups(n_cells) if graphs else 0)
         _check(launches == want,
                f"{ae_type} ({path}): kernel launches {launches}, expected {want}")
+        # RMSprop, dca()'s optimizer: K5 once a step and once a warm-up step
+        launches["rmsprop"] = fused_optim.launches["rmsprop"]
+        want_k5 = want[f"{core.LIKELIHOODS[ae_type]}_nll_bwd"]
+        _check(launches["rmsprop"] == want_k5,
+               f"{ae_type} ({path}): K5 launches {launches['rmsprop']}, expected {want_k5}")
         print(f"phase 4: dca() {ae_type} {n_cells} x {n_genes} ({path}), {epochs} epochs in "
               f"{t_run:.3f} s, {steps} steps each; launches {launches}")
         runs[graphs] = (launches, net, hist)
@@ -4584,6 +4775,7 @@ def main():
         worst = phase_compare(dev)
         worst_w = phase_weighted_compare(dev)
         dense_err = phase_dense_compare(dev)
+        k5 = phase_optim(dev)
         graph_if = phase_graph_if(dev)
         times = phase_timings(dev, parent)
         times.update(weighted_timings(dev))
@@ -4745,6 +4937,20 @@ def main():
                     "grads_rel_same_params": dp["grads_rel_same_params"],
                     "grads_rel_phase4": dp["grads_rel_phase4"]}
             kernels.append(entry)
+    kernels.append({
+        "name": "rmsprop", "route": "cuda", "source": "dca_tpu_torch/csrc/fused_optim.cu",
+        "replaces": "dca_tpu/train/optim.py:rmsprop", "tpu_kernel": None,
+        "note": "no TPU kernel: XLA fuses the JAX package's update; here the 11 PyTorch "
+                "kernels a leaf of the plain loop in one launch for up to 64 leaves",
+        "launches": launches["rmsprop"], "max_abs_err": 0.0,
+        "ms": k5["nb-conddisp"]["ms"], "plain_ms": k5["nb-conddisp"]["plain_ms"],
+        "bound_ms": k5["nb-conddisp"]["bound_ms"], "bound_by": k5["nb-conddisp"]["bound_by"],
+        "library_ms": None, "timed": {k: k5[k] for k in ("nb-conddisp", "zinb-conddisp")},
+        "main_path": "phase 4: dca() zinb-conddisp 5 epochs, each step's update (2 warm-ups)",
+        "checked": [c[0] for c in RMSPROP_CASES],
+        "tolerance": f"the same bits after each of {RMSPROP_STEPS} updates",
+        "card": card,
+    })
     kernels.append({
         "name": "graph_if", "route": "cuda", "source": "dca_tpu_torch/csrc/graph_if.cu",
         "replaces": "dca_tpu/train/compiled.py:153",

@@ -23,7 +23,7 @@ import tempfile
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("fused_nll.cu", "fused_dense.cu", "graph_if.cu")
+SOURCES = ("fused_nll.cu", "fused_dense.cu", "graph_if.cu", "fused_optim.cu")
 HEADERS = ("special.cuh",)
 # no --use_fast_math: the kernels must agree with their plain versions
 NVCC_FLAGS = (
@@ -62,6 +62,11 @@ _SIGNATURES = {
     "dca_graph_if_begin": ([_P, _P, _P], _I),
     # body stream, out (or NULL): end the IF node's body, count its nodes
     "dca_graph_if_end": ([_P, ctypes.POINTER(_LL)], _I),
+    # leaves, p, g, a, elements, first blocks, vector flags, chunk, lr's
+    # address (or NULL), lr, clip, clipped, rho, 1 - rho, eps, stream
+    "dca_rmsprop": ([_I, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
+                     ctypes.POINTER(_LL), ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _P, _F,
+                     _F, _I, _F, _F, _F, _P], _I),
 }
 
 

@@ -24,6 +24,10 @@ corrections are computed from it on the device in float32, as
 ``t.astype(jnp.float32)`` gives them: nothing of an update goes through
 the host.  ``state_tensors`` lists every tensor of a state, the step count
 included, for the warm-up's restore before a capture.
+
+RMSprop's update of parameters on a card is one launch of the kernel K5
+for all of them (``ops/fused_optim.py``), the same bits as its plain loop,
+which the CPU runs.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from ..ops import fused_optim
 
 
 class Optimizer(NamedTuple):
@@ -93,16 +99,24 @@ def sgd(clipvalue=None, momentum=0.0, nesterov=False):
     return Optimizer("SGD", 0.01, init, update)
 
 
+def _rmsprop_loop(params, grads, accs, lr, clipvalue, rho, eps):
+    """RMSprop's plain update, leaf by leaf: on the CPU the update itself,
+    on a card the plain version of K5 (``ops/fused_optim.py``)."""
+    for p, g, a in zip(params, grads, accs):
+        g = _clip(g, clipvalue)
+        a.copy_(rho * a + (1.0 - rho) * torch.square(g))
+        p.sub_(lr * g / (torch.sqrt(a) + eps))
+
+
 def rmsprop(clipvalue=None, rho=0.9, eps=1e-7):
     def init(params):
         return {"a": _zeros_like(params)}
 
     @torch.no_grad()
     def update(grads, opt_state, params, lr):
-        for p, g, a in zip(params, grads, opt_state["a"]):
-            g = _clip(g, clipvalue)
-            a.copy_(rho * a + (1.0 - rho) * torch.square(g))
-            p.sub_(lr * g / (torch.sqrt(a) + eps))
+        # parameters on a card: every leaf in one launch of K5, the same bits
+        run = fused_optim.rmsprop if params and params[0].is_cuda else _rmsprop_loop
+        run(params, grads, opt_state["a"], lr, clipvalue, rho, eps)
 
     return Optimizer("RMSprop", 1e-3, init, update)
 

@@ -22,7 +22,11 @@ launch counters exact, and K1 at a trial's validation shape; the whole fit
 on the device (``compiled=True``): its graph the bits of the same fit from
 Python, an epoch after the early stop changing nothing, the launch tally
 of the epochs run alone, two such fits in two threads, and the IF node's
-kernel against its plain version.
+kernel against its plain version; RMSprop's one-launch update (K5,
+``ops/fused_optim.py``) the plain loop's bits at the configurations'
+leaves, at odd sizes on misaligned views, with infinite, NaN and clipped
+gradients and under CUDA-graph replay with the rate rewritten, one launch
+a step in every fit above.
 
 These tests carry the ``gpu`` marker and skip where there is no CUDA
 device; they import neither JAX nor the JAX package, so they run on a GPU
@@ -40,16 +44,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, LOSS_RTOL, OPTIONS, STEP_COUNTED,
-                        _big_loss_inputs, _grad_check,
-                        _loss_inputs, _on, _small_counts, _steps, _ulps, _want_launches,
-                        _warmups, _weights, check_dense_case, check_k2_call,
-                        check_weighted_case, dense_inputs, options_fit, recording_k2)
+from chip_smoke import (COMPARE_SHAPES, DENSE_CASES, LOSS_RTOL, OPTIONS, RMSPROP_CASES,
+                        STEP_COUNTED, _big_loss_inputs, _grad_check,
+                        _loss_inputs, _on, _placed_leaves, _rmsprop_grads, _small_counts,
+                        _steps, _ulps, _want_launches, _warmups, _weights, bits_equal,
+                        check_dense_case, check_k2_call, check_rmsprop_case,
+                        check_weighted_case, dense_inputs, options_fit, recording_k2,
+                        rmsprop_shapes)
 from dca_tpu_torch.data import io
 from dca_tpu_torch.data.adata import AnnData
 from dca_tpu_torch.models import network
 from dca_tpu_torch.models.network import fetch_to_host, get_ae_type
-from dca_tpu_torch.ops import _build, fused_dense, fused_loss
+from dca_tpu_torch.ops import _build, fused_dense, fused_loss, fused_optim
 from dca_tpu_torch.parallel.step import StepBuffers, make_sharded_train_step
 from dca_tpu_torch.train import optim
 from dca_tpu_torch.train.graphs import EagerEpoch, GraphEpoch
@@ -551,9 +557,10 @@ def _fit(cuda, ae_type, graphs, state=None, epochs=3, dropout=0.0, **kw):
         state = {k: v.clone() for k, v in net.model.state_dict().items()}
     net.model.load_state_dict(state)
     fused_loss.reset_launches()
+    fused_optim.reset_launches()
     hist = train(adata, net, epochs=epochs, verbose=False, _graphs=graphs, **kw)
     torch.cuda.synchronize()
-    return hist, dict(fused_loss.launches), state
+    return hist, {**fused_loss.launches, **fused_optim.launches}, state
 
 
 @pytest.mark.gpu
@@ -567,7 +574,7 @@ def test_graph_fit_matches_eager_fit_on_card(cuda, ae_type, validation_split, n_
     same kernels on the same data; with dropout the registered generator
     draws the eager masks at each replay, and the warm-up restores it); the
     launches those of the eager fit plus one warm-up of each captured step
-    (two with a trailing step, one without)."""
+    (two with a trailing step, one without); RMSprop's K5 once a step."""
     epochs = 3
     graph, graph_launches, state = _fit(cuda, ae_type, True, epochs=epochs, dropout=dropout,
                                         validation_split=validation_split)
@@ -581,12 +588,12 @@ def test_graph_fit_matches_eager_fit_on_card(cuda, ae_type, validation_split, n_
     family = "zinb" if ae_type.startswith("zinb") else "nb"
     warm = 1 + (rem > 0)
     steps = n_full + (rem > 0)
-    want = dict.fromkeys(fused_loss.launches, 0)
+    want = dict.fromkeys([*fused_loss.launches, "rmsprop"], 0)
     want[f"{family}_nll_fwd"] = epochs * (steps + 1)  # a K1 a step, one for validation
-    want[f"{family}_nll_bwd"] = epochs * steps
+    want[f"{family}_nll_bwd"] = want["rmsprop"] = epochs * steps
     assert eager_launches == want
-    want[f"{family}_nll_fwd"] += warm
-    want[f"{family}_nll_bwd"] += warm
+    for key in (f"{family}_nll_fwd", f"{family}_nll_bwd", "rmsprop"):
+        want[key] += warm
     assert graph_launches == want
 
 
@@ -595,8 +602,8 @@ def test_graph_nodes_are_the_device_operations_of_a_replay(cuda, tmp_path):
     """The nodes of the full step's graph, as the kernel library counts them
     at its capture (``graphs.nodes``, ``graphs.last_nodes``), are the
     kernels, copies and memsets that one
-    profiled replay of that graph runs; a replay is counted as one
-    (``graphs.replays``)."""
+    profiled replay of that graph runs, RMSprop's update among them as one
+    kernel; a replay is counted as one (``graphs.replays``)."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
@@ -633,6 +640,9 @@ def test_graph_nodes_are_the_device_operations_of_a_replay(cuda, tmp_path):
         events = json.load(f)["traceEvents"]
     ops = sum(e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
               for e in events)
+    # the optimizer's update is one node: K5 over the 15 leaves
+    assert sum(e.get("ph") == "X" and e.get("cat") == "kernel"
+               and "rmsprop_kernel" in e.get("name", "") for e in events) == 1
     nodes = {c.attrs["kind"]: c for c in rec.counted("graphs.nodes")}
     assert nodes["full"].n > 0 and nodes["full"].n == ops
     assert G.last_nodes["full"] == nodes["full"].n
@@ -1180,19 +1190,25 @@ def _two_threads(cuda, rounds, **kw):
     adata = io.normalize(io.read_dataset(AnnData(_small_counts(1000, 300, 9))))
     cases = [("zinb-conddisp", 0.1), ("nb-conddisp", 0.0)]
     solo, solo_launches = [], []
+
+    def counted():
+        return {**fused_loss.launches, **fused_optim.launches}
+
     for ae_type, dropout in cases:
         fused_loss.reset_launches()
+        fused_optim.reset_launches()
         solo.append(_solo_or_concurrent_fit(cuda, adata, ae_type, dropout, **kw))
         torch.cuda.synchronize()
-        solo_launches.append(dict(fused_loss.launches))
-    want = {k: sum(d[k] for d in solo_launches) for k in fused_loss.launches}
-    assert want["zinb_nll_fwd"] > 0 and want["nb_nll_fwd"] > 0
+        solo_launches.append(counted())
+    want = {k: sum(d[k] for d in solo_launches) for k in counted()}
+    assert want["zinb_nll_fwd"] > 0 and want["nb_nll_fwd"] > 0 and want["rmsprop"] > 0
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     try:
         for _ in range(rounds):
             fused_loss.reset_launches()
+            fused_optim.reset_launches()
             results, errors = [None, None], []
             start = threading.Barrier(2)
 
@@ -1212,7 +1228,7 @@ def _two_threads(cuda, rounds, **kw):
             assert not any(t.is_alive() for t in threads)
             assert not errors, errors
             torch.cuda.synchronize()
-            assert dict(fused_loss.launches) == want
+            assert counted() == want
             for (hist, state), (s_hist, s_state) in zip(results, solo):
                 assert hist == s_hist
                 assert all(torch.equal(state[k], s_state[k]) for k in s_state)
@@ -1269,20 +1285,22 @@ def _compiled_fit(cuda, ae_type, graphs, state=None, dropout=0.1, epochs=3, **kw
         state = {k: v.clone() for k, v in net.model.state_dict().items()}
     net.model.load_state_dict(state)
     fused_loss.reset_launches()
+    fused_optim.reset_launches()
     conditional.reset_launches()
     hist = train(adata, net, epochs=epochs, verbose=False, compiled=True, _graphs=graphs, **kw)
     torch.cuda.synchronize()
     final = {k: v.detach().clone() for k, v in net.model.state_dict().items()}
-    return hist, {**fused_loss.launches, **conditional.launches}, final, state
+    return hist, {**fused_loss.launches, **fused_optim.launches, **conditional.launches}, \
+        final, state
 
 
 def _want_compiled(family, ran, steps, replays):
     """The launches of a whole-fit graph: one warm-up epoch and each epoch
-    run (a K1 a step and one for the validation, a K2 a step), and the IF
-    node's kernel at every replay."""
-    want = dict.fromkeys(list(fused_loss.launches) + ["graph_if"], 0)
+    run (a K1 a step and one for the validation, a K2 and a K5 a step),
+    and the IF node's kernel at every replay."""
+    want = dict.fromkeys(list(fused_loss.launches) + ["rmsprop", "graph_if"], 0)
     want[f"{family}_nll_fwd"] = (ran + 1) * (steps + 1)
-    want[f"{family}_nll_bwd"] = (ran + 1) * steps
+    want[f"{family}_nll_bwd"] = want["rmsprop"] = (ran + 1) * steps
     want["graph_if"] = replays
     return want
 
@@ -1374,3 +1392,72 @@ def test_graph_if_matches_plain_version_on_card(cuda):
     with pytest.raises(ValueError, match="bool CUDA flag"):
         with conditional.if_body(torch.zeros(1, dtype=torch.bool), None, None, None):
             pass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RMSPROP_CASES, ids=[c[0] for c in RMSPROP_CASES])
+def test_rmsprop_kernel_same_bits_as_plain_loop_on_card(cuda, case):
+    """K5 and the plain loop (``optim._rmsprop_loop``) from the same state,
+    20 updates on the same gradients, the rate cut halfway: the same bits
+    after every update, at the 13 and 15 leaves of nb-conddisp and
+    zinb-conddisp, at odd sizes (1, 3, 3451, 1725, 862) on fresh tensors
+    and on misaligned views into flat buffers, and with gradients of
+    +-inf, NaN, exactly +-5 and past it, clipped and not
+    (``chip_smoke.check_rmsprop_case``)."""
+    name, leaves, layout, specials, clip, lr_kind = case
+    assert check_rmsprop_case(cuda, leaves, layout, specials, clip, lr_kind,
+                              seed=len(name)) > 0
+
+
+@pytest.mark.gpu
+def test_rmsprop_kernel_in_a_graph_reads_the_rewritten_rate_on_card(cuda):
+    """K5 captured in a CUDA graph and replayed on new gradients, the rate
+    rewritten in place before each replay (as ReduceLROnPlateau does
+    between epochs): each replay the plain loop's bits at that rate."""
+    shapes = rmsprop_shapes("zinb-conddisp")
+    rs = np.random.RandomState(3)
+    p0 = [rs.normal(size=sh).astype(np.float32) for sh in shapes]
+    kp, pp = _placed_leaves(cuda, p0), _placed_leaves(cuda, p0)
+    ka = _placed_leaves(cuda, [np.zeros(sh, np.float32) for sh in shapes])
+    pa = [a.clone() for a in ka]
+    grads = _placed_leaves(cuda, _rmsprop_grads(rs, shapes, False))
+    lr = torch.tensor(1e-3, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fused_optim.rmsprop(kp, grads, ka, lr, 5.0)
+    torch.cuda.synchronize()
+    assert all(bits_equal(a, b) for a, b in zip(kp, pp))  # captured, not run
+    for rate in (1e-3, 1e-3, 1e-4, 1e-5, 0.0, 1e-2):
+        for g, new in zip(grads, _rmsprop_grads(rs, shapes, False)):
+            g.copy_(torch.from_numpy(new))
+        lr.fill_(rate)
+        graph.replay()
+        with torch.no_grad():
+            optim._rmsprop_loop(pp, grads, pa, lr, 5.0, 0.9, 1e-7)
+        torch.cuda.synchronize()
+        assert all(bits_equal(a, b) for a, b in zip(kp + ka, pp + pa)), rate
+
+
+@pytest.mark.gpu
+def test_rmsprop_kernel_raises_on_what_it_does_not_take(cuda):
+    """A non-contiguous parameter, a float64 leaf, a rate on the CPU, or
+    lists of different lengths: ValueError, nothing launched.  A
+    non-contiguous gradient is copied and updated from."""
+    p = [torch.randn(8, 6, device=cuda)]
+    a = [torch.zeros(8, 6, device=cuda)]
+    g = [torch.randn(8, 6, device=cuda)]
+    fused_optim.reset_launches()
+    for args in (([torch.randn(6, 8, device=cuda).t()], g, a, 1e-3),
+                 ([p[0].double()], g, a, 1e-3),
+                 (p, g, a, torch.tensor(1e-3)),
+                 (p, g + g, a, 1e-3)):
+        with pytest.raises(ValueError, match="K5"):
+            fused_optim.rmsprop(*args)
+    assert fused_optim.launches["rmsprop"] == 0
+    gt = torch.randn(6, 8, device=cuda).t()
+    twin_p, twin_a = [p[0].clone()], [a[0].clone()]
+    fused_optim.rmsprop(p, [gt], a, 1e-3, 5.0)
+    optim._rmsprop_loop(twin_p, [gt], twin_a, 1e-3, 5.0, 0.9, 1e-7)
+    torch.cuda.synchronize()
+    assert bits_equal(p[0], twin_p[0]) and bits_equal(a[0], twin_a[0])
+    assert fused_optim.launches["rmsprop"] == 1

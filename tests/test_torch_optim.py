@@ -4,7 +4,9 @@ update and ten, with and without clipping, the learning rate a float and a
 0-d tensor; the in-place form a captured CUDA graph needs (every tensor
 keeps its address, the step count a tensor); the list of state tensors the
 graph warm-up restores; and a ``train()`` trajectory of each against the
-JAX package's loop on the same weights and row order."""
+JAX package's loop on the same weights and row order.  RMSprop's one-launch
+kernel on the card (``ops/fused_optim.py``): its launch plan, and the CPU
+keeping the plain loop."""
 
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ from dca_tpu.train.loop import train as jtrain
 from dca_tpu_torch.bridge import params_from_jax
 from dca_tpu_torch.data import io
 from dca_tpu_torch.data.adata import AnnData
-from dca_tpu_torch.models.network import ZINBAutoencoder
+from dca_tpu_torch.models.network import ZINBAutoencoder, get_ae_type
+from dca_tpu_torch.ops import fused_optim
 from dca_tpu_torch.parallel.step import StepBuffers, make_sharded_train_step
 from dca_tpu_torch.train import optim
 from dca_tpu_torch.train.graphs import EagerEpoch
@@ -206,3 +209,83 @@ def test_warm_up_restore_leaves_adam_where_it_started():
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+
+
+def _leaves(ae_type, genes=3451):
+    net = get_ae_type(ae_type)(input_size=genes, hidden_size=(64, 32, 64),
+                               device="cpu").build()
+    return [p.numel() for p in net.model.parameters()]
+
+
+def _flat_views(sizes):
+    """Whether each of ``sizes`` starts 16-byte aligned as a view into one
+    float32 buffer at the running offset, as the gradients of a flat
+    all-reduce do."""
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    return [int(o) % 4 == 0 for o in offsets]
+
+
+NB_LEAVES = _leaves("nb-conddisp")
+ZINB_LEAVES = _leaves("zinb-conddisp")
+ODD_LEAVES = [1, 3, 3451, 1725, 862, 2048, 2049, 0, 4]
+PLANS = {
+    "nb-conddisp": (NB_LEAVES, [True] * 13),
+    "zinb-conddisp": (ZINB_LEAVES, [True] * 15),
+    "nb-conddisp-flat": (NB_LEAVES, _flat_views(NB_LEAVES)),
+    "odd": (ODD_LEAVES, _flat_views(ODD_LEAVES)),
+    "130-leaves": ([(i % 7) * 1000 + 1 for i in range(130)], [i % 3 > 0 for i in range(130)]),
+}
+
+
+def test_the_configs_leaves_are_what_the_benchmark_counts():
+    """13 leaves (nb-conddisp) and 15 (zinb-conddisp) at 3451 genes, of
+    673,910 and 898,225 elements: ``portbench/metrics/optim_roofline.py``
+    counts the same from the widths."""
+    assert (len(NB_LEAVES), sum(NB_LEAVES)) == (13, 673_910)
+    assert (len(ZINB_LEAVES), sum(ZINB_LEAVES)) == (15, 898_225)
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_rmsprop_launch_plan(case):
+    """Each non-empty leaf in exactly one launch, in order, at most 64 a
+    launch; its blocks ceil(n / CHUNK), numbered on from the launch's
+    previous leaf's; 16-byte loads where its tensors are aligned."""
+    sizes, aligned = PLANS[case]
+    launches = fused_optim.plan(sizes, aligned)
+    assert [i for ln in launches for i in ln.leaves] == [i for i, n in enumerate(sizes) if n]
+    assert all(0 < len(ln.leaves) <= fused_optim.MAX_LEAVES for ln in launches)
+    n_launches = -(-sum(1 for n in sizes if n) // fused_optim.MAX_LEAVES)
+    assert len(launches) == n_launches
+    for ln in launches:
+        assert ln.first_block[0] == 0
+        assert list(np.diff(ln.first_block)) == [-(-sizes[i] // fused_optim.CHUNK)
+                                                for i in ln.leaves]
+        assert ln.vector == tuple(aligned[i] for i in ln.leaves)
+    blocks = [ln.first_block[-1] for ln in launches]
+    want = {"nb-conddisp": [336], "zinb-conddisp": [446], "nb-conddisp-flat": [336],
+            "odd": [10], "130-leaves": [118, 118, 3]}[case]
+    assert blocks == want
+    if case == "nb-conddisp-flat":
+        assert not all(ln.vector[i] for ln in launches for i in range(len(ln.leaves)))
+
+
+def test_rmsprop_on_the_cpu_takes_the_plain_loop():
+    """Parameters on the CPU: RMSprop's update is the plain loop's bits,
+    and the kernel's launch count stays 0."""
+    rs = np.random.RandomState(5)
+    params = [torch.tensor(rs.normal(size=s).astype(np.float32)) for s in SHAPES]
+    twins = [p.clone() for p in params]
+    opt = optim.get_optimizer("RMSprop", clipvalue=5.0)
+    state, twin_state = opt.init(params), opt.init(twins)
+    fused_optim.reset_launches()
+    lr = torch.tensor(1e-3)
+    for _ in range(3):
+        grads = [torch.tensor((rs.normal(size=s) * 4).astype(np.float32)) for s in SHAPES]
+        opt.update(grads, state, params, lr)
+        with torch.no_grad():
+            optim._rmsprop_loop(twins, grads, twin_state["a"], lr, 5.0, 0.9, 1e-7)
+    assert fused_optim.launches == {"rmsprop": 0}
+    for a, b in zip(params + state["a"], twins + twin_state["a"]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_optim.rmsprop(params, grads, state["a"], lr, 5.0)
