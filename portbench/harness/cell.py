@@ -11,7 +11,12 @@ check follows; then ``more_states`` makes a few one-epoch ``train()``
 calls on the same network, each a further state the check reads the
 program at.  The timed fit is one more ``train()`` call on the same
 network, ``early_stop=0``, of as many epochs as fill about ``seconds`` at
-the median of those set-up epochs' times.
+the median of those set-up epochs' times; in a traced run inside
+``dca_tpu_torch.timeline.recording()`` up to the profiler's start, whose
+record the metric readers get.  Every fit is ``train()``'s own: its size
+gate chooses the trainer (in memory, or streamed in parts) and the
+streaming trainer its staging tier, as under ``dca()``; a traced run's
+record shows which.  Sparse counts stay sparse through set-up.
 
 The check (``check``) runs once the window has closed and the program's
 state is freed: the reference follows the warm-up epoch from the same
@@ -143,7 +148,9 @@ def setup(cell, seed, device):
     t0 = time.perf_counter()
     s.counts = traffic.make_counts(tr, s.seeds["data"])
     s.times["data_s"] = time.perf_counter() - t0
-    adata = AnnData(s.counts.copy())
+    sparse = hasattr(s.counts, "tocsr")
+    # normalize() leaves a sparse X in place and builds new matrices
+    adata = AnnData(s.counts if sparse else s.counts.copy())
     adata = read_dataset(adata, transpose=False, test_split=False, check_counts=True)
     if not (_col_sums(adata.X) >= 1).all():
         raise ValueError("the traffic made an all-zero gene, which dca() refuses")
@@ -165,6 +172,7 @@ def setup(cell, seed, device):
     s.net = net
     s.n = adata.n_obs
     s.n_train = int(s.n * (1.0 - cfg["validation_split"]))
+    s.timeline = None
     t1 = time.perf_counter()
     s.warm = train(adata, net, epochs=1, seed=s.seeds["fit"], **fit_kwargs(cfg))
     s.after = snapshot(net)
@@ -184,12 +192,15 @@ def epochs_for(seconds, epoch_s):
     return max(1, int(round(seconds / max(float(np.median(epoch_s)), 1e-6))))
 
 
-def timed_fit(s, cell, seconds, tracer=None):
+def timed_fit(s, cell, seconds, tracer=None, record=False):
     """The window: one ``train()`` call; returns (history, wall seconds,
     epochs).  ``tracer``: a ``trace.SliceTracer`` the fit's points of
-    progress drive."""
+    progress drive.  ``record``: the call inside the program's
+    ``timeline.recording()``, whose record goes to ``s.timeline``; with a
+    ``tracer``, up to the point where the profiler starts."""
     import torch
 
+    from dca_tpu_torch import timeline
     from dca_tpu_torch.train.loop import train
 
     epochs = epochs_for(seconds, s.epoch_s)
@@ -202,13 +213,20 @@ def timed_fit(s, cell, seconds, tracer=None):
 
         slicing = posting(tracer)
         tracer.arm()
+    window = contextlib.ExitStack()
+    rec = window.enter_context(timeline.recording()) if record else None
+    if rec is not None and tracer is not None:
+        # the record ends before the profiler starts: the slice runs as it
+        # would without the recorder, whose readers take the epochs before
+        tracer.before_start = window.close
     t0 = time.perf_counter()
-    with slicing:
+    with slicing, window:
         hist = train(s.adata, s.net, epochs=epochs, seed=s.seeds["fit"],
                      **fit_kwargs(cell.config))
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    s.timeline = rec
     return hist, wall, epochs
 
 
@@ -227,12 +245,31 @@ def epochs_before(epoch_s, wall, seconds):
     return max(k - 1, 0)
 
 
-def schedule(cell, s):
-    """The loss kernels' shapes in an epoch: the batch, the trailing step's
-    rows and the validation's rows (one chunk: the fit is in memory)."""
+def trainer_seen(record):
+    """(trainer, tier) as the program's record of a fit shows them: the
+    streaming trainer by its ``dca.stream.*`` spans, the in-memory one by
+    ``dca.fit.steps``; a streamed fit's staging tier "resident" where no
+    part was prepared on the prefetch thread (no ``dca.stream.prep``:
+    the resident tier stages on the fit's thread, ``train()``'s
+    docstring), else "prefetch".  (None, None) without a record."""
+    if record is None:
+        return None, None
+    names = {span.name for span in record.spans}
+    if any(n.startswith("dca.stream.") for n in names):
+        return "streaming", "prefetch" if "dca.stream.prep" in names else "resident"
+    return ("in_memory", None) if "dca.fit.steps" in names else (None, None)
+
+
+def schedule(cell, s, trainer):
+    """The loss kernels' shapes in an epoch of a fit on ``trainer`` (as the
+    record shows it, ``trainer_seen``): the batch, the trailing step's rows
+    and the validation's rows in the chunks the fit evaluates them in: one
+    in memory; None on the streaming trainer, whose chunks the record does
+    not give (their launches are then left unlabelled)."""
+    bs = min(cell.config["batch_size"], max(s.n_train, 1))
     n_val = s.n - s.n_train
-    return {"batch": cell.config["batch_size"], "rem": s.n_train % cell.config["batch_size"],
-            "val_chunks": [n_val] if n_val else []}
+    chunks = None if trainer == "streaming" else [n_val] if n_val else []
+    return {"batch": bs, "rem": s.n_train % bs, "val_chunks": chunks}
 
 
 def model_flops(cell, s, epochs):
@@ -265,7 +302,7 @@ def reference_epoch(cell, s, device, precision="f32", fault=None, inputs=None):
     (inputs, result)."""
     cfg = cell.config
     if inputs is None:
-        inputs = reference.Inputs(s.counts, device)
+        inputs = reference.inputs_of(s.counts, device)
     res = reference.first_epoch(
         inputs, s.weights, layer_names(cfg["hidden_size"]), head_names(cfg),
         seed=s.seeds["fit"], batch_size=cfg["batch_size"],

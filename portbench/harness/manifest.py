@@ -4,7 +4,9 @@ so a new cell, configuration, mix or metric is new files and entries
 alone.
 
 * ``portbench/configs/<config>.json``: the model and its training settings;
-* ``portbench/traffic/<traffic>.json``: the generator's parameters;
+* ``portbench/traffic/<traffic>.json``: a generator's name and parameters;
+* ``portbench/harness/generators/<generator>.py``: ``make(traffic, seed)``,
+  the counts of a mix (``harness/traffic.py``);
 * ``portbench/limits/<cell>.json``: the limit of each number the check
   compares, with the readings it was set from;
 * ``portbench/metrics/<metric>.py``: a reader, ``read(ctx)``, that gives
@@ -64,11 +66,16 @@ def resolve(manifest, workload, bench_dir=BENCH_DIR):
                 per_layer=[m for m in manifest["per_layer"] if _reports(m, workload)])
 
 
+def load_module(path, name):
+    """The module of the Python file ``path``, loaded under ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric_name, bench_dir=BENCH_DIR):
     """The ``read`` function of ``metrics/<metric_name>.py``."""
     path = os.path.join(bench_dir, "metrics", metric_name + ".py")
     module = "portbench_metric_" + metric_name.replace(".", "_").replace("-", "_")
-    spec = importlib.util.spec_from_file_location(module, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(path, module).read

@@ -4,7 +4,10 @@ kernel of its own and no cache, written from the published model (Eraslan et al.
 layers and RMSprop.  It imports nothing of the port and nothing of JAX.
 
 From the raw counts it works out the model's input (size factors, log1p,
-the per-gene z-scale with ddof 1), then follows a fit's first epoch from
+the per-gene z-scale with ddof 1): all of it at once from a dense array
+(``Inputs``), or from a CSR matrix kept sparse on the device, the rows a
+step or a block takes made dense as it takes them (``SparseInputs``,
+the same values bit for bit).  Then it follows a fit's first epoch from
 the given weights: the rows in the order ``RandomState(seed).permutation``
 gives (Keras's seeded shuffle), full batches then the trailing one, each
 a training-mode forward (BatchNorm on the batch's biased statistics,
@@ -37,6 +40,9 @@ RHO = 0.9
 RMS_EPS = 1e-7
 
 FAULTS = (None, "half_batch", "loss_scale")
+# the elements of an evaluation block: a float64 forward's dozen
+# intermediates of this size fit beside the rest on the card
+EVAL_ELEMENTS = 1 << 27
 # the "answer altered where it is produced" fault: the likelihood's value
 # off by this factor
 LOSS_SCALE = 1.01
@@ -50,14 +56,12 @@ LOSS_SCALE = 1.01
 class Inputs:
     """The model's input rows and the loss's targets, on ``device``: the
     raw counts (target) and the normalized input, both dense float32,
-    built block by block from a dense array or a CSR matrix of counts."""
+    built block by block from a dense array of counts."""
 
     def __init__(self, counts, device, block=16384):
         n, g = counts.shape
         self.n, self.genes = n, g
-        dense = not hasattr(counts, "tocsr")
-        totals = (counts.sum(axis=1) if dense else np.asarray(counts.sum(axis=1))).ravel()
-        totals = totals.astype(np.float64)
+        totals = counts.sum(axis=1).astype(np.float64)
         median = np.median(totals)
         # size factors: total / median total (scanpy normalize_per_cell)
         self.sf = torch.from_numpy((totals / median).astype(np.float32)).to(device)
@@ -68,22 +72,115 @@ class Inputs:
         s2 = torch.zeros(g, dtype=torch.float64, device=device)
         for lo in range(0, n, block):
             hi = min(lo + block, n)
-            rows = counts[lo:hi]
-            rows = rows if dense else rows.toarray()
-            t = torch.from_numpy(np.asarray(rows, dtype=np.float32)).to(device)
+            t = torch.from_numpy(np.asarray(counts[lo:hi], dtype=np.float32)).to(device)
             self.target[lo:hi] = t
             sc = torch.from_numpy(scale[lo:hi]).to(device)
             logn = torch.log1p(t.double() * sc[:, None])
             s1 += logn.sum(0)
             s2 += (logn * logn).sum(0)
             self.x[lo:hi] = logn.float()
-        mean = s1 / n
-        var = (s2 / n - mean * mean) * (n / max(n - 1, 1))  # ddof 1
-        std = torch.sqrt(torch.clamp(var, min=0.0))
-        std[std == 0] = 1.0
+        mean, std = _moments(s1, s2, n)
         for lo in range(0, n, block):
             hi = min(lo + block, n)
             self.x[lo:hi] = ((self.x[lo:hi].double() - mean) / std).float()
+
+    @property
+    def device(self):
+        return self.x.device
+
+    def rows(self, idx):
+        """(input, target) of the rows ``idx`` (a device tensor)."""
+        return self.x.index_select(0, idx), self.target.index_select(0, idx)
+
+    def block(self, lo, hi):
+        """(input, target) of the rows lo..hi."""
+        return self.x[lo:hi], self.target[lo:hi]
+
+
+def _moments(s1, s2, n):
+    """The per-gene mean and standard deviation (ddof 1; 1 where it is 0)
+    from the sums of the log counts and of their squares over ``n`` rows."""
+    mean = s1 / n
+    var = (s2 / n - mean * mean) * (n / max(n - 1, 1))  # ddof 1
+    std = torch.sqrt(torch.clamp(var, min=0.0))
+    std[std == 0] = 1.0
+    return mean, std
+
+
+class SparseInputs:
+    """``Inputs`` of a CSR matrix of counts, which stays sparse on
+    ``device``: the rows a step or an evaluation block takes are made
+    dense when it takes them, with the values ``Inputs`` would hold for
+    them, bit for bit (the same float64 size factors, log1p and ddof-1
+    moments, the moments summed over the same blocks of dense rows).  A
+    row is gathered as its first ``width`` stored entries, the widest
+    row's count, the missing ones as zeros added to column 0, so that the
+    gather has one shape and a CUDA graph can capture it."""
+
+    def __init__(self, counts, device, block=16384):
+        counts = counts.tocsr()
+        n, g = counts.shape
+        self.n, self.genes = n, g
+        lens = np.diff(counts.indptr)
+        rows = np.repeat(np.arange(n), lens)
+        totals = np.bincount(rows, weights=counts.data.astype(np.float64), minlength=n)
+        median = np.median(totals)
+        self.sf = torch.from_numpy((totals / median).astype(np.float32)).to(device)
+        self.scale = torch.from_numpy(median / totals).to(device)
+        self.indptr = torch.from_numpy(counts.indptr.astype(np.int64)).to(device)
+        self.indices = torch.from_numpy(counts.indices.astype(np.int32)).to(device)
+        self.data = torch.from_numpy(counts.data.astype(np.float32)).to(device)
+        self.width = torch.arange(max(int(lens.max()) if n else 1, 1), device=device)
+        s1 = torch.zeros(g, dtype=torch.float64, device=device)
+        s2 = torch.zeros(g, dtype=torch.float64, device=device)
+        for lo in range(0, n, block):
+            idx = torch.arange(lo, min(lo + block, n), device=device)
+            cols, vals = self._gather(idx)
+            logn = self._dense(cols, self._log(vals, idx), torch.float64)
+            s1 += logn.sum(0)
+            s2 += (logn * logn).sum(0)
+        self.mean, self.std = _moments(s1, s2, n)
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def _gather(self, idx):
+        """(columns, values) of the rows ``idx``, ``width`` a row: the
+        entries past a row's end at column 0 with value 0."""
+        start = self.indptr.index_select(0, idx)
+        end = self.indptr.index_select(0, idx + 1)
+        pos = start[:, None] + self.width[None, :]
+        inside = pos < end[:, None]
+        pos = torch.where(inside, pos, torch.zeros_like(pos))
+        cols = torch.where(inside, self.indices[pos].long(), torch.zeros_like(pos))
+        vals = torch.where(inside, self.data[pos], torch.zeros((), device=pos.device))
+        return cols, vals
+
+    def _log(self, vals, idx):
+        """log1p of the values times their rows' scale, in float64."""
+        return torch.log1p(vals.double() * self.scale.index_select(0, idx)[:, None])
+
+    def _dense(self, cols, vals, dtype):
+        """The rows dense: each value added to a zero at its column (the
+        zeros past a row's end add nothing)."""
+        out = torch.zeros((cols.shape[0], self.genes), dtype=dtype, device=cols.device)
+        return out.scatter_add_(1, cols, vals.to(dtype))
+
+    def rows(self, idx):
+        cols, vals = self._gather(idx)
+        logn = self._dense(cols, self._log(vals, idx).float(), torch.float32)
+        x = ((logn.double() - self.mean) / self.std).float()
+        return x, self._dense(cols, vals, torch.float32)
+
+    def block(self, lo, hi):
+        return self.rows(torch.arange(lo, hi, device=self.device))
+
+
+def inputs_of(counts, device):
+    """``SparseInputs`` of a scipy sparse matrix of counts, ``Inputs`` of a
+    dense one."""
+    return SparseInputs(counts, device) if hasattr(counts, "tocsr") else Inputs(counts, device)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +317,7 @@ def first_epoch(inputs, params, layers, heads, *, seed, batch_size, validation_s
     n_train = int(n * (1.0 - validation_split))
     bs = min(batch_size, max(n_train, 1))
     n_full, rem = n_train // bs, n_train % bs
-    dev = inputs.x.device
+    dev = inputs.device
     cuda = dev.type == "cuda"
     perm = torch.from_numpy(np.random.RandomState(seed).permutation(n_train)).to(dev)
     cpu_tf32 = precision == "tf32" and not cuda
@@ -239,9 +336,9 @@ def first_epoch(inputs, params, layers, heads, *, seed, batch_size, validation_s
 
     def step(offsets, rows, first=False):
         idx = perm.index_select(0, offsets + step_i * bs)
-        mu, theta, pi, stats = net.forward(inputs.x.index_select(0, idx),
-                                           inputs.sf.index_select(0, idx), True)
-        loss = likelihood(inputs.target.index_select(0, idx), mu, theta, pi) * net.loss_scale
+        x, y = inputs.rows(idx)
+        mu, theta, pi, stats = net.forward(x, inputs.sf.index_select(0, idx), True)
+        loss = likelihood(y, mu, theta, pi) * net.loss_scale
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             grads = [torch.clamp(g, -clip, clip) for g in grads]
@@ -290,16 +387,19 @@ def first_epoch(inputs, params, layers, heads, *, seed, batch_size, validation_s
 
 
 @torch.no_grad()
-def eval_loss(inputs, net, start, block=32768):
+def eval_loss(inputs, net, start):
     """The eval-mode likelihood's mean over rows ``start``..n (the
-    validation split), summed in blocks."""
+    validation split), summed in blocks of at most ``EVAL_ELEMENTS``
+    elements and 32768 rows."""
     dt = next(iter(net.p.values())).dtype
+    block = max(min(32768, EVAL_ELEMENTS // inputs.genes), 1)
     total, count = 0.0, 0
     for lo in range(start, inputs.n, block):
         hi = min(lo + block, inputs.n)
-        mu, theta, pi, _ = net.forward(inputs.x[lo:hi].to(dt), inputs.sf[lo:hi].to(dt), False)
+        x, y = inputs.block(lo, hi)
+        mu, theta, pi, _ = net.forward(x.to(dt), inputs.sf[lo:hi].to(dt), False)
         k = (hi - lo) * inputs.genes
-        y = inputs.target[lo:hi].to(dt)
+        y = y.to(dt)
         total += float(likelihood(y, mu, theta, pi)) * net.loss_scale * k
         count += k
     return total / max(count, 1) if count else math.nan
@@ -310,7 +410,7 @@ def eval_at(inputs, params, moving, layers, heads, start, precision="f64"):
     reference's own forward at a state it is handed: in float64 (the judge
     of a state; its own rounding far under the float32 program's), or
     "f32" or "tf32" (the control)."""
-    dev = inputs.x.device
+    dev = inputs.device
     cpu_tf32 = precision == "tf32" and dev.type != "cuda"
     dt = torch.float64 if precision == "f64" else torch.float32
     net = (_TF32Net if cpu_tf32 else Net)({k: v.to(dt) for k, v in params.items()},

@@ -6,9 +6,10 @@ points of progress: the program calls the function that
 ``dca_tpu_torch.parallel.launch.posting`` installs for the thread at each
 epoch's end and at each streamed part it dispatches (its progress rule
 for process groups).  ``SliceTracer`` is such a function: at the first
-point ``lead_s`` after the call started it starts the profiler and opens a
-``portbench.slice`` span, and at the first point ``slice_s`` later it
-closes both, all on the fit's own thread.  The device's kernels, copies
+point ``lead_s`` after the call started it calls ``before_start`` (where
+set), starts the profiler and opens a ``portbench.slice`` span, and at
+the first point ``slice_s`` later it closes both, all on the fit's own
+thread.  The device's kernels, copies
 and memsets and the host's CUDA runtime calls and operations go through
 the profiler's Chrome-trace file, written under TMPDIR after the fit,
 read and removed (torch 2.11's kineto events carry no category).
@@ -33,11 +34,12 @@ class SliceTracer:
     taken."""
 
     failed = None  # the progress rule's check, which a benchmark has none of
+    before_start = None  # called just before the profiler starts
 
     def __init__(self, lead_s, slice_s):
         self.lead_s, self.slice_s = lead_s, slice_s
         self.prof = self.span = None
-        self.t_arm = self.t_start = None
+        self.t_arm = self.t_begin = self.t_start = None
         self.done = False
         self.overhead_s = 0.0  # the fit's time spent starting and stopping the profiler
 
@@ -51,6 +53,9 @@ class SliceTracer:
         if self.prof is None and now >= self.t_arm + self.lead_s:
             from torch.profiler import ProfilerActivity, profile, record_function
 
+            self.t_begin = now  # before the profiler's own start, which takes seconds
+            if self.before_start is not None:
+                self.before_start()
             self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self.prof.start()
             self.span = record_function(SLICE_SPAN)
@@ -69,6 +74,13 @@ class SliceTracer:
     def lead_taken_s(self):
         """Seconds from the call's start to the slice's, None before."""
         return None if self.t_start is None else self.t_start - self.t_arm
+
+    @property
+    def lead_begun_s(self):
+        """Seconds from the call's start to the profiler's start call, None
+        before: the fit's own time until then, without the profiler's
+        start-up (seconds on the card), which ``lead_taken_s`` holds."""
+        return None if self.t_begin is None else self.t_begin - self.t_arm
 
     def finish(self):
         if self.prof is None:
@@ -188,7 +200,7 @@ def label_loss_launches(trace, schedule):
     K1s with no K2 between is the epoch's validation chunks, in order.
     Launches the window cuts off are left out.  ``schedule``: dict with
     ``batch``, ``rem`` (trailing rows, 0 for none) and ``val_chunks``
-    (rows of each validation chunk)."""
+    (rows of each validation chunk; None: the validation left unlabelled)."""
     nll = [(("K1" if "nll_fwd_kernel" in name else "K2"), dur)
            for name, _, dur, cat in trace.device
            if cat == "kernel" and ("nll_fwd_kernel" in name or "nll_bwd_kernel" in name)]
@@ -215,7 +227,8 @@ def label_loss_launches(trace, schedule):
             if steps and schedule["rem"]:
                 for k in steps:  # the step before the validation: the trailing one
                     out[k][1] = schedule["rem"]
-            if i > 0 and j < len(nll) and len(run) == len(schedule["val_chunks"]):
+            chunks = schedule["val_chunks"]
+            if i > 0 and j < len(nll) and chunks is not None and len(run) == len(chunks):
                 out += [["K1", rows, d] for rows, (_, d) in zip(schedule["val_chunks"], run)]
             steps = []
             i = j

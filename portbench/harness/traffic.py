@@ -1,35 +1,34 @@
-"""The one generator of count matrices: it reads a traffic mix's parameters
-(``portbench/traffic/<name>.json``) and makes the cells x genes counts
-from a seed.  One layout so far, named by the file's ``generator``:
+"""The count matrices of the traffic mixes: a mix's file
+(``portbench/traffic/<name>.json``) names its generator, and
+``make_counts`` calls ``make(traffic, seed)`` of
+``portbench/harness/generators/<generator>.py`` on it, so a new layout is
+a new file.  Those there:
 
-* ``nb_dense``: dense negative-binomial counts with a per-gene base rate
-  and a per-cell depth, a frozen copy of ``chip_smoke.py:417``
-  (``make_paul15_like``, itself the JAX package's ``bench.py`` generator),
-  its constants read from the file.
+* ``nb_dense``: dense negative-binomial counts (Paul15's shape), a float32
+  ndarray;
+* ``nb_csr``: the same law drawn sparse, a float32 CSR matrix, for corpora
+  whose dense form the host cannot hold.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
+import re
+
+from .manifest import load_module
+
+GENERATORS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "generators")
+
+
+def generator(name):
+    """The module of generator ``name``; ValueError where there is none."""
+    path = os.path.join(GENERATORS, name + ".py")
+    if not re.fullmatch(r"[A-Za-z0-9_]+", name) or not os.path.isfile(path):
+        raise ValueError(f"unknown generator {name!r}")
+    return load_module(path, "portbench_generator_" + name)
 
 
 def make_counts(traffic, seed):
-    """The counts of ``traffic`` (a dict) drawn from ``seed`` (< 2**31):
-    a float32 ndarray, cells x genes."""
-    kind = traffic["generator"]
-    if kind == "nb_dense":
-        return _nb_dense(traffic, seed)
-    raise ValueError(f"unknown generator {kind!r}")
-
-
-def _nb_dense(t, seed):
-    rs = np.random.RandomState(seed)
-    n_cells, n_genes = t["n_cells"], t["n_genes"]
-    base = rs.gamma(t["gene_gamma_shape"], 1.0, size=(1, n_genes))
-    depth = rs.lognormal(0.0, t["depth_sigma"], size=(n_cells, 1))
-    mu = base * depth * t["mean_scale"]
-    size = t["nb_size"]
-    counts = rs.negative_binomial(size, size / (size + mu)).astype(np.float32)
-    counts[:, counts.sum(0) == 0] += 1.0
-    counts[counts.sum(1) == 0, 0] += 1.0
-    return counts
+    """The counts of ``traffic`` (a dict) drawn from ``seed`` (< 2**31),
+    cells x genes."""
+    return generator(traffic["generator"]).make(traffic, seed)

@@ -9,9 +9,10 @@ names a configuration and a traffic mix, found by name under
 and the weights from ``--seed``, builds the network and runs the warm-up
 fit; the window is one ``train()`` call of about ``--seconds``.  With
 ``--trace 0`` the last line of standard output is the cell's end-to-end
-metrics; with ``--trace 1`` a slice of the window is profiled and the line
-holds the per-layer metrics, the device's busy and window seconds and a
-breakdown.  Either way the warm-up epoch is then checked against the
+metrics; with ``--trace 1`` a slice of the window is profiled, the window
+up to the slice is recorded by the program's recorder
+(``dca_tpu_torch.timeline``), and the line holds the per-layer metrics,
+the device's busy and window seconds and a breakdown.  Either way the warm-up epoch is then checked against the
 plain reference (``harness/reference.py``); the numbers compared and their
 limits end standard error and the result line.
 
@@ -89,18 +90,22 @@ def run_cell(cell, seed, seconds, trace, device, t_start=T_START):
         lead = cell.traffic["trace_lead"] * seconds
         tracer = T.SliceTracer(lead, cell.traffic["trace_slice_s"])
     setup_s = time.perf_counter() - t_start
-    hist, wall, epochs = C.timed_fit(s, cell, seconds, tracer)
+    hist, wall, epochs = C.timed_fit(s, cell, seconds, tracer, record=bool(trace))
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    sched = C.schedule(cell, s)
     fit = {"epochs": epochs, "wall_s": wall, "n_train": s.n_train, "n_val": s.n - s.n_train,
            "flops": C.model_flops(cell, s, epochs), "rows": epochs * s.n_train,
            "epoch_flops": C.model_flops(cell, s, 1), "epoch_s": list(hist.epoch_s),
-           "clean_epochs": epochs}
+           "clean_epochs": epochs, "unprofiled_epochs": epochs}
     if tracer is not None and tracer.lead_taken_s is not None:
         # the epochs that ended before the profiler first started: after it
-        # the process launches its graphs slower
+        # the process launches its graphs slower.  ``clean_epochs`` (mfu's)
+        # counts the profiler's start-up, seconds on the card, as the fit's
+        # time; ``unprofiled_epochs`` (the readers of the host's own time)
+        # does not
         fit["clean_epochs"] = C.epochs_before(hist.epoch_s, wall - tracer.overhead_s,
                                               tracer.lead_taken_s)
+        fit["unprofiled_epochs"] = C.epochs_before(hist.epoch_s, wall - tracer.overhead_s,
+                                                   tracer.lead_begun_s)
     loss = hist.history["loss"]
     val = hist.history.get("val_loss", loss)
     # an epoch whose losses are not finite failed
@@ -110,10 +115,15 @@ def run_cell(cell, seed, seconds, trace, device, t_start=T_START):
                    "count": 1, "memory_peak_bytes": int(peak),
                    "power_limit": power_limit() if cuda else None}
     result = {"correct": None, "attempted": epochs, "failed": failed}
+    seen = {}
     if trace:
+        # which trainer and tier ran, as the program's record shows them
+        trainer, tier = C.trainer_seen(s.timeline)
+        seen = {k: v for k, v in (("trainer", trainer), ("tier", tier)) if v is not None}
+        sched = C.schedule(cell, s, trainer)
         tr = tracer.finish() if tracer is not None else None
         ctx = types.SimpleNamespace(trace=tr, schedule=sched, fit=fit, config=cell.config,
-                                    traffic=cell.traffic, genes=s.genes)
+                                    traffic=cell.traffic, genes=s.genes, timeline=s.timeline)
         metrics = {}
         for m in cell.per_layer:
             value = reader(m["name"])(ctx)
@@ -131,17 +141,24 @@ def run_cell(cell, seed, seconds, trace, device, t_start=T_START):
                    for m in cell.end_to_end}
     result["metrics"] = metrics
     result["device"] = device_info
-    result["fit"] = {"epochs": epochs, "wall_s": wall, "capture_s": hist.capture_s,
+    result["fit"] = {**seen, "epochs": epochs, "wall_s": wall,
+                     "capture_s": hist.capture_s,
                      "clean_epochs": fit["clean_epochs"],
+                     "unprofiled_epochs": fit["unprofiled_epochs"],
                      "setup_epoch_s": s.epoch_s, "warm_capture_s": s.warm.capture_s,
                      "setup_parts_s": s.times}
     C.keep_final(s, hist)
     result["fit"].update(_epoch_summary(hist.epoch_s, fit["clean_epochs"] if trace else None))
     del hist
+    s.timeline = None
     C.release(s)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     numbers, detail = C.check(cell, s, device)
     result["fit"]["check_s"] = time.perf_counter() - t0
+    if cuda:
+        result["fit"]["check_peak_bytes"] = torch.cuda.max_memory_allocated(device)
     result["correct"] = bool(C.judge(numbers, cell.limits)) and failed == 0
     result["check_detail"] = detail
     result["check"] = {k: {"value": _number(v), "limit": cell.limits[k]["limit"]}

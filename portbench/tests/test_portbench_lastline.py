@@ -28,13 +28,18 @@ def test_result_line_of_an_untraced_run(tiny_cell):
 
 
 def test_result_line_of_a_traced_run(tiny_cell):
-    """On the CPU the device trace is not taken: its metrics are left out,
-    the fit's stays."""
+    """On the CPU the device trace is not taken: its metrics are left out;
+    the fit's and the program record's stay (no graph is replayed there,
+    and a fit of half a second is too short a stretch for the thread's CPU
+    share)."""
     cell = tiny_cell("zinb-conddisp.paul15")
     result = run.run_cell(cell, 12, 0.5, 1, CPU)
     names = set(result["metrics"])
-    assert names == {"mfu"} and "mfu" in {m["name"] for m in cell.per_layer}
+    assert names == {"mfu", "epoch_host_ms"}
+    assert names <= {m["name"] for m in cell.per_layer}
     assert 0 < result["metrics"]["mfu"]["value"] < 100
+    assert result["metrics"]["epoch_host_ms"]["value"] > 0
+    assert result["fit"]["trainer"] == "in_memory" and "tier" not in result["fit"]
     json.dumps(result, allow_nan=False)
 
 
@@ -82,6 +87,7 @@ def test_the_slice_is_cut_at_the_fits_points_of_progress(tiny_cell, monkeypatch)
     tr = tracer.finish()
     assert tr is not None and 0 < tr.window_s <= wall
     assert tracer.lead_taken_s >= 0.2 and tracer.overhead_s > 0
+    assert 0.2 <= tracer.lead_begun_s <= tracer.lead_taken_s
     assert any(name.startswith("aten::") for name, *_ in tr.host)
     assert C.epochs_before(hist.epoch_s, wall - tracer.overhead_s, tracer.lead_taken_s) < epochs
 
@@ -100,3 +106,8 @@ def test_loss_launches_are_labelled_by_the_schedule():
            label_loss_launches(tr, {"batch": 32, "rem": 25, "val_chunks": [273]})]
     assert got == [("K1", 32), ("K2", 32), ("K1", 32), ("K2", 32), ("K1", 25), ("K2", 25),
                    ("K1", 273), ("K1", 32), ("K2", 32)]
+    # a streamed fit's validation chunks, which the record does not give
+    got = [(kind, rows) for kind, rows, _ in
+           label_loss_launches(tr, {"batch": 32, "rem": 25, "val_chunks": None})]
+    assert got == [("K1", 32), ("K2", 32), ("K1", 32), ("K2", 32), ("K1", 25), ("K2", 25),
+                   ("K1", 32), ("K2", 32)]

@@ -65,9 +65,12 @@ def test_manifest_keeps_the_contract():
     assert all(w["chips"] == 1 for w in m["workloads"])
 
 
-def test_a_new_cell_is_new_files_and_entries(tmp_path):
+def test_a_new_cell_is_new_files_and_entries(tmp_path, monkeypatch):
     """A cell, a configuration, a mix and a metric that exist only in a
-    temporary copy of the manifest and of the benchmark's folder."""
+    temporary copy of the manifest and of the benchmark's folder; and a
+    cell of sparse traffic whose fit ``train()``'s gate streams (its
+    documented DCA_TPU_DEVICE_BYTES lowered, here alone), which runs to a
+    correct end through the streaming trainer."""
     bench = tmp_path / "portbench"
     shutil.copytree(manifest.BENCH_DIR, bench, ignore=shutil.ignore_patterns("__pycache__"))
     m = manifest.load_manifest()
@@ -89,14 +92,48 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path):
     m["per_layer"].append({"name": "epochs_run", "unit": "count", "better": "higher",
                            "source": "program_counter", "layer": "device",
                            "moves": "train_cells_per_s", "workloads": ["zinb-wide.tutorial"]})
+    rate = next(e for e in m["end_to_end"] if e["name"] == "train_cells_per_s")
+    rate["workloads"].append("zinb-wide.tutorial")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
 
     loaded = manifest.load_manifest(str(tmp_path / "BENCHMARK.json"))
     cell = manifest.resolve(loaded, "zinb-wide.tutorial", bench_dir=str(bench))
     assert cell.config["name"] == "zinb-wide" and cell.traffic["n_genes"] == 200
+    assert [x["name"] for x in cell.end_to_end] == ["setup_s", "train_cells_per_s"]
     assert [x["name"] for x in cell.per_layer][-1] == "epochs_run"
     read = manifest.reader("epochs_run", bench_dir=str(bench))
     assert read(type("Ctx", (), {"fit": {"epochs": 7}})) == 7
     with pytest.raises(KeyError):
         manifest.resolve(manifest.load_manifest(), "zinb-wide.tutorial")
     assert not os.path.exists(os.path.join(manifest.BENCH_DIR, "traffic", "tutorial.json"))
+
+    import torch
+
+    import run
+    from dca_tpu_torch.train import loop
+
+    mix.update(name="corpus_tiny", generator="nb_csr", n_cells=600, n_genes=80,
+               mean_scale=0.3, state_fits=1)
+    del mix["cpu_test"]
+    (bench / "traffic" / "corpus_tiny.json").write_text(json.dumps(mix))
+    (bench / "limits" / "nb-conddisp.corpus_tiny.json").write_text(
+        (bench / "limits" / "nb-conddisp.paul15.json").read_text())
+    m["workloads"].append({"name": "nb-conddisp.corpus_tiny", "config": "nb-conddisp",
+                           "traffic": "corpus_tiny", "chips": 1, "why": "new"})
+    rate["workloads"].append("nb-conddisp.corpus_tiny")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
+    cell = manifest.resolve(manifest.load_manifest(str(tmp_path / "BENCHMARK.json")),
+                            "nb-conddisp.corpus_tiny", bench_dir=str(bench))
+    assert cell.per_layer == []  # every metric names the cells it reads
+    streamed = []
+    real = loop._train_streaming
+    monkeypatch.setattr(loop, "_train_streaming",
+                        lambda *a, **k: streamed.append(1) or real(*a, **k))
+    monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", "100000")
+    result = run.run_cell(cell, 2**31 + 23, 0.5, 0, torch.device("cpu"))
+    assert result["correct"] is True, result["check"]
+    assert set(result["metrics"]) == {"setup_s", "train_cells_per_s"}
+    assert len(streamed) == 2 + mix["state_fits"]  # warm-up, state fits, window
+    traced = run.run_cell(cell, 2**31 + 29, 0.5, 1, torch.device("cpu"))
+    assert traced["correct"] is True, traced["check"]
+    assert traced["fit"]["trainer"] == "streaming"  # as the program's record shows

@@ -1,6 +1,6 @@
-"""``optim_roofline`` on hand-built traces: the leaves it counts from each
+"""``optim_gb_per_s`` on hand-built traces: the leaves it counts from each
 configuration's widths (the elements of nb-conddisp's 13 parameters and
-zinb-conddisp's 15 at 3451 genes), its share from the kernel's launches,
+zinb-conddisp's 15 at 3451 genes), its rate from the kernel's launches,
 and None where no launch of the kernel is in the slice."""
 
 import types
@@ -36,19 +36,19 @@ def _trace(durations, other=("nll_bwd_kernel", 5e-6)):
     ("nb-conddisp.paul15", 13, 673_910),
     ("zinb-conddisp.paul15", 15, 898_225),
 ])
-def test_optim_roofline_counts_the_leaves_and_reads_the_launches(workload, n_leaves, elements):
-    read = reader("optim_roofline")
+def test_optim_gb_per_s_counts_the_leaves_and_reads_the_launches(workload, n_leaves, elements):
+    read = reader("optim_gb_per_s")
     sizes = read.__globals__["leaves"](_config(workload), G)
     assert (len(sizes), sum(sizes)) == (n_leaves, elements)
-    bound = 20 * elements / 3.35e12  # seconds a launch at the HBM rate
-    # three launches at twice, once and four times the bound: 3 / 7 of it
-    got = read(_ctx(_trace([2 * bound, bound, 4 * bound]), workload))
-    assert got == pytest.approx(100.0 * 3 / 7)
+    at = 20 * elements / 4e12  # seconds a launch at 4,000 GB/s
+    # three launches at twice, once and four times that: 3 / 7 of the rate
+    got = read(_ctx(_trace([2 * at, at, 4 * at]), workload))
+    assert got == pytest.approx(4000.0 * 3 / 7)
 
 
 @pytest.mark.parametrize("workload", ["nb-conddisp.paul15", "zinb-conddisp.paul15"])
-def test_optim_roofline_without_the_kernel_is_none(workload):
-    read = reader("optim_roofline")
+def test_optim_gb_per_s_without_the_kernel_is_none(workload):
+    read = reader("optim_gb_per_s")
     assert read(_ctx(None, workload)) is None  # an untraced run
     parent = Trace(0.0, 1.0, [("nll_bwd_kernel", 0.1, 5e-6, "kernel")], [])
     assert read(_ctx(parent, workload)) is None  # a program without K5
