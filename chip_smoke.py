@@ -3159,13 +3159,16 @@ def _lazy_adata(X):
                         lazy_scale=True)
 
 
-def _stream_schedule(n_cells, max_cells, batch=32, val_split=0.1):
-    """(train steps, validation chunks, captured graphs) of one streamed
+def _stream_schedule(n_cells, max_cells, batch=32, val_split=0.1, n_genes=0):
+    """(train steps, validation launches, captured graphs) of one streamed
     epoch, as ``train/loop.py::_train_streaming`` stages it: the full
     batches of each chunk of ``chunk`` rows as one part and its trailing
     rows as another, the parts alternating between two buffers, then the
-    validation chunks; one graph for each (buffer, full or trailing) the
-    schedule uses."""
+    validation chunks, each evaluated in blocks of ``n_genes``-wide rows
+    (``_val_blocks``; one block where ``n_genes`` is 0); one graph for
+    each (buffer, full or trailing) the schedule uses."""
+    from dca_tpu_torch.train.loop import _val_blocks
+
     n_train = int(n_cells * (1.0 - val_split))
     chunk = max((min(max_cells, n_train) // batch) * batch, batch)
     kinds = []
@@ -3174,7 +3177,8 @@ def _stream_schedule(n_cells, max_cells, batch=32, val_split=0.1):
         kinds += ["full"] * (n >= batch) + ["rem"] * (n % batch > 0)
     graphs = {(i % 2, k) for i, k in enumerate(kinds)}
     n_val = n_cells - n_train
-    val_chunks = -(-n_val // chunk)
+    val_chunks = sum(len(_val_blocks(min(chunk, n_val - lo), n_genes)) if n_genes else 1
+                     for lo in range(0, n_val, chunk))
     return n_train // batch + (n_train % batch > 0), val_chunks, len(graphs)
 
 
@@ -3212,8 +3216,8 @@ def _streamed_epochs(text):
                for line in text.splitlines())
 
 
-def _want_stream_launches(epochs, n_cells, max_cells):
-    steps, val_chunks, graphs = _stream_schedule(n_cells, max_cells)
+def _want_stream_launches(epochs, n_cells, max_cells, n_genes=0):
+    steps, val_chunks, graphs = _stream_schedule(n_cells, max_cells, n_genes=n_genes)
     want = dict.fromkeys(LAUNCH_NAMES, 0)
     want["zinb_nll_fwd"] = epochs * (steps + val_chunks) + graphs
     want["zinb_nll_bwd"] = epochs * steps + graphs
@@ -3577,7 +3581,7 @@ def phase_stream_corpus(dev, epochs=2, corpus=CORPUS, max_cells=None):
     buffers = 2 * chunk * 2 * n_genes * 4
     payload = ResidentCSR.payload_bytes(adata.raw.X)
     transient = chunk * kmax * PART_BYTES_PER_SLOT
-    want = _want_stream_launches(epochs, n_cells, chunk)
+    want = _want_stream_launches(epochs, n_cells, chunk, n_genes)
     res = {"prep_s": t_prep, "launches": dict.fromkeys(LAUNCH_NAMES, 0)}
     for tier, env in (("host", {"DCA_TPU_DEVICE_DENSIFY": "0"}), ("resident", {})):
         tl = os.path.join(OUT_DIR, f"timeline_{tier}.jsonl")

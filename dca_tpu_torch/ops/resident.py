@@ -18,7 +18,10 @@ element-wise gather of ``col[starts[rows, None] + arange(K)]``, which
 first writes the B x K int64 offsets (PERF.md, ``chip_smoke.py`` phase 10).
 ``col``/``val`` carry K trailing pad elements so the last rows' slices
 stay in bounds.  Padding slots go to the output's last slot, as the
-scatter's do.  The same canonical columns and raw values as
+scatter's do.  A part is gathered in blocks of rows whose padded slots'
+transient stays within a byte budget (``part_bytes``), so one wide row
+(K in the thousands on a corpus at full gene width) does not size a
+whole part's transient.  The same canonical columns and raw values as
 the wire path's payloads, the same scatter and the same derive give the
 streamed derive tier's trajectory bit for bit.
 """
@@ -36,9 +39,9 @@ from .densify import _part, to_wire
 # throughout; beside them first the gathered int16 columns (2) and the bool
 # mask and its negation (1 + 1), then the gathered int16 values (2), their
 # int32 widening (4) and their float32 values (4): 18, rounded up to 24 for
-# the caching allocator's block rounding.  The trainer's auto gate sizes a
-# part's transient from it (``train/loop.py``); ``chip_smoke.py`` phase 10
-# measures it.
+# the caching allocator's block rounding.  ``ResidentCSR`` sizes its row
+# blocks from it and the trainer's auto gate a row's transient
+# (``train/loop.py``); ``chip_smoke.py`` phase 10 measures it.
 PART_BYTES_PER_SLOT = 24
 
 
@@ -50,9 +53,12 @@ class ResidentCSR:
     the device from the trainer's verified per-row multiplier ``m``.  The
     trainer engages it inside the DCA_TPU_RESIDENT_MIN_BYTES ..
     DCA_TPU_RESIDENT_BYTES budget; DCA_TPU_RESIDENT=1/0 forces it.
+    ``part_bytes``: the transient a block of a part's rows may take
+    (``PART_BYTES_PER_SLOT`` a padded slot, at least one row a block);
+    None gathers a part in one block.
     """
 
-    def __init__(self, T, m, sf, scale_mean, scale_std, device):
+    def __init__(self, T, m, sf, scale_mean, scale_std, device, part_bytes=None):
         canonicalize_csr(T)
         device = torch.device(device)
         self.device = device
@@ -60,6 +66,8 @@ class ResidentCSR:
         assert T.nnz < np.iinfo(np.int32).max, "resident CSR needs nnz < 2^31"
         lens = np.diff(T.indptr).astype(np.int64)
         self.K = max(int(lens.max()) if lens.size else 0, 1)
+        self.block_rows = (None if part_bytes is None
+                           else max(int(part_bytes) // (self.K * PART_BYTES_PER_SLOT), 1))
         col = T.indices
         col = col.astype(np.int16) if self.G < np.iinfo(np.int16).max else col.astype(np.int32)
         d = T.data
@@ -106,20 +114,26 @@ class ResidentCSR:
     def target(self, rows, t_out=None):
         """The dense raw-count target (B, G) of ``rows`` (a device int64
         tensor), built in ``t_out`` when given (a 1-D float32 buffer of at
-        least B * G + 1 elements, the last taking the padding)."""
+        least B * G + 1 elements, the last taking the padding), a block of
+        ``block_rows`` rows at a time."""
         dev = self.device
         B, G = rows.shape[0], self.G
         t_out, trash = _part(t_out, B, G, dev)
-        starts = self.starts_d[rows]
-        mask = self._k < self.lens_d[rows].view(B, 1)
-        flat = self.col_rows[starts].to(torch.int64)
-        flat += torch.arange(B, device=dev, dtype=torch.int64).mul_(G).view(B, 1)
-        flat.masked_fill_(~mask, trash)
-        del mask
-        vals = self.val_rows[starts]
-        vals = (vals.to(torch.int32).bitwise_and_(0xFFFF).to(torch.float32) if self.uint16
-                else vals.to(torch.float32))
-        t_out.index_put_((flat.view(-1),), vals.view(-1))
+        step = max(self.block_rows or B, 1)
+        for lo in range(0, B, step):
+            r = rows[lo:lo + step]
+            b = r.shape[0]
+            starts = self.starts_d[r]
+            mask = self._k < self.lens_d[r].view(b, 1)
+            flat = self.col_rows[starts].to(torch.int64)
+            flat += torch.arange(lo, lo + b, device=dev, dtype=torch.int64).mul_(G).view(b, 1)
+            flat.masked_fill_(~mask, trash)
+            del mask
+            vals = self.val_rows[starts]
+            vals = (vals.to(torch.int32).bitwise_and_(0xFFFF).to(torch.float32) if self.uint16
+                    else vals.to(torch.float32))
+            t_out.index_put_((flat.view(-1),), vals.view(-1))
+            del flat, vals
         return t_out[:B * G].view(B, G)
 
     def part(self, rows, x_out=None, t_out=None, sf_out=None):

@@ -887,6 +887,22 @@ def _gather_terms(t, mesh, n, width):
 # ---------------------------------------------------------------------------
 
 
+def _row_block(M, lo, hi):
+    """Rows [lo, hi) of ``M``: of a CSR matrix a CSR over views of its
+    arrays, not the copy scipy's slice makes (seconds a call at corpus
+    scale).  ``M`` is made canonical in place first (``canonicalize_csr``:
+    the same matrix, its indices sorted and duplicates summed, once a
+    matrix, as the resident tier's upload does), so that nothing later
+    compacts a view's entries inside ``M``'s arrays under ``M``'s own row
+    pointers."""
+    if not sp.isspmatrix_csr(M):
+        return M[lo:hi]
+    canonicalize_csr(M)
+    a, b = int(M.indptr[lo]), int(M.indptr[hi])
+    return sp.csr_matrix((M.data[a:b], M.indices[a:b], M.indptr[lo:hi + 1] - a),
+                         shape=(hi - lo, M.shape[1]), copy=False)
+
+
 def _derivable_row_scale(Xn, raw):
     """Per-row multiplier ``m`` with ``Xn == log1p(raw * m)`` elementwise,
     or None when the normalized input is not derivable from the raw target
@@ -1007,6 +1023,40 @@ def _val_weights(n, data_index, n_data):
     return part_rows(w, n + pad, data_index, n_data)
 
 
+# The most elements of a validation block of the streaming trainer: on one
+# device a validation part's loss is taken block by block, each block's
+# mean weighted by its rows.  K1 reduces a launch's elements in float32,
+# and over a whole part of 26,215 x 27,256 (7.1e8 elements) its mean
+# parted from the float64 mean by up to 3.9e-7 of it, in blocks of 4096
+# rows by 3.5e-8 (H100, PERF.md).
+_VAL_BLOCK_ELEMENTS = 1 << 26
+
+
+def _val_blocks(k, width):
+    """Row ranges [lo, hi) of a ``k``-row validation part ``width`` genes
+    wide, each of at most ``_VAL_BLOCK_ELEMENTS`` elements (a row at
+    least)."""
+    step = max(_VAL_BLOCK_ELEMENTS // max(width, 1), 1)
+    return [(lo, min(lo + step, k)) for lo in range(0, k, step)]
+
+
+def _tag(pi, kind, rows):
+    """The attributes of a streamed part's spans and counter: its number,
+    its kind and the rows this rank stages."""
+    return {"part": pi, "kind": kind, "rows": len(rows)}
+
+
+def _host_bytes(*arrays):
+    """The bytes of host arrays, a payload chunk counted by its arrays."""
+    n = 0
+    for a in arrays:
+        if isinstance(a, (SparseChunk, FlatChunk, Flat8Chunk)):
+            n += _host_bytes(*(getattr(a, k) for k in a.__slots__))
+        elif isinstance(a, np.ndarray):
+            n += a.nbytes
+    return n
+
+
 def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, batch_size,
                      validation_split, use_raw_as_output, output_subset, seed, verbose,
                      max_device_cells, mesh=None, graphs=True, output_dir=None,
@@ -1080,8 +1130,9 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
         corpus is uploaded once and every part is gathered on the device;
         DCA_TPU_RESIDENT=1/0 forces it, 'auto' engages it when the payload
         is within DCA_TPU_RESIDENT_MIN_BYTES .. DCA_TPU_RESIDENT_BYTES and a
-        part's transient (``resident.PART_BYTES_PER_SLOT`` a padded slot)
-        within DCA_TPU_RESIDENT_PART_BYTES.
+        row's transient (``resident.PART_BYTES_PER_SLOT`` a padded slot)
+        within DCA_TPU_RESIDENT_PART_BYTES, the budget of the blocks of
+        rows a part is gathered in.
     A prefetch thread stages DCA_TPU_PREFETCH parts ahead (default 1; 0
     stages on the main thread), on a side stream on a CUDA device; the
     resident tier stages on the main thread, at most
@@ -1125,8 +1176,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
     # a rank stages (B, K) slabs of its own rows: the padded payload
     pmode = "padded" if group is not None else "auto"
 
-    X_tr, X_va = X[:split_at], X[split_at:]
-    T_tr, T_va = target[:split_at], target[split_at:]
+    X_tr, X_va = _row_block(X, 0, split_at), _row_block(X, split_at, n)
+    T_tr, T_va = _row_block(target, 0, split_at), _row_block(target, split_at, n)
     m_tr = m_va = None
     if (dev_densify and group is None and scale_mean is not None
             and os.environ.get("DCA_TPU_DERIVE_INPUT", "1") != "0"):
@@ -1156,16 +1207,16 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
         rlo = int(os.environ.get("DCA_TPU_RESIDENT_MIN_BYTES", 64_000_000))
         rhi = int(os.environ.get("DCA_TPU_RESIDENT_BYTES", 4_000_000_000))
         rest = ResidentCSR.payload_bytes(target)
-        # a part's transient grows with K (the widest row), so one heavy
-        # row can blow a part past the device on a wide panel even when
-        # the payload is small: auto declines those (force with
-        # DCA_TPU_RESIDENT=1 after shrinking max_device_cells)
+        # a part's transient grows with K (the widest row): a part is
+        # gathered in blocks of rows within part_b, and auto declines only
+        # where one row's padded slots alone pass it
         kmax = int(np.diff(target.indptr).max()) if target.shape[0] else 0
         part_b = int(os.environ.get("DCA_TPU_RESIDENT_PART_BYTES", 6_000_000_000))
-        auto_ok = rlo <= rest <= rhi and chunk * kmax * PART_BYTES_PER_SLOT <= part_b
+        auto_ok = rlo <= rest <= rhi and kmax * PART_BYTES_PER_SLOT <= part_b
         if rmode == "1" or (rmode != "0" and auto_ok):
             m_full = np.concatenate([m_tr, m_va]) if has_val else m_tr
-            resident = ResidentCSR(target, m_full, sf, scale_mean, scale_std, device)
+            resident = ResidentCSR(target, m_full, sf, scale_mean, scale_std, device,
+                                   part_bytes=part_b)
             if verbose:
                 print(f"dca_tpu_torch: corpus resident on device "
                       f"({rest / 1e6:.0f} MB payload) [streaming]")
@@ -1233,11 +1284,15 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
         return dense
 
     def write_part(slot, xc, tc, sfc, m_part):
+        """Write a part into ``slot``; returns the host bytes it copied to
+        the device."""
+        sfc = np.ascontiguousarray(sfc, np.float32)
         if m_part is not None and xc is tc:
             # one payload: densify the target, derive the input from it
             t = to_device(tc, slot.t_flat)
             derive_input(t, upload(m_part, device), mean_d, std_d,
                          slot.x_flat[:t.numel()].view(t.shape))
+            sent = _host_bytes(tc, m_part)
         elif (isinstance(xc, FlatChunk) and isinstance(tc, FlatChunk)
               and xc.counts is tc.counts and xc.col is tc.col):
             # a shared pattern: its index stream crosses once
@@ -1245,36 +1300,41 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             device_densify_flat(cnt, col, xc.val, xc.n_rows, xc.n_cols, mean_d, std_d,
                                 out=slot.x_flat)
             device_densify_flat(cnt, col, tc.val, tc.n_rows, tc.n_cols, out=slot.t_flat)
+            sent = _host_bytes(xc.counts, xc.col, xc.val, tc.val)
         elif (isinstance(xc, SparseChunk) and isinstance(tc, SparseChunk)
               and xc.idx is tc.idx):
             idx = upload(xc.idx, device)
             device_densify(idx, xc.dat, xc.n_cols, mean_d, std_d, out=slot.x_flat)
             device_densify(idx, tc.dat, tc.n_cols, out=slot.t_flat)
+            sent = _host_bytes(xc.idx, xc.dat, tc.dat)
         else:
             # a dense part comes z-scaled from the loader, a payload is
             # scaled on the device
             scale = (None, None) if isinstance(xc, np.ndarray) else (mean_d, std_d)
             to_device(xc, slot.x_flat, *scale)
             to_device(tc, slot.t_flat)
-        slot.sf[:len(sfc)].copy_(torch.from_numpy(np.ascontiguousarray(sfc, np.float32)),
-                                 non_blocking=True)
+            sent = _host_bytes(xc) + _host_bytes(tc)
+        slot.sf[:len(sfc)].copy_(torch.from_numpy(sfc), non_blocking=True)
+        return sent + sfc.nbytes
 
-    def stage(pi, kind, slot, write):
+    def stage(tag, slot, write):
         """Write a part into ``slot`` once it is free (nothing when the fit
-        is being torn down)."""
+        is being torn down), and count the host bytes ``write`` returns
+        (``stream.bytes``).  ``tag``: the part's span attributes."""
         slot.free.acquire()
         if closing.is_set():
             slot.free.release()
             return
         if not cuda:
-            write()
-            return
-        with torch.cuda.stream(stage_stream):
-            stage_stream.wait_event(slot.done)
-            with timeline.device_span("dca.stream.stage", cuda, part=pi, kind=kind):
-                write()
-            slot.ready = torch.cuda.Event()
-            slot.ready.record(stage_stream)
+            sent = write()
+        else:
+            with torch.cuda.stream(stage_stream):
+                stage_stream.wait_event(slot.done)
+                with timeline.device_span("dca.stream.stage", cuda, **tag):
+                    sent = write()
+                slot.ready = torch.cuda.Event()
+                slot.ready.record(stage_stream)
+        timeline.count("stream.bytes", sent, **tag)
 
     def prepare(sd, rows):
         if len(rows) == 0:
@@ -1282,12 +1342,12 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
         m = getattr(sd, "derive_m", None)
         return sd.materialize(rows), (m[rows] if m is not None else None)
 
-    def ship(pi, kind, slot, prep):
+    def ship(tag, slot, prep):
         if prep is None:
-            stage(pi, kind, slot, lambda: None)
+            stage(tag, slot, lambda: 0)
             return
         (xc, tc, sfc), m_part = prep
-        stage(pi, kind, slot, lambda: write_part(slot, xc, tc, sfc, m_part))
+        stage(tag, slot, lambda: write_part(slot, xc, tc, sfc, m_part))
 
     pf = os.environ.get("DCA_TPU_PREFETCH", "1")
     depth = max(int(pf) if pf.isdigit() else 1, 0)
@@ -1302,42 +1362,48 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             ahead = max(int(os.environ.get("DCA_TPU_RESIDENT_AHEAD", "1")), 0)
             window = []
             for pi, (kind, sd, _, idx) in enumerate(tasks):
-                slot = slots[pi % 2]
-                with timeline.span("dca.stream.wait", part=pi, kind=kind):
+                slot, tag = slots[pi % 2], _tag(pi, kind, idx)
+                with timeline.span("dca.stream.wait", **tag):
                     if cuda and ahead and len(window) >= ahead:
                         window.pop(0).synchronize()
                     rows = idx if sd is tr else np.asarray(idx) + split_at
-                    stage(pi, kind, slot, lambda: resident.part(rows, slot.x_flat,
-                                                                slot.t_flat, slot.sf))
+
+                    def write():
+                        resident.part(rows, slot.x_flat, slot.t_flat, slot.sf)
+                        return 8 * len(rows)  # the int64 row ids
+
+                    stage(tag, slot, write)
                     if cuda and ahead:
                         window.append(slot.ready)
                 yield slot
             return
         if pool is None:
             for pi, (kind, sd, _, rows) in enumerate(tasks):
-                with timeline.span("dca.stream.wait", part=pi, kind=kind):
-                    ship(pi, kind, slots[pi % 2], prepare(sd, rows))
+                tag = _tag(pi, kind, rows)
+                with timeline.span("dca.stream.wait", **tag):
+                    ship(tag, slots[pi % 2], prepare(sd, rows))
                 yield slots[pi % 2]
             return
 
         @timeline.carry  # the prefetch thread's spans are the fit's
-        def work(pi, kind, sd, rows):
-            with timeline.span("dca.stream.prep", part=pi, kind=kind):
+        def work(pi, tag, sd, rows):
+            with timeline.span("dca.stream.prep", **tag):
                 p = prepare(sd, rows)
-            with timeline.span("dca.stream.ship", part=pi, kind=kind):
-                ship(pi, kind, slots[pi % 2], p)
+            with timeline.span("dca.stream.ship", **tag):
+                ship(tag, slots[pi % 2], p)
 
         pending = deque()
         for pi, (kind, sd, _, rows) in enumerate(tasks):
-            pending.append((pi, kind, pool.submit(work, pi, kind, sd, rows)))
+            tag = _tag(pi, kind, rows)
+            pending.append((pi, tag, pool.submit(work, pi, tag, sd, rows)))
             while len(pending) > depth:
                 yield _take(pending)
         while pending:
             yield _take(pending)
 
     def _take(pending):
-        ppi, pkind, fut = pending.popleft()
-        with timeline.span("dca.stream.wait", part=ppi, kind=pkind):
+        ppi, tag, fut = pending.popleft()
+        with timeline.span("dca.stream.wait", **tag):
             fut.result()
         return slots[ppi % 2]
 
@@ -1352,7 +1418,9 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             # ``epoch_s``; a part's wait for its staging and the dispatch of
             # its steps or its evaluation, and on the card its device time
             # on the main stream (and its staging's on the side stream); the
-            # prefetch thread's prep and ship; the read-back
+            # prefetch thread's prep and ship; the read-back.  A part's
+            # spans carry its number, kind and rows (``_tag``), and its
+            # staging counts the host bytes it copied (``stream.bytes``)
             with timeline.timed("dca.fit.epoch", leaf=False) as span:
                 perm = rng_np.permutation(n_train)
                 bufs.lr.fill_(cbs.lr)
@@ -1366,11 +1434,11 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                 grad_part = (n_parts if has_val else n_parts - 1) if tb else -1
                 for pi, ((kind, _, n_rows, rows), slot) in enumerate(zip(tasks,
                                                                          staged(tasks))):
-                    with timeline.span("dca.stream.dispatch", part=pi, kind=kind):
+                    tag = _tag(pi, kind, rows)
+                    with timeline.span("dca.stream.dispatch", **tag):
                         if cuda:
                             torch.cuda.current_stream(device).wait_event(slot.ready)
-                        with timeline.device_span("dca.stream.device", cuda, part=pi,
-                                                  kind=kind):
+                        with timeline.device_span("dca.stream.device", cuda, **tag):
                             k, w, shard = len(rows), val_w.get(pi), None
                             if group is not None:
                                 shard = (batch_shard(mesh, k * n_data) if kind == "val"
@@ -1380,11 +1448,20 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
                             elif kind == "rem":
                                 run((pi % 2, True))
                             else:
+                                # one device: block by block (_val_blocks);
+                                # under a group or with weights, whole
+                                x, sf, t = slot.head(k)
+                                blocks = ([(0, k)] if group is not None or w is not None
+                                          else _val_blocks(k, g_out))
                                 with torch.no_grad():
-                                    loss, _ = network.loss_fn(*slot.head(k), False,
-                                                              sample_weights=w, shard=shard)
-                                val_losses.append(loss.detach().reshape(1))
-                                val_rows.append(n_rows)
+                                    for lo, hi in blocks:
+                                        loss, _ = network.loss_fn(x[lo:hi], sf[lo:hi],
+                                                                  t[lo:hi], False,
+                                                                  sample_weights=w,
+                                                                  shard=shard)
+                                        val_losses.append(loss.detach().reshape(1))
+                                        val_rows.append(n_rows if len(blocks) == 1
+                                                        else hi - lo)
                             if pi == grad_part:
                                 grads = _tb_grads(network, *slot.head(k), w, shard)
                         if cuda:
@@ -1405,8 +1482,8 @@ def _train_streaming(adata, network, opt, lr, *, epochs, reduce_lr, early_stop, 
             train_loss = (sums[0] * bs + sums[1] * rem) / max(n_train, 1)
             val_loss = None
             if has_val:
-                # each chunk's mean, weighted by its rows; one chunk gives
-                # its loss exactly
+                # each chunk's (or block's) mean, weighted by its rows; one
+                # chunk gives its loss exactly
                 val_loss = sum(v * k for v, k in zip(sums[2:], val_rows)) / max(sum(val_rows), 1)
             monitor = val_loss if has_val else train_loss
             if tb:

@@ -363,6 +363,30 @@ def test_resident_part_equals_jax():
     assert ResidentCSR.payload_bytes(Xs) == Xs.nnz * 4 + 80 * 24
 
 
+@pytest.mark.parametrize("budget", [1, 12 * 7 * 24, 12 * 40 * 24])
+def test_a_resident_part_in_row_blocks_is_the_whole_parts(budget):
+    """Gathered in blocks of rows whose padded slots fit ``part_bytes``
+    (one row at least), a part is the part gathered whole, bit for bit."""
+    from dca_tpu_torch.ops.resident import PART_BYTES_PER_SLOT
+
+    rs = np.random.RandomState(42)
+    X = make_counts(80, 12, seed=42)
+    X[X < 2] = 0
+    X[5] = 0
+    X[7, :] = 1.0  # K = G
+    Xs = sp.csr_matrix(X)
+    args = (rs.uniform(0.5, 2.0, 80), rs.uniform(0.5, 2.0, 80), rs.normal(size=12),
+            rs.uniform(0.5, 2.0, 12), "cpu")
+    whole = ResidentCSR(Xs, *args)
+    r = ResidentCSR(Xs, *args, part_bytes=budget)
+    assert whole.block_rows is None
+    assert r.block_rows == max(budget // (12 * PART_BYTES_PER_SLOT), 1)
+    rows = np.concatenate([[5, 7, 79], rs.permutation(80)[:30]])
+    for a, b in zip(r.part(rows), whole.part(rows)):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(r.part(rows)[1].numpy(), X[rows])
+
+
 def test_resident_float_values_keep_float32():
     X = make_counts(30, 10, seed=41) * 0.5
     r = ResidentCSR(sp.csr_matrix(X), np.ones(30), np.ones(30), np.zeros(10), np.ones(10), "cpu")

@@ -38,8 +38,9 @@ from dca_tpu.train.loop import train as jtrain
 import dca_tpu_torch
 from dca_tpu_torch.bridge import params_from_jax
 from dca_tpu_torch.data import io
-from dca_tpu_torch.data.adata import AnnData
+from dca_tpu_torch.data.adata import AnnData, Raw
 from dca_tpu_torch.models.network import AE_types
+from dca_tpu_torch.ops.resident import PART_BYTES_PER_SLOT
 from dca_tpu_torch.train import loop
 from dca_tpu_torch.train.loop import train
 
@@ -157,6 +158,87 @@ def test_resident_gives_the_derived_tiers_bits(monkeypatch, bridged):
     derived = _port_fit(bridged)
     _env(monkeypatch, TIERS["resident"])
     assert _port_fit(bridged) == derived
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_the_resident_gate_takes_a_part_past_its_budget_in_row_blocks(monkeypatch, bridged,
+                                                                      capsys, rows):
+    """Auto engages the resident corpus where ``rows`` rows' padded slots
+    fit DCA_TPU_RESIDENT_PART_BYTES though a part's (64 rows) do not, and
+    the parts, gathered in blocks of ``rows`` rows, give the derived tier's
+    bits."""
+    _env(monkeypatch, TIERS["derived"])
+    derived = _port_fit(bridged)
+    budget = PART_BYTES_PER_SLOT * N_GENES * rows  # the widest row holds every gene
+    _env(monkeypatch, {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_RESIDENT_MIN_BYTES": "0",
+                       "DCA_TPU_RESIDENT_PART_BYTES": str(budget)})
+    assert _port_fit(bridged, verbose=True) == derived
+    assert "corpus resident" in capsys.readouterr().out
+
+
+def test_a_validation_part_in_blocks_gives_its_loss(monkeypatch, bridged):
+    """On one device a validation part's loss is taken in blocks of at most
+    ``_VAL_BLOCK_ELEMENTS`` elements, each block's mean weighted by its
+    rows: the same training bits, and the validation loss within float32
+    rounding of the part's taken whole."""
+    assert loop._val_blocks(15, N_GENES) == [(0, 15)]
+    assert loop._val_blocks(10, loop._VAL_BLOCK_ELEMENTS // 4) == [(0, 4), (4, 8), (8, 10)]
+    assert loop._val_blocks(3, loop._VAL_BLOCK_ELEMENTS * 2) == [(0, 1), (1, 2), (2, 3)]
+    _env(monkeypatch, TIERS["derived"])
+    whole = _port_fit(bridged)
+    monkeypatch.setattr(loop, "_VAL_BLOCK_ELEMENTS", 4 * N_GENES)  # the 15 rows in 4 blocks
+    cls, rows = AE_types["nb-conddisp"], []
+    plain = cls.loss_fn
+
+    def loss_fn(self, count, size_factors, target, training, *args, **kw):
+        if not training:  # a validation block
+            rows.append(count.shape[0])
+        return plain(self, count, size_factors, target, training, *args, **kw)
+
+    monkeypatch.setattr(cls, "loss_fn", loss_fn)
+    blocks = _port_fit(bridged)
+    assert rows == [4, 4, 4, 3] * FIT["epochs"]
+    assert blocks["loss"] == whole["loss"]
+    np.testing.assert_allclose(blocks["val_loss"], whole["val_loss"], rtol=1e-6)
+
+
+def _scrambled(M):
+    """``M`` with each row's entries in reverse order and its first entry
+    split in two halves: unsorted, with duplicates, the same matrix."""
+    data, idx, ptr = [], [], [0]
+    for r in range(M.shape[0]):
+        d = M.data[M.indptr[r]:M.indptr[r + 1]][::-1]
+        i = M.indices[M.indptr[r]:M.indptr[r + 1]][::-1]
+        if len(d):
+            d = np.concatenate([[d[0] / 2, d[0] / 2], d[1:]]).astype(M.dtype)
+            i = np.concatenate([[i[0]], i])
+        data.append(d)
+        idx.append(i)
+        ptr.append(ptr[-1] + len(d))
+    out = sp.csr_matrix((np.concatenate(data), np.concatenate(idx), np.array(ptr)),
+                        shape=M.shape)
+    assert not out.has_canonical_format and out.nnz > M.nnz
+    np.testing.assert_array_equal(out.toarray(), M.toarray())
+    return out
+
+
+@pytest.mark.parametrize("tier", ["derived", "flat"])
+def test_a_streamed_fit_on_unsorted_duplicate_entries(monkeypatch, bridged, tier):
+    """An input and a target whose rows hold unsorted and duplicate
+    entries stream as their canonical copies do, and each stays the matrix
+    it was (its row blocks are views of its arrays)."""
+    _env(monkeypatch, TIERS[tier])
+    want = _port_fit(bridged)
+    ad = io.normalize(io.read_dataset(AnnData(sp.csr_matrix(_counts()))), lazy_scale=True)
+    X, R = ad.X.toarray(), ad.raw.X.toarray()
+    ad.X = _scrambled(ad.X)
+    ad.raw = Raw(_scrambled(ad.raw.X), ad.raw.var, ad.raw.obs_names)
+    net = AE_types["nb-conddisp"](input_size=N_GENES, hidden_size=(8, 4, 8), hidden_dropout=0.0,
+                                  device="cpu").build()
+    net.model.load_state_dict(bridged)
+    assert train(ad, net, **FIT).history == want
+    np.testing.assert_array_equal(ad.X.toarray(), X)
+    np.testing.assert_array_equal(ad.raw.X.toarray(), R)
 
 
 @pytest.mark.parametrize("env", [{}, TIERS["flat"]], ids=["host", "flat"])

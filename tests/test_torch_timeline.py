@@ -15,6 +15,7 @@ import threading
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from dca_tpu_torch import timeline
@@ -181,6 +182,84 @@ def test_the_streaming_trainer_records_its_stages():
         assert {"dca.stream.prep", "dca.stream.ship", "dca.fit.fetch"} <= {
             s.name for s in stages}
     assert {s.tid for s in rec.named("dca.stream.prep")} != {threading.get_native_id()}
+
+
+def _payload_nbytes(x, t, sf, derived):
+    """The host bytes of a materialized part: each array of the input and
+    target payloads once (a derived input's payload is the target's, a
+    shared index stream is one array), the size factors, and a derived
+    input's float32 row multipliers."""
+    seen = {}
+    for part in (x, t, sf):
+        for a in ([part] if isinstance(part, np.ndarray) else
+                  [getattr(part, k) for k in part.__slots__]):
+            if isinstance(a, np.ndarray):
+                seen[id(a)] = a.nbytes
+    return sum(seen.values()) + (4 * len(sf) if derived else 0)
+
+
+@pytest.mark.parametrize("tier,env", [
+    ("host", {}),
+    ("derived", {"DCA_TPU_DEVICE_DENSIFY": "1"}),
+    ("padded", {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_DERIVE_INPUT": "0",
+                "DCA_TPU_PAYLOAD": "padded"}),
+    ("resident", {"DCA_TPU_DEVICE_DENSIFY": "1", "DCA_TPU_RESIDENT": "1"}),
+])
+def test_the_streamed_parts_carry_their_rows_and_bytes(monkeypatch, tier, env):
+    """A fit that train()'s gate streams (DCA_TPU_DEVICE_BYTES lowered):
+    every ``dca.stream.*`` span carries its part's rows, which sum over an
+    epoch's parts to the training and the validation rows, and each staged
+    part counts once, in ``stream.bytes``, the host bytes of the payload
+    the program built for it (the resident tier: the int64 row ids)."""
+    from dca_tpu_torch.data.loader import StreamingData
+
+    monkeypatch.setenv("DCA_TPU_DEVICE_BYTES", "1000")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    built = []
+    real = StreamingData.materialize
+
+    def spy(self, idx):
+        out = real(self, idx)
+        built.append(_payload_nbytes(*out, derived=self.derive_input))
+        return out
+
+    monkeypatch.setattr(StreamingData, "materialize", spy)
+    counts = sp.csr_matrix(make_counts(150, 20, seed=4))
+    adata = io.normalize(io.read_dataset(AnnData(counts)), lazy_scale=True)
+    with timeline.recording() as rec:
+        train(adata, _net(), epochs=2, **FIT)
+    n_train = int(150 * 0.9)
+    stream = [s for s in rec.spans if s.name.startswith("dca.stream.")]
+    assert {"dca.stream.wait", "dca.stream.dispatch"} <= {s.name for s in stream}
+    assert all(isinstance(s.attrs["rows"], int) for s in stream)
+    counted = rec.counted("stream.bytes")
+    for e in (0, 1):
+        for name in {s.name for s in stream}:
+            parts = {s.attrs["part"]: s for s in stream if s.name == name and s.epoch == e}
+            assert sum(s.attrs["rows"] for s in parts.values()
+                       if s.attrs["kind"] != "val") == n_train, name
+            assert sum(s.attrs["rows"] for s in parts.values()
+                       if s.attrs["kind"] == "val") == 150 - n_train, name
+        mine = sorted((c for c in counted if c.epoch == e), key=lambda c: c.attrs["part"])
+        waits = sorted((s for s in stream if s.name == "dca.stream.wait" and s.epoch == e),
+                       key=lambda s: s.attrs["part"])
+        assert [c.attrs for c in mine] == [s.attrs for s in waits]
+    if tier == "resident":
+        assert not built
+        assert [c.n for c in counted] == [8 * c.attrs["rows"] for c in counted]
+    else:
+        assert [c.n for c in sorted(counted, key=lambda c: (c.epoch, c.attrs["part"]))] == built
+
+
+def test_an_in_memory_fit_records_no_part_attributes():
+    """The in-memory fit records neither the streamed parts' rows nor
+    their bytes."""
+    with timeline.recording() as rec:
+        train(_adata(), _net(), epochs=2, **FIT)
+    assert rec.spans and not rec.counted("stream.bytes")
+    assert not any(s.name.startswith("dca.stream.") or "rows" in s.attrs for s in rec.spans)
+    assert not any("rows" in c.attrs for c in rec.counts)
 
 
 def test_the_compiled_fit_records_its_epochs_and_fetch():
